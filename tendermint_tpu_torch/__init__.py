@@ -1,0 +1,36 @@
+"""PyTorch/CUDA port of the tendermint_tpu batch-verification path.
+
+The package mirrors the module names of :mod:`tendermint_tpu` so each
+file has an obvious counterpart there, but it imports nothing from it
+(nor ``jax``): what it needs of the reference's jax-free modules is
+copied. The device work runs in two hand-written CUDA kernels
+(``csrc/ed25519_verify.cu``) behind ``ops/cuda_verify.py``; every kernel
+has a plain PyTorch version that runs for CPU tensors.
+
+Entry points (``ops.verify_batch``, ``crypto.batch.Ed25519BatchVerifier``,
+``types.validation.verify_commit``) take ``device=``. Without it they use
+:data:`DEFAULT_DEVICE`, which is ``"cuda"``: where CUDA is absent they
+raise rather than run on the CPU. Tests set ``DEFAULT_DEVICE = "cpu"``.
+"""
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device=None):
+    """``device`` (or :data:`DEFAULT_DEVICE`) as a ``torch.device``.
+
+    Raises ``RuntimeError`` for a CUDA device when CUDA is unavailable:
+    the port never moves device work to the CPU on its own.
+    """
+    import torch
+
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "tendermint_tpu_torch: device 'cuda' requested but "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "the plain PyTorch versions"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"tendermint_tpu_torch: unsupported device {dev}")
+    return dev

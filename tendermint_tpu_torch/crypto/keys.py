@@ -1,0 +1,107 @@
+"""Ed25519 keys and addresses.
+
+The ed25519 part of ``tendermint_tpu/crypto/keys.py`` (reference
+crypto/crypto.go:38-76): ``PubKey`` (address, bytes, verify),
+``PrivKey`` (sign, pub_key) and 20-byte addresses, SHA256(pubkey)[:20]
+(crypto/crypto.go:27 AddressHash). Verification follows ZIP-215 through
+the host oracle; signing follows RFC 8032.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from abc import ABC, abstractmethod
+
+from tendermint_tpu_torch.crypto import ed25519_ref
+
+ADDRESS_LEN = 20
+
+ED25519_KEY_TYPE = "ed25519"
+
+ED25519_PUBKEY_SIZE = 32
+ED25519_PRIVKEY_SIZE = 64
+ED25519_SIG_SIZE = 64
+
+
+def address_hash(data: bytes) -> bytes:
+    """crypto.AddressHash: first 20 bytes of SHA-256."""
+    return hashlib.sha256(data).digest()[:ADDRESS_LEN]
+
+
+class PubKey(ABC):
+    @abstractmethod
+    def address(self) -> bytes: ...
+
+    @abstractmethod
+    def bytes(self) -> bytes: ...
+
+    @abstractmethod
+    def verify_signature(self, msg: bytes, sig: bytes) -> bool: ...
+
+    @property
+    @abstractmethod
+    def type(self) -> str: ...
+
+    def __eq__(self, other) -> bool:
+        return (
+            isinstance(other, PubKey)
+            and self.type == other.type
+            and self.bytes() == other.bytes()
+        )
+
+    def __hash__(self) -> int:
+        return hash((self.type, self.bytes()))
+
+
+class Ed25519PubKey(PubKey):
+    __slots__ = ("_bytes",)
+
+    def __init__(self, data: bytes):
+        if len(data) != ED25519_PUBKEY_SIZE:
+            raise ValueError(f"ed25519 pubkey must be 32 bytes, got {len(data)}")
+        self._bytes = bytes(data)
+
+    def address(self) -> bytes:
+        return address_hash(self._bytes)
+
+    def bytes(self) -> bytes:
+        return self._bytes
+
+    def verify_signature(self, msg: bytes, sig: bytes) -> bool:
+        if len(sig) != ED25519_SIG_SIZE:
+            return False
+        return ed25519_ref.verify_zip215(self._bytes, msg, sig)
+
+    @property
+    def type(self) -> str:
+        return ED25519_KEY_TYPE
+
+
+class Ed25519PrivKey:
+    """64-byte layout: seed || pubkey (crypto/ed25519/ed25519.go:76-82)."""
+
+    __slots__ = ("_bytes",)
+
+    def __init__(self, data: bytes):
+        if len(data) == 32:  # bare seed
+            data, _ = ed25519_ref.keypair_from_seed(bytes(data))
+        if len(data) != ED25519_PRIVKEY_SIZE:
+            raise ValueError(f"ed25519 privkey must be 64 bytes, got {len(data)}")
+        self._bytes = bytes(data)
+
+    @classmethod
+    def from_seed(cls, seed: bytes) -> "Ed25519PrivKey":
+        return cls(seed)
+
+    def bytes(self) -> bytes:
+        return self._bytes
+
+    def sign(self, msg: bytes) -> bytes:
+        return ed25519_ref.sign(self._bytes, msg)
+
+    def pub_key(self) -> Ed25519PubKey:
+        return Ed25519PubKey(self._bytes[32:])
+
+    @property
+    def type(self) -> str:
+        return ED25519_KEY_TYPE

@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, every ``csrc/*.cu`` source is compiled by ``nvcc`` into
+its own shared library with a plain C interface (all sources at once,
+one ``nvcc`` process each), which is then loaded with ``ctypes``. A
+library is named after a digest of its source and the flags, so an
+edited source rebuilds; the result is renamed into place atomically.
+A failed build raises with nvcc's output.
+
+The build directory is ``build/kernels`` beside the package (listed in
+``.gitignore``), or ``$TENDERMINT_TPU_TORCH_BUILD_DIR``. ``nvcc`` is
+taken from ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
+build_log: Dict[str, str] = {}  # source name -> nvcc/ptxas output of its build
+
+
+def build_dir() -> str:
+    return os.environ.get(
+        "TENDERMINT_TPU_TORCH_BUILD_DIR",
+        os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels"),
+    )
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if os.path.exists(cand):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _sources() -> List[str]:
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
+def _lib_path(src: str) -> str:
+    with open(os.path.join(CSRC_DIR, src), "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(build_dir(), f"lib{src[:-3]}-{digest}.so")
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Compile every stale source in parallel and load all libraries.
+    Returns {source stem: library}."""
+    with _lock:
+        todo = [s for s in _sources() if s[:-3] not in _libs]
+        os.makedirs(build_dir(), exist_ok=True)
+        procs = {}
+        for src in todo:
+            out = _lib_path(src)
+            if not os.path.exists(out):
+                tmp = f"{out}.{os.getpid()}.tmp"
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+                procs[src] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                ), tmp, out)
+        failed = []
+        for src, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            build_log[src] = log
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {src} (exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for src in todo:
+            _libs[src[:-3]] = ctypes.CDLL(_lib_path(src))
+        return dict(_libs)
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, built at first use."""
+    with _lock:
+        lib = _libs.get(stem)
+    return lib if lib is not None else build_all()[stem]

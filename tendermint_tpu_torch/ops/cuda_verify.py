@@ -1,0 +1,112 @@
+"""Wrappers of the two Ed25519 verification kernels.
+
+Counterpart of ``tendermint_tpu/ops/pallas_verify.py``. The kernels live
+in ``csrc/ed25519_verify.cu`` (its header note gives the design and the
+bound) and are built by :mod:`._build`:
+
+- :func:`verify` (K1, replaces ``pallas_verify._verify_kernel``):
+  (N, 32) uint8 A, R, s, k -> (N,) bool; decompresses A and R and
+  builds each lane's [1..8](-A) table.
+- :func:`verify_tables` (K2, replaces
+  ``pallas_verify._verify_tables_kernel``): takes the gathered
+  (8, 4, 32, N) uint8 tables and the (N,) uint8 a_ok instead of A.
+
+For CUDA tensors a wrapper launches its kernel on the current stream,
+or raises; for CPU tensors it runs the plain PyTorch version in
+:mod:`.ed25519_batch`. ``LAUNCHES`` counts kernel launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import numpy as np
+import torch
+
+from tendermint_tpu_torch.ops import _build, ed25519_batch as plain, field as F
+
+LAUNCHES: Dict[str, int] = {"verify": 0, "verify_tables": 0}
+
+# Field constants the kernels load into shared memory, as canonical
+# radix-2^8 byte rows: [1..8]B in Niels form (rows 0..23, entry-major),
+# then d, sqrt(-1), 2d.
+CONSTS = np.concatenate(
+    [
+        plain.B_NIELS.reshape(3 * 8, F.NLIMBS),
+        np.array([F.int_to_limbs(c) for c in (F.D, F.SQRT_M1, F.D2)], dtype=np.float32),
+    ]
+).astype(np.uint8)
+
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    "ed25519_verify_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
+    "ed25519_verify_tables_launch": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
+}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _launcher(name: str):
+    fn = getattr(_build.load("ed25519_verify"), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
+    if t.dtype != torch.uint8:
+        raise TypeError(f"{name}: expected uint8, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(name: str, args, n: int, device: torch.device) -> torch.Tensor:
+    out = torch.empty(n, dtype=torch.uint8, device=device)
+    if n:
+        with torch.cuda.device(device):
+            consts = F.on(CONSTS, out)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = _launcher(name)(
+                *[a.data_ptr() for a in args], consts.data_ptr(), out.data_ptr(), n, stream
+            )
+        if rc != 0:
+            raise RuntimeError(f"{name} failed: CUDA error {rc}")
+        LAUNCHES["verify_tables" if "tables" in name else "verify"] += 1
+    return out.view(torch.bool)
+
+
+def verify(pk: torch.Tensor, r: torch.Tensor, s: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """K1: (N, 32) uint8 A, R, s, k -> (N,) bool (not ANDed with s < L)."""
+    n = pk.shape[0]
+    for name, t in (("pk", pk), ("r", r), ("s", s), ("k", k)):
+        _check(name, t, (n, 32), pk.device)
+    if pk.device.type == "cpu":
+        return plain.verify_kernel(pk, r, s, k)
+    if pk.device.type != "cuda":
+        raise ValueError(f"verify: unsupported device {pk.device}")
+    return _launch("ed25519_verify_launch", (pk, r, s, k), n, pk.device)
+
+
+def verify_tables(
+    tab: torch.Tensor, a_ok: torch.Tensor, r: torch.Tensor, s: torch.Tensor, k: torch.Tensor
+) -> torch.Tensor:
+    """K2: (8, 4, 32, N) uint8 tables, (N,) uint8 a_ok, (N, 32) uint8
+    R, s, k -> (N,) bool."""
+    n = r.shape[0]
+    _check("tab", tab, (8, 4, 32, n), r.device)
+    _check("a_ok", a_ok, (n,), r.device)
+    for name, t in (("r", r), ("s", s), ("k", k)):
+        _check(name, t, (n, 32), r.device)
+    if r.device.type == "cpu":
+        return plain.verify_kernel_tables(tab, a_ok, r, s, k)
+    if r.device.type != "cuda":
+        raise ValueError(f"verify_tables: unsupported device {r.device}")
+    return _launch("ed25519_verify_tables_launch", (tab, a_ok, r, s, k), n, r.device)

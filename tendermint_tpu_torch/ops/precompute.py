@@ -1,0 +1,245 @@
+"""Validator-set-aware precompute and result caches for the verify path.
+
+Counterpart of ``tendermint_tpu/ops/precompute.py`` without its tracing
+and metrics hooks, env knobs and observers.
+
+- :class:`PrecomputeCache`: a bounded, thread-safe LRU keyed by raw
+  pubkey bytes, holding the host-built table column ``(8, 4, 32)``
+  uint8 of ``[1..8](-A)`` in cached form ``(Y+X, Y-X, Z, 2dT)`` plus the
+  decompression verdict. ``verify_batch`` gathers the columns into the
+  ``(8, 4, 32, N)`` input of the table kernel, which then skips the
+  decompression of A and the table build.
+- :class:`ResultCache`: a bounded LRU over ``(pubkey, sign-bytes
+  digest, sig)`` verdicts, so a vote verified once is not verified
+  again.
+
+Only keys of an *activated* validator set get host-built tables, so
+one-off keys from ad-hoc batches cannot thrash the cache; activating a
+new set drops entries of keys that left every active set.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+
+from tendermint_tpu_torch.crypto import ed25519_ref as ref
+
+TABLE_WIDTH = 8  # signed 4-bit windows select from [1..8](-A)
+NLIMBS = 32
+TABLE_CAP = 16384  # cached keys
+RESULT_CAP = 65536  # cached verdicts
+_ACTIVE_SETS_CAP = 8  # distinct validator sets considered live at once
+
+Entry = Tuple[np.ndarray, bool]
+
+
+def _limbs(v: int) -> np.ndarray:
+    """Canonical integer < 2^256 -> (32,) uint8 radix-2^8 limbs (LE)."""
+    return np.frombuffer(v.to_bytes(32, "little"), dtype=np.uint8)
+
+
+def _identity_table() -> np.ndarray:
+    """(8, 4, 32) table of cached-form identities (1, 1, 1, 0)."""
+    tab = np.zeros((TABLE_WIDTH, 4, NLIMBS), dtype=np.uint8)
+    tab[:, 0:3, 0] = 1
+    return tab
+
+
+def build_table(pk: bytes) -> Entry:
+    """Host-side table build: pubkey bytes -> ((8, 4, 32) uint8, decompress ok).
+
+    Entry ``i`` is ``(i+1) * (-A)`` in cached form with Z normalized to 1,
+    ``(y+x, y-x, 1, 2dxy)`` as canonical-integer limbs. Invalid encodings
+    get identity entries and ``ok=False`` (the kernel masks the lane).
+    """
+    p = ref.P
+    a_pt = ref.pt_decompress_liberal(pk) if len(pk) == 32 else None
+    if a_pt is None:
+        return _identity_table(), False
+    neg_a = ref.pt_neg(a_pt)
+    tab = np.zeros((TABLE_WIDTH, 4, NLIMBS), dtype=np.uint8)
+    acc = neg_a
+    for i in range(TABLE_WIDTH):
+        if i:
+            acc = ref.pt_add(acc, neg_a)
+        x_, y_, z_, _ = acc
+        zinv = pow(z_, p - 2, p)
+        x = x_ * zinv % p
+        y = y_ * zinv % p
+        tab[i, 0] = _limbs((y + x) % p)
+        tab[i, 1] = _limbs((y - x) % p)
+        tab[i, 2, 0] = 1
+        tab[i, 3] = _limbs(2 * ref.D * x * y % p)
+    return tab, True
+
+
+def _vset_ed25519_keys(vset) -> FrozenSet[bytes]:
+    """Raw 32-byte ed25519 pubkeys of a ValidatorSet."""
+    return frozenset(
+        v.pub_key.bytes()
+        for v in vset.validators
+        if v.pub_key.type == "ed25519" and len(v.pub_key.bytes()) == 32
+    )
+
+
+class PrecomputeCache:
+    """Bounded thread-safe LRU of per-validator signed-window tables."""
+
+    def __init__(self, cap: int = TABLE_CAP) -> None:
+        self.cap = cap
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[bytes, Entry]" = OrderedDict()  # guarded-by: _lock
+        self._active_sets: "OrderedDict[bytes, FrozenSet[bytes]]" = OrderedDict()  # guarded-by: _lock
+        self._eligible: FrozenSet[bytes] = frozenset()  # guarded-by: _lock
+        self.builds = 0  # host table builds; guarded-by: _lock
+
+    def activate_validator_set(self, vset) -> bool:
+        """Mark a validator set live: its keys become table-eligible.
+
+        Re-activating a known set is an LRU touch. A new set retires the
+        oldest live set beyond the bound and drops cached tables of keys
+        that belong to no live set (committee rotation). Returns True
+        when the set was newly registered.
+        """
+        keys = _vset_ed25519_keys(vset)
+        digest = hashlib.sha256(b"".join(sorted(keys))).digest()
+        with self._lock:
+            if digest in self._active_sets:
+                self._active_sets.move_to_end(digest)
+                return False
+            self._active_sets[digest] = keys
+            while len(self._active_sets) > _ACTIVE_SETS_CAP:
+                self._active_sets.popitem(last=False)
+            self._eligible = frozenset().union(*self._active_sets.values())
+            stale = [pk for pk in self._entries if pk not in self._eligible]
+            for pk in stale:
+                del self._entries[pk]
+            return True
+
+    def insert(self, pk: bytes, table: np.ndarray, ok: bool) -> None:
+        with self._lock:
+            self._insert_locked(pk, table, ok)
+
+    def _insert_locked(self, pk: bytes, table: np.ndarray, ok: bool) -> None:
+        self._entries[pk] = (table, ok)
+        self._entries.move_to_end(pk)
+        while len(self._entries) > self.cap:
+            self._entries.popitem(last=False)
+
+    def gather(self, pubkeys: Sequence[bytes]) -> Tuple[Optional[List[Optional[Entry]]], np.ndarray]:
+        """Per-lane table lookup/build for a batch.
+
+        Returns ``(entries, has_table)``: ``entries[i]`` is lane i's
+        ``(table, ok)`` (None when the lane takes the build-on-device
+        kernel) and ``has_table`` the (N,) bool partition mask; entries
+        is None when no lane has a table. Eligible miss lanes are built
+        on the host and inserted; a key repeated in one batch is built
+        once.
+        """
+        n = len(pubkeys)
+        has_table = np.zeros(n, dtype=bool)
+        entries: List[Optional[Entry]] = [None] * n
+        with self._lock:
+            seen: Dict[bytes, Optional[Entry]] = {}
+            for i, pk in enumerate(pubkeys):
+                pk = bytes(pk)
+                if pk in seen:
+                    entry = seen[pk]
+                else:
+                    entry = self._entries.get(pk)
+                    if entry is not None:
+                        self._entries.move_to_end(pk)
+                    elif pk in self._eligible:
+                        entry = build_table(pk)
+                        self.builds += 1
+                        self._insert_locked(pk, *entry)
+                    seen[pk] = entry
+                if entry is not None:
+                    entries[i] = entry
+                    has_table[i] = True
+        if not has_table.any():
+            return None, has_table
+        return entries, has_table
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._active_sets.clear()
+            self._eligible = frozenset()
+            self.builds = 0
+
+
+class ResultCache:
+    """Bounded LRU of (pubkey, sign-bytes digest, sig) -> bool verdicts.
+
+    Verification is a pure function of the triple, so both verdicts are
+    cacheable; the digest keeps large sign-bytes out of the key.
+    """
+
+    def __init__(self, cap: int = RESULT_CAP) -> None:
+        self.cap = cap
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[bytes, bool]" = OrderedDict()  # guarded-by: _lock
+
+    @staticmethod
+    def _key(pk: bytes, msg: bytes, sig: bytes) -> bytes:
+        return b"".join((pk, hashlib.sha256(msg).digest(), sig))
+
+    def get(self, pk: bytes, msg: bytes, sig: bytes) -> Optional[bool]:
+        key = self._key(pk, msg, sig)
+        with self._lock:
+            verdict = self._entries.get(key)
+            if verdict is not None:
+                self._entries.move_to_end(key)
+            return verdict
+
+    def put(self, pk: bytes, msg: bytes, sig: bytes, verdict: bool) -> None:
+        key = self._key(pk, msg, sig)
+        with self._lock:
+            self._entries[key] = bool(verdict)
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.cap:
+                self._entries.popitem(last=False)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+
+# --- process-wide singletons -------------------------------------------------
+
+tables = PrecomputeCache()
+results = ResultCache()
+
+
+def activate_validator_set(vset) -> bool:
+    return tables.activate_validator_set(vset)
+
+
+def from_reference_tables(np_tables: Mapping[bytes, Entry]) -> int:
+    """Load per-validator tables built by the reference package.
+
+    ``np_tables`` maps pubkey bytes to ``(table, ok)`` with ``table`` an
+    ``(8, 4, 32)`` array of canonical radix-2^8 limbs, as
+    ``tendermint_tpu.ops.precompute.build_table`` returns it. The tables
+    are checked and inserted into :data:`tables`; returns the count.
+    """
+    for pk, (table, ok) in np_tables.items():
+        arr = np.asarray(table)
+        if len(pk) != 32 or arr.shape != (TABLE_WIDTH, 4, NLIMBS):
+            raise ValueError(f"bad reference table for key {bytes(pk).hex()}: shape {arr.shape}")
+        if arr.min() < 0 or arr.max() > 255 or not np.array_equal(arr, np.round(arr)):
+            raise ValueError(f"reference table for key {bytes(pk).hex()} is not byte limbs")
+        tables.insert(bytes(pk), np.ascontiguousarray(arr, dtype=np.uint8), bool(ok))
+    return len(np_tables)
+
+
+def reset() -> None:
+    """Drop all cached state and counters (tests, benchmark isolation)."""
+    tables.clear()
+    results.clear()

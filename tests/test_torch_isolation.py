@@ -1,0 +1,146 @@
+"""The port stands alone: no jax, nothing of the JAX package, and no
+silent move of device work to the CPU."""
+
+import ast
+import contextlib
+import os
+import subprocess
+import sys
+import types
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# The plain versions run thousands of tiny tensor ops: one intra-op thread
+# is fastest, and keeps parallel test workers from oversubscribing cores.
+torch.set_num_threads(1)
+
+import tendermint_tpu_torch
+from tendermint_tpu_torch.crypto import batch as tbatch
+from tendermint_tpu_torch.ops import cuda_verify, verify_batch
+from tendermint_tpu_torch.types import validation as tval
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "tendermint_tpu_torch")
+ALLOWED_ROOTS = {"torch", "numpy", "tendermint_tpu_torch"}
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _port_modules():
+    mods = []
+    for path in _port_files():
+        if not path.startswith(PKG + os.sep):
+            continue
+        rel = os.path.relpath(path, REPO)[: -len(".py")].split(os.sep)
+        if rel[-1] == "__init__":
+            rel = rel[:-1]
+        mods.append(".".join(rel))
+    return mods
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    mods = _port_modules()
+    assert "tendermint_tpu_torch.ops.cuda_verify" in mods and len(mods) >= 15
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'tendermint_tpu' or m.startswith('tendermint_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_imports_are_torch_numpy_and_the_standard_library(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "tendermint_tpu"}
+    foreign = roots - ALLOWED_ROOTS - set(sys.stdlib_module_names)
+    assert not foreign, f"{path} imports {sorted(foreign)}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(tendermint_tpu_torch, "DEFAULT_DEVICE", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _lanes(n=16):
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+
+    priv, pub = ref.keypair_from_seed(b"\x07" * 32)
+    msgs = [b"m%d" % i for i in range(n)]
+    return [pub] * n, msgs, [ref.sign(priv, m) for m in msgs]
+
+
+def test_cuda_default_entry_points_raise_without_cuda(no_cuda):
+    pks, msgs, sigs = _lanes()
+    with pytest.raises(RuntimeError, match="cuda"):
+        verify_batch(pks, msgs, sigs)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbatch.Ed25519BatchVerifier()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbatch.tiered_verify_ed25519(pks, msgs, sigs)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tval.verify_commit("c", None, None, 1, None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tval.verify_commit_light("c", None, None, 1, None)
+    # An explicit CPU request is honoured.
+    assert verify_batch(pks[:2], msgs[:2], sigs[:2], device="cpu") == [True, True]
+
+
+def test_explicit_cuda_raises_and_unknown_devices_are_refused(no_cuda):
+    with pytest.raises(RuntimeError, match="cuda"):
+        verify_batch([b"\x00" * 32], [b""], [b"\x00" * 64], device="cuda")
+    with pytest.raises(ValueError):
+        verify_batch([b"\x00" * 32], [b""], [b"\x00" * 64], device="meta")
+
+
+def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
+    """Off the CPU a wrapper launches its kernel or raises: a failed
+    build or a refused launch is never answered by the plain version."""
+    fake = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_verify.verify(fake, fake, fake, fake)
+
+    def failed_build(stem):
+        raise RuntimeError(f"nvcc failed for {stem}.cu")
+
+    monkeypatch.setattr(cuda_verify._build, "load", failed_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cuda_verify._launcher("ed25519_verify_launch")
+
+    monkeypatch.setattr(cuda_verify, "_launcher", lambda name: (lambda *args: 2))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(cuda_stream=0)
+    )
+    rows = torch.zeros((4, 32), dtype=torch.uint8)
+    before = dict(cuda_verify.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        cuda_verify._launch("ed25519_verify_launch", (rows,) * 4, 4, torch.device("cpu"))
+    assert cuda_verify.LAUNCHES == before  # a refused launch is not counted
