@@ -16,10 +16,13 @@ and, in order:
    1,024 seeded lanes with planted faults and ZIP-215 edge cases, on the
    card, and requires its verdicts to equal its plain PyTorch version's
    lane for lane and, on the faulty lanes and a sample of the rest, the
-   host oracle's (K2 also on the same tables scaled to Z != 1); then, on
-   a 4,096-lane chunk (the main path's shape: the 1,024 lanes four
-   times, each copy rotated), checks kernel against plain version again
-   and times both (CUDA events, median);
+   host oracle's (K2 also on the same tables scaled to Z != 1); then
+   checks kernel against plain version again on 1,001 and 4,095 lanes
+   (ragged edges), a 4,096-lane chunk (the main path's shape: the 1,024
+   lanes four times, each copy rotated) and 16,384 lanes; times the
+   kernel at 4,096 and 16,384 lanes and the plain version at 4,096 (CUDA
+   events, median); and prints each kernel's registers, stack and shared
+   bytes, and its resident and launched warps per SM;
 3. verify_batch: 8,192 lanes from 256 signers with 8 planted bad lanes and
    no activated validator set (K1, two chunks), and its sigs/s;
 4. verify_commit: a 10,000-validator commit (activates the set, builds
@@ -52,6 +55,8 @@ SEED = 20261016
 KERNEL_LANES = 1024
 KERNEL_SIGNERS = 64
 TIMING_LANES = 4096
+WIDE_TIMING_LANES = 16384
+RAGGED_LANES = (1001, TIMING_LANES - 1)
 BATCH_LANES = 8192
 BATCH_SIGNERS = 256
 COMMIT_VALIDATORS = 10_000
@@ -281,6 +286,21 @@ def projective(tab: np.ndarray, lam: int) -> np.ndarray:
     return out
 
 
+def lane_subset(args, keys, idx):
+    """The lanes ``idx`` of a kernel's inputs (the table's lane axis is
+    its last)."""
+    return [a.index_select(a.dim() - 1 if k == "tab" else 0, idx).contiguous()
+            for k, a in zip(keys, args)]
+
+
+def rotated_lanes(lanes: int):
+    """A ``lanes``-lane index into the KERNEL_LANES lanes: the lanes
+    ``lanes // KERNEL_LANES`` times, each copy rotated differently so no
+    lane sits where its copy does."""
+    return np.concatenate([np.roll(np.arange(KERNEL_LANES), 37 * b)
+                           for b in range(lanes // KERNEL_LANES)])
+
+
 def phase_kernels(lanes, dev):
     import torch
 
@@ -305,11 +325,17 @@ def phase_kernels(lanes, dev):
     }
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    # Lanes of the 4,096-lane chunk: the 1,024 lanes four times, each copy
-    # rotated differently so no lane sits where its copy does.
-    reps = TIMING_LANES // KERNEL_LANES
-    big_idx = torch.from_numpy(np.concatenate(
-        [np.roll(np.arange(KERNEL_LANES), 37 * b) for b in range(reps)])).to(dev)
+    attrs = cuda_verify.kernel_attributes()
+    # Lane sets beyond the 1,024: ragged counts (a block and a chunk cut
+    # short), the main path's 4,096-lane chunk, and a 16,384-lane launch
+    # that can hold more warps on each SM.
+    big_np = rotated_lanes(TIMING_LANES)
+    lane_sets = {
+        RAGGED_LANES[0]: np.arange(RAGGED_LANES[0]),
+        RAGGED_LANES[1]: big_np[:RAGGED_LANES[1]],
+        TIMING_LANES: big_np,
+        WIDE_TIMING_LANES: rotated_lanes(WIDE_TIMING_LANES),
+    }
     rows = {}
     for name, (kernel, plain, keys, inputs, ok) in cases.items():
         args = [torch.from_numpy(inputs[k]).to(dev) for k in keys]
@@ -329,23 +355,41 @@ def phase_kernels(lanes, dev):
             check(proj_mismatches == 0 and np.array_equal(got_p, got),
                   f"{name}: projective tables give {proj_mismatches} mismatches")
             extra["projective_mismatches"] = proj_mismatches
-        big = [a.index_select(a.dim() - 1 if k == "tab" else 0, big_idx).contiguous()
-               for k, a in zip(keys, args)]
-        got_big = kernel(*big).cpu().numpy()
-        plain_big = plain(*big).cpu().numpy()
-        mismatches_big = int((got_big != plain_big).sum())
-        check(mismatches_big == 0,
-              f"{name}: {mismatches_big} of {TIMING_LANES} lanes differ from the plain version")
-        check(np.array_equal(got_big, got[big_idx.cpu().numpy()]),
-              f"{name}: {TIMING_LANES}-lane verdicts differ from the {KERNEL_LANES}-lane ones")
+        by_lanes = {KERNEL_LANES: mismatches}
+        err = np.abs(got.astype(np.int32) - ref_out.astype(np.int32)).max()
+        subsets = {}
+        for n_lanes, idx_np in lane_sets.items():
+            sub = lane_subset(args, keys, torch.from_numpy(idx_np).to(dev))
+            got_sub = kernel(*sub).cpu().numpy()
+            plain_sub = plain(*sub).cpu().numpy()
+            by_lanes[n_lanes] = int((got_sub != plain_sub).sum())
+            check(by_lanes[n_lanes] == 0,
+                  f"{name}: {by_lanes[n_lanes]} of {n_lanes} lanes differ from the plain version")
+            check(np.array_equal(got_sub, got[idx_np]),
+                  f"{name}: {n_lanes}-lane verdicts differ from the {KERNEL_LANES}-lane ones")
+            err = max(err, np.abs(got_sub.astype(np.int32) - plain_sub.astype(np.int32)).max())
+            subsets[n_lanes] = sub
+        big, wide = subsets[TIMING_LANES], subsets[WIDE_TIMING_LANES]
         ms = cuda_ms(lambda: kernel(*big), reps=20)
+        ms_wide = cuda_ms(lambda: kernel(*wide), reps=10)
         plain_ms = cuda_ms(lambda: plain(*big), reps=3)
         ops_s = TIMING_LANES * (
             SQS_PER_LANE[name] * INT32_MULS_PER_FE_SQ + MULS_PER_LANE[name] * INT32_MULS_PER_FE_MUL
         ) / (sms * INT32_MULS_PER_SM_CLOCK * clock_hz)
         bytes_s = TIMING_LANES * BYTES_PER_LANE[name] / HBM_BYTES_PER_S
-        err = max(np.abs(got.astype(np.int32) - ref_out.astype(np.int32)).max(),
-                  np.abs(got_big.astype(np.int32) - plain_big.astype(np.int32)).max())
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        a = attrs[name]
+        warps_per_block = a["threads_per_block"] // 32
+        blocks = -(-TIMING_LANES // a["lanes_per_block"])
+        launch = {
+            "registers": a["registers"],
+            "local_bytes": a["local_bytes"],
+            "shared_bytes_per_block": a["shared_bytes"],
+            "threads_per_block": a["threads_per_block"],
+            "resident_warps_per_sm": a["resident_blocks_per_sm"] * warps_per_block,
+            "launched_warps_per_sm_at_4096_max": -(-blocks // sms) * warps_per_block,
+            "launched_warps_per_sm_at_4096_mean": blocks * warps_per_block / sms,
+        }
         rows[name] = {
             "name": name,
             "route": "cuda",
@@ -354,19 +398,23 @@ def phase_kernels(lanes, dev):
             "max_abs_err": float(err),
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_ms": bound_ms,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": None,
             "match_plain": True,
             "timing_lanes": TIMING_LANES,
+            "bound_share": bound_ms / ms,
+            "ms_at_16384": ms_wide,
             "mismatches": mismatches,
-            "mismatches_at_timing_lanes": mismatches_big,
+            "mismatches_at_timing_lanes": by_lanes[TIMING_LANES],
+            "mismatches_by_lanes": {str(k): v for k, v in sorted(by_lanes.items())},
+            **launch,
         }
         emit({"phase": "kernel", "name": name, "lanes": KERNEL_LANES, "match_plain": True,
               "lanes_checked_vs_oracle": len(checked), "timing_lanes": TIMING_LANES,
-              "mismatches": mismatches, "mismatches_at_timing_lanes": mismatches_big, **extra,
-              "ms": ms, "plain_ms": plain_ms, "bound_ms": rows[name]["bound_ms"],
-              "sms": sms, "max_sm_clock_hz": clock_hz})
+              "mismatches_by_lanes": rows[name]["mismatches_by_lanes"], **extra,
+              "ms": ms, "ms_at_16384": ms_wide, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_share": bound_ms / ms, **launch, "sms": sms, "max_sm_clock_hz": clock_hz})
     return rows
 
 

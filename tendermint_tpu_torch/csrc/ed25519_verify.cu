@@ -15,28 +15,14 @@
 // tendermint_tpu_torch/ops/ed25519_batch.verify_kernel{,_tables} do; the
 // host ANDs in s < L. s and k must be < 2^253 for the signed recode.
 //
-// Design. One thread per lane; nothing is shared between lanes except the
-// constant tables. The TPU kernel used f32 radix-2^8 limbs because its VPU
-// has no wide integer multiply; here a field element is 10 int32 limbs of
-// 26/25 bits (the ref10 layout, value = sum v[i] * 2^ceil(25.5 i)) and a
-// product is 100 32x32->64-bit multiply-adds into int64 columns. All
-// limbs stay non-negative: subtraction adds 2p, and every add, sub and mul
-// ends in one carry pass, so "loose" limbs are < 2^26 (even) and
-// <= 2^25 + 2^14 (odd). Products of loose limbs with the x2 (odd*odd) and
-// x19 (wrap) factors stay < 2^56.3, so a column of 10 is < 2^60.
-//
-// Memory. The inputs are raw bytes: the kernel strips sign bit 255 of A
-// and R and recodes s and k into 64 signed 4-bit digits itself, so the
-// host uploads only (N, 32) uint8 rows (and, for K2, the table and a_ok).
-// The [1..8]B Niels table and d, sqrt(-1), 2d are decoded once per block
-// into shared memory (lanes index the table by different digits, so
-// __constant__ would serialize). The lane's [1..8](-A) cached table
-// (8 x 4 x 10 int32 = 1280 B) and the two digit strings (128 B) are
-// indexed by data, so they live in local memory, cached by L1: in
-// shared memory they would cap a block at a few dozen lanes for no gain
-// in a kernel whose time is multiplies. K2 reads its lane's table column
-// once, coalesced (adjacent threads read adjacent bytes), and converts the
-// canonical radix-2^8 limbs to this representation.
+// Field. The TPU kernel used f32 radix-2^8 limbs because its VPU has no
+// wide integer multiply; here a field element is 10 int32 limbs of 26/25
+// bits (the ref10 layout, value = sum v[i] * 2^ceil(25.5 i)) and a product
+// is 100 32x32->64-bit multiply-adds into int64 columns. All limbs stay
+// non-negative: subtraction adds 2p, and every add, sub and mul ends in one
+// carry pass, so "loose" limbs are < 2^26 (even) and <= 2^25 + 2^14 (odd).
+// Products of loose limbs with the x2 (odd*odd) and x19 (wrap) factors stay
+// < 2^56.3, so a column of 10 is < 2^60.
 //
 // Bound. Per lane, in field squarings S and multiplies M: a decompression
 // is 255 S + 19 M (pow22523 251 S + 11 M), K1's table build 64 M, each of
@@ -50,10 +36,110 @@
 // programming guide, compute capability 9.0), so the card is bound by its
 // integer multiply rate: at 132 SMs and 1.98 GHz, 4,096 lanes need at
 // least 0.145 ms (K1) and 0.131 ms (K2). Bytes are negligible (129 B per
-// K1 lane, 8 x 4 x 32 + 1 + 3 x 32 + 1 = 1,122 B per K2 lane). With one
-// thread per lane a 4,096-lane chunk fills 128 warps, one per SM, so the
-// kernel runs far from that bound; splitting a lane over several threads
-// is the next step.
+// K1 lane, 8 x 4 x 32 + 1 + 3 x 32 + 1 = 1,122 B per K2 lane).
+//
+// Design: four threads per lane. With one thread per lane (the first
+// version) a 4,096-lane chunk was 128 warps, one per SM, so three of an
+// SM's four schedulers had nothing to issue and the kernels ran at 12.5%
+// of the bound (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W). Here a quad of four adjacent threads carries a lane, one
+// thread per extended coordinate, with the parallel formulas of Hisil,
+// Wong, Carter and Dawson ("Twisted Edwards Curves Revisited", 2008, a =
+// -1, extended coordinates):
+//
+//   thread c (= threadIdx.x & 3) holds coordinate c of the accumulator
+//   (X, Y, Z, T), and slot c of an added operand in cached order
+//   (Y+X, Y-X, Z, 2dT); a Niels operand of [1..8]B has slot 2 = 1.
+//
+// A doubling is one round of four squarings and one round of four products;
+// an addition two rounds of four products (thread 2 skips its product in a
+// mixed add). So a thread does 4 S + 8 M a window instead of 16 S + 31 M.
+// Operands move between the quad's threads by __shfl_sync(width = 4): every
+// thread copies one register of a named thread of its quad. The step
+// tables, which tests/test_torch_quad_schedule.py runs step for step on the
+// CPU against the plain curve ops:
+//
+//   step kind  thread 0       thread 1       thread 2       thread 3
+//   q_double (dbl-2008-hwcd); in: v
+//   D1   xchg  x <- v@0, y <- v@1
+//   D2   S     v^2 (X^2)      v^2 (Y^2)      v^2 (Z^2)      (x + y)^2       -> r
+//   D3   -     publish p = r  p = r          p = 2r         p = r
+//   D4   xchg  L = lu + lw - lz and R = ru + rw - rz, the terms read from p
+//              of the threads kDoubleRoute names (or 0), then L*R:
+//        M     E*F            G*H            F*G            E*H             -> v
+//              E = p0 + p1 - p3, F = p0 + p2 - p1, G = p0 - p1, H = p0 + p1
+//   q_add (add-2008-hwcd-3); in: v, q = slot c of the operand, neg, mixed
+//   A1   xchg  u <- v@1         u <- v@1       u = v          u = v; x <- v@0
+//   A2   M     (u + x) q      (u - x) q      u q            u q             -> r
+//              neg: threads 0 and 1 swap u + x and u - x; mixed: thread 2 r = u
+//   A3   -     publish p = r  p = r          p = 2r         p = r (neg: 2p - r)
+//   A4   xchg  as D4, by kAddRoute, with B = p0 and A = p1 (neg: B = p1, A = p0):
+//        M     E*F            G*H            F*G            E*H             -> v
+//              E = B - A, F = p2 - p3, G = p2 + p3, H = B + A
+//   q_cached; in: v
+//   C1   xchg  x <- v@0, y <- v@1
+//   C2   -     y + x          y - x          v              2d v            -> q
+//   K1 set-up; in: thread c holds all of P = (c odd ? R : A), decompressed
+//   X1   -     own = A[c] (even c) or cached(R)[c] (odd c); send = the same at c ^ 1
+//   X2   xchg  got <- send@(c ^ 1); v = A[c] and rq = cached(R)[c]
+//   K1 table; in: v = (-A)[c]
+//   T1   q_cached(v) = q1: entry 0
+//   T2   7 x { v = q_add(v, q1); entry t = q_cached(v) }
+//   finish; in: v = ([s]B - [k]A)[c], rq
+//   F1   q_add(v, rq, neg, mixed): R has Z = 1
+//   F2   3 x q_double
+//   F3   xchg  x, y, z <- v@0..2; the lane passes iff X == 0 and Y == Z
+//
+// Negation needs no exchange: adding -Q = (Y-X, Y+X, Z, -2dT) is adding Q
+// with threads 0 and 1 multiplying the other sum, B and A trading places
+// and C negated in A3. So thread c only ever reads slot c of a table entry.
+// Round 2 forms only the two factors each thread needs, each in one carry
+// pass (fe_lin): a shuffle whose source differs by thread does the
+// selecting, so no thread computes all of E, F, G, H. An operation
+// exchanges 8 field elements (80 shuffles) against 2 multiplies a thread.
+//
+// Digit selection is branchless: entry |d| - 1 is read at a clamped index
+// and the identity slot substituted for d = 0. K2's mixed flag is the
+// quad's own (quads of a warp may differ) and only predicates thread 2's
+// product in A2, so every shuffle runs with all 32 threads converged. A
+// padded lane (past n) computes on lane n - 1 and skips the store: no
+// thread returns early.
+//
+// Launch. A block carries 32 lanes in 4 warps of quads (128 threads): a
+// 4,096-lane chunk is 128 blocks, at most one on each of the 132 SMs, so
+// every SM that works has one quad warp per scheduler, and no SM gets two
+// blocks while another idles. K1's __launch_bounds__(128, 4) holds a thread
+// to 128 registers so that four blocks (16 warps) fit on an SM when a
+// launch has more lanes; ptxas then spills 40-56 bytes in the set-up code
+// around decompression, and nothing in the Straus loop. K2's block has a
+// fifth warp (160 threads, see Decompression), so three blocks fit.
+//
+// Shared memory, 48,280 bytes a block (under the 48 KB of static shared
+// memory, so no cudaFuncSetAttribute):
+//   tab   [8 entries][10 limbs][128 threads] int32: the lane table, each
+//         thread's slot in its own column. A warp reads 32 consecutive
+//         words for any digits, so no bank conflicts; 40,960 B.
+//   b     [10 limbs][4 slots][8 entries] int32: [1..8]B. The 32 (slot,
+//         entry) pairs of a limb fall in 32 banks; 1,280 B.
+//   k     d, sqrt(-1), 2d; 120 B.
+//   sdig, kdig  [32 window pairs][32 lanes] uint8: the signed digits of s
+//         and k, two 4-bit digits a byte, written by threads 0 and 1 of
+//         the quad; 2 x 1,024 B.
+//   rc, r_ok  [3][32 lanes] fe and [32] uint8: K2's R in cached form
+//         (Y+X, Y-X, 2dT; Z = 1) and its verdict; 3,872 B (unused by K1).
+// Nothing is indexed by data in registers, so no table or digit string
+// sits on the stack.
+//
+// Decompression cannot be split: pow22523 is a serial chain of 251
+// squarings. In K1 threads 0 and 2 decompress A while threads 1 and 3
+// decompress R (the same instructions, so the quad does not diverge), and
+// the table needs A before the Straus loop. K2 needs R only at the finish:
+// a fifth warp decompresses the block's 32 R points, one a thread, into
+// shared memory while the quads run the Straus loop, and a __syncthreads()
+// hands them over. With one quad warp per scheduler the schedulers are
+// mostly waiting on latency, so the fifth warp's chain costs the quads
+// little, and K2 no longer spends the chain's time in front of the loop
+// (10% of K2's time; scripts/kernel_variants.py, NVIDIA H100 80GB HBM3,
+// 700.00 W).
 //
 // Each launcher returns cudaGetLastError() and never synchronizes.
 
@@ -63,16 +149,33 @@
 namespace {
 
 constexpr int NL = 10;
-constexpr int kThreads = 32;
+constexpr int kQuad = 4;                     // threads per lane
+constexpr int kThreads = 128;                // threads per block
+constexpr int kLanes = kThreads / kQuad;     // lanes per block
+constexpr int kMinBlocks = 4;                // K1 blocks per SM the registers must allow
+constexpr int kDecompThreads = 32;           // K2's extra warp: R, one lane a thread
+constexpr int kMinBlocksK2 = 3;
+constexpr int kEntries = 8;                  // [1..8] tables
+constexpr int kWindows = 64;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNumConsts = 27;  // 8 x 3 Niels limbs of [1..8]B, then d, sqrt(-1), 2d
-constexpr int kConstD = 24;
-constexpr int kConstSqrtM1 = 25;
-constexpr int kConstD2 = 26;
+constexpr int kConstD = 0;
+constexpr int kConstSqrtM1 = 1;
+constexpr int kConstD2 = 2;
 
 struct fe { int32_t v[NL]; };
 struct ge { fe X, Y, Z, T; };                 // extended coordinates
-struct ge_cached { fe YpX, YmX, Z, T2d; };    // (Y+X, Y-X, Z, 2dT)
-struct ge_niels { fe YpX, YmX, T2d; };        // affine, Z = 1
+
+struct Shared {
+  int32_t tab[kEntries * NL * kThreads];      // [entry][limb][thread]
+  int32_t b[NL * kQuad * kEntries];           // [limb][slot][entry]
+  fe k[3];                                    // d, sqrt(-1), 2d
+  uint8_t sdig[kWindows / 2 * kLanes];        // [window pair][lane], a digit a nibble
+  uint8_t kdig[kWindows / 2 * kLanes];
+  fe rc[3][kLanes];                           // K2: Y+X, Y-X, 2dT of R
+  uint8_t r_ok[kLanes];                       // K2: R decompressed
+};
+static_assert(sizeof(Shared) <= 48 * 1024, "static shared memory");
 
 __device__ __forceinline__ int width(int i) { return (i & 1) ? 25 : 26; }
 
@@ -144,6 +247,15 @@ __device__ __forceinline__ fe fe_sub(const fe& a, const fe& b) {
   return carry32(h);
 }
 
+// u + w - z with one carry pass. For limbs u, w < 2^27 and z no
+// larger than 2p's, the sum u + w + 2p - z is non-negative and below 2^29.
+__device__ __forceinline__ fe fe_lin(const fe& u, const fe& w, const fe& z) {
+  int32_t h[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) h[i] = u.v[i] + w.v[i] + (two_p(i) - z.v[i]);
+  return carry32(h);
+}
+
 __device__ __forceinline__ fe fe_neg(const fe& a) {
   int32_t h[NL];
 #pragma unroll
@@ -199,14 +311,14 @@ __device__ __forceinline__ fe fe_sq(const fe& f) {
   return carry64(h);
 }
 
-__device__ fe fe_sqn(fe a, int n) {
+__device__ __forceinline__ fe fe_sqn(fe a, int n) {
 #pragma unroll 1
   for (int i = 0; i < n; ++i) a = fe_sq(a);
   return a;
 }
 
 // Canonical limbs of a loose element: value in [0, p), every limb exact.
-__device__ void fe_canon(const fe& a, int32_t t[NL]) {
+__device__ __forceinline__ void fe_canon(const fe& a, int32_t t[NL]) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) t[i] = a.v[i];
   // Two ripple passes: value < 2^255, limbs exact (after the second
@@ -260,7 +372,7 @@ __device__ __forceinline__ fe fe_frombytes(const uint8_t b[32]) {
   return r;
 }
 
-__device__ fe fe_pow22523(const fe& z) {
+__device__ __forceinline__ fe fe_pow22523(const fe& z) {
   fe t0 = fe_sq(z);                   // z^2
   fe t1 = fe_mul(z, fe_sqn(t0, 2));   // z^9
   t0 = fe_mul(t0, t1);                // z^11
@@ -284,67 +396,12 @@ __device__ fe fe_pow22523(const fe& z) {
   return fe_mul(t0, z);               // z^(2^252 - 3)
 }
 
-// --- curve ------------------------------------------------------------------
-
-__device__ __forceinline__ ge ge_identity() {
-  return ge{fe_const(0), fe_const(1), fe_const(1), fe_const(0)};
-}
-
-__device__ __forceinline__ ge ge_neg(const ge& p) {
-  return ge{fe_neg(p.X), p.Y, p.Z, fe_neg(p.T)};
-}
-
-__device__ __forceinline__ ge_cached ge_to_cached(const ge& p, const fe& d2) {
-  return ge_cached{fe_add(p.Y, p.X), fe_sub(p.Y, p.X), p.Z, fe_mul(p.T, d2)};
-}
-
-// E, F, G, H -> (EF, GH, FG, EH).
-__device__ __forceinline__ ge ge_finish(const fe& a, const fe& b, const fe& c, const fe& d2) {
-  const fe e = fe_sub(b, a);
-  const fe f = fe_sub(d2, c);
-  const fe g = fe_add(d2, c);
-  const fe h = fe_add(b, a);
-  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
-}
-
-// Unified a=-1 addition against a cached operand (add-2008-hwcd-3).
-__device__ ge ge_add_cached(const ge& p, const ge_cached& q) {
-  const fe a = fe_mul(fe_sub(p.Y, p.X), q.YmX);
-  const fe b = fe_mul(fe_add(p.Y, p.X), q.YpX);
-  const fe c = fe_mul(p.T, q.T2d);
-  const fe d = fe_mul(p.Z, q.Z);
-  return ge_finish(a, b, c, fe_add(d, d));
-}
-
-// Mixed addition with an affine Niels operand (Z2 = 1).
-__device__ ge ge_madd(const ge& p, const ge_niels& q) {
-  const fe a = fe_mul(fe_sub(p.Y, p.X), q.YmX);
-  const fe b = fe_mul(fe_add(p.Y, p.X), q.YpX);
-  const fe c = fe_mul(p.T, q.T2d);
-  return ge_finish(a, b, c, fe_add(p.Z, p.Z));
-}
-
-// dbl-2008-hwcd, valid for all inputs.
-__device__ ge ge_double(const ge& p) {
-  const fe a = fe_sq(p.X);
-  const fe b = fe_sq(p.Y);
-  const fe zz = fe_sq(p.Z);
-  const fe sxy = fe_sq(fe_add(p.X, p.Y));
-  const fe c = fe_add(zz, zz);
-  const fe h = fe_add(a, b);
-  const fe e = fe_sub(h, sxy);
-  const fe g = fe_sub(a, b);
-  const fe f = fe_add(c, g);
-  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
-}
-
-__device__ bool ge_is_identity(const ge& p) {
-  return fe_is_zero(p.X) && fe_is_zero(fe_sub(p.Y, p.Z));
-}
+// --- one lane per thread: decompression ----------------------------------------
 
 // Liberal (ZIP-215) decompression of a 32-byte encoding; an invalid lane
 // gets the identity and false.
-__device__ bool ge_decompress(const uint8_t b[32], const fe& d, const fe& sqrtm1, ge* out) {
+__device__ __forceinline__ bool ge_decompress(const uint8_t b[32], const fe& d, const fe& sqrtm1,
+                                              ge* out) {
   const int sign = b[31] >> 7;
   const fe y = fe_frombytes(b);
   const fe one = fe_const(1);
@@ -365,64 +422,237 @@ __device__ bool ge_decompress(const uint8_t b[32], const fe& d, const fe& sqrtm1
   for (int i = 0; i < NL; ++i) xz |= xt[i];
   const bool valid = (root1 || root2) && !(xz == 0 && sign == 1);
   if ((xt[0] & 1) != sign) x = fe_neg(x);
-  *out = valid ? ge{x, y, one, fe_mul(x, y)} : ge_identity();
+  *out = valid ? ge{x, y, one, fe_mul(x, y)} : ge{fe_const(0), one, one, fe_const(0)};
   return valid;
 }
 
 // Signed radix-16 recode of a little-endian scalar < 2^253: z = x + 0x88..88
-// with the carry-out dropped, digit i (most significant first) = nibble - 8.
-__device__ void recode(const uint8_t* x, int8_t dig[64]) {
+// with the carry-out dropped, digit w (most significant first) = nibble - 8.
+// Digits w = 2m and 2m + 1 share byte dig[m * kLanes] (the lane's column of
+// sdig or kdig), as 4-bit two's complement: nibble - 8 = nibble ^ 8 mod 16;
+// the odd digit in the high half.
+__device__ __forceinline__ void recode(const uint8_t* x, uint8_t* dig) {
   int carry = 0;
-#pragma unroll 1
+#pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int t = x[i] + 0x88 + carry;
     carry = t >> 8;
-    dig[63 - 2 * i] = static_cast<int8_t>((t & 15) - 8);
-    dig[62 - 2 * i] = static_cast<int8_t>(((t >> 4) & 15) - 8);
+    dig[(31 - i) * kLanes] = static_cast<uint8_t>((((t & 15) ^ 8) << 4) | (((t >> 4) & 15) ^ 8));
   }
 }
 
-__device__ __forceinline__ ge_niels select_b(const fe* sc, int digit) {
-  if (digit == 0) return ge_niels{fe_const(1), fe_const(1), fe_const(0)};
-  const int row = 3 * ((digit < 0 ? -digit : digit) - 1);
-  ge_niels r{sc[row], sc[row + 1], sc[row + 2]};
-  if (digit < 0) r = ge_niels{r.YmX, r.YpX, fe_neg(r.T2d)};
+__device__ __forceinline__ int digit(const uint8_t* dig, int w) {
+  return (((dig[(w >> 1) * kLanes] >> (4 * (w & 1))) & 15) ^ 8) - 8;
+}
+
+// --- four threads per lane: the quad schedule ----------------------------------
+
+__device__ __forceinline__ fe fe_sel(bool c, const fe& a, const fe& b) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = c ? a.v[i] : b.v[i];
   return r;
 }
 
-__device__ __forceinline__ ge_cached select_lane(const ge_cached* tab, int digit) {
-  if (digit == 0) return ge_cached{fe_const(1), fe_const(1), fe_const(1), fe_const(0)};
-  ge_cached r = tab[(digit < 0 ? -digit : digit) - 1];
-  if (digit < 0) r = ge_cached{r.YmX, r.YpX, r.Z, fe_neg(r.T2d)};
+// a where keep, else 0.
+__device__ __forceinline__ fe fe_and(const fe& a, bool keep) {
+  const int32_t m = keep ? -1 : 0;
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = a.v[i] & m;
   return r;
+}
+
+__device__ __forceinline__ fe pick4(const fe& a, const fe& b, const fe& c, const fe& d, int k) {
+  return fe_sel(k == 0, a, fe_sel(k == 1, b, fe_sel(k == 2, c, d)));
+}
+
+// Every thread copies `a` of thread `src` of its quad.
+__device__ __forceinline__ fe shfl(const fe& a, int src) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = __shfl_sync(kFull, a.v[i], src, kQuad);
+  return r;
+}
+
+// Thread c copies `a` of thread c ^ mask.
+__device__ __forceinline__ fe shfl_xor(const fe& a, int mask) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = __shfl_xor_sync(kFull, a.v[i], mask, kQuad);
+  return r;
+}
+
+// Round 2 (D4 / A4). Thread c multiplies its pair of (E, F, G, H) (X = EF,
+// Y = GH, Z = FG, T = EH), and forms each factor as u + w - z from values
+// the quad's threads published, in one carry pass: a shuffle with a
+// per-thread source does the selecting, and a keep mask zeroes an unused
+// term. A route packs the six terms (lu, lw, lz, ru, rw, rz of L = lu + lw
+// - lz and R = ru + rw - rz): term k's source for thread c in bits 8k + 2c,
+// and the keep bits of lw, lz, rw, rz in bits 48 + 4j + c. Sources 0 and 1
+// name B and A of the addition and swap when it subtracts.
+constexpr uint64_t quad_src(int t0, int t1, int t2, int t3) {
+  return uint64_t(t0 | (t1 << 2) | (t2 << 4) | (t3 << 6));
+}
+
+constexpr uint64_t quad_keep(int t0, int t1, int t2, int t3) {
+  return uint64_t(t0 | (t1 << 1) | (t2 << 2) | (t3 << 3));
+}
+
+constexpr uint64_t route(uint64_t lu, uint64_t lw, uint64_t lz, uint64_t ru, uint64_t rw,
+                         uint64_t rz, uint64_t keep_lw, uint64_t keep_lz, uint64_t keep_rw,
+                         uint64_t keep_rz) {
+  return lu | (lw << 8) | (lz << 16) | (ru << 24) | (rw << 32) | (rz << 40) |
+         (keep_lw << 48) | (keep_lz << 52) | (keep_rw << 56) | (keep_rz << 60);
+}
+
+// Doubling; published p0 = X^2, p1 = Y^2, p2 = 2 Z^2, p3 = (X + Y)^2:
+// E = p0 + p1 - p3, F = p0 + p2 - p1, G = p0 - p1, H = p0 + p1.
+constexpr uint64_t kDoubleRoute = route(
+    quad_src(0, 0, 0, 0), quad_src(1, 0, 2, 1), quad_src(3, 1, 1, 3),   // L: E G F E
+    quad_src(0, 0, 0, 0), quad_src(2, 1, 0, 1), quad_src(1, 0, 1, 0),   // R: F H G H
+    quad_keep(1, 0, 1, 1), quad_keep(1, 1, 1, 1), quad_keep(1, 1, 0, 1), quad_keep(1, 0, 1, 0));
+
+// Addition; published p0 = B, p1 = A (swapped when neg), p2 = D = 2 Z1 Z2,
+// p3 = C (2p - C when neg): E = B - A, F = D - C, G = D + C, H = B + A.
+constexpr uint64_t kAddRoute = route(
+    quad_src(0, 2, 2, 0), quad_src(0, 3, 0, 0), quad_src(1, 0, 3, 1),   // L: E G F E
+    quad_src(2, 0, 2, 0), quad_src(0, 1, 3, 1), quad_src(3, 0, 0, 0),   // R: F H G H
+    quad_keep(0, 1, 0, 0), quad_keep(1, 0, 1, 1), quad_keep(0, 1, 1, 1), quad_keep(1, 0, 0, 0));
+
+// Term k (0..5) of thread c: p of the routed source, zeroed unless kept.
+__device__ __forceinline__ fe route_term(const fe& pub, uint64_t rt, int k, int c, int neg) {
+  int src = static_cast<int>(rt >> (8 * k + 2 * c)) & 3;
+  if (src < 2) src ^= neg;
+  const fe t = shfl(pub, src);
+  if (k == 0 || k == 3) return t;
+  const int j = k < 3 ? k - 1 : k - 2;
+  return fe_and(t, (rt >> (48 + 4 * j + c)) & 1);
+}
+
+// What thread c publishes of its round-1 result r: thread 2 doubles it
+// (2 Z^2, D = 2 Z1 Z2) and thread 3 negates it as 2p - r when neg (-C).
+// The limbs stay non-negative and below 2^27, uncarried.
+__device__ __forceinline__ fe publish(const fe& r, int c, bool neg) {
+  fe p;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int32_t x = c == 2 ? r.v[i] + r.v[i] : r.v[i];
+    p.v[i] = (c == 3 && neg) ? two_p(i) - x : x;
+  }
+  return p;
+}
+
+__device__ __forceinline__ fe round2(const fe& pub, uint64_t rt, int c, int neg) {
+  const fe lhs = fe_lin(route_term(pub, rt, 0, c, neg), route_term(pub, rt, 1, c, neg),
+                        route_term(pub, rt, 2, c, neg));
+  const fe rhs = fe_lin(route_term(pub, rt, 3, c, neg), route_term(pub, rt, 4, c, neg),
+                        route_term(pub, rt, 5, c, neg));
+  return fe_mul(lhs, rhs);
+}
+
+__device__ __forceinline__ fe q_double(const fe& v, int c) {
+  const fe x = shfl(v, 0);                                   // D1
+  const fe y = shfl(v, 1);
+  const fe r = fe_sq(fe_sel(c == 3, fe_add(x, y), v));       // D2
+  return round2(publish(r, c, false), kDoubleRoute, c, 0);   // D3, D4
+}
+
+__device__ __forceinline__ fe q_add(const fe& v, const fe& q, int c, bool neg, bool mixed) {
+  // A1: threads 0 and 1 read y (threads 2 and 3 themselves) and x; thread
+  // 0 forms y + x and thread 1 y - x, the other way round when neg.
+  const fe u = shfl(v, c < 2 ? 1 : c);
+  const fe x = shfl(v, 0);
+  const bool plus = (c == 0) != neg;
+  const fe lhs = fe_lin(u, fe_and(x, c < 2 && plus), fe_and(x, c < 2 && !plus));
+  fe r = lhs;                                                // A2
+  if (!(mixed && c == 2)) r = fe_mul(lhs, q);
+  return round2(publish(r, c, neg), kAddRoute, c, neg);      // A3, A4
+}
+
+__device__ __forceinline__ fe q_cached(const fe& v, int c, const fe& d2) {
+  const fe x = shfl(v, 0);                                   // C1
+  const fe y = shfl(v, 1);
+  return pick4(fe_add(y, x), fe_sub(y, x), v, fe_mul(v, d2), c);  // C2
+}
+
+// Slot c of the cached identity (1, 1, 1, 0).
+__device__ __forceinline__ fe ident_slot(int c) { return fe_const(c == 3 ? 0 : 1); }
+
+__device__ __forceinline__ int entry_of(int digit) {
+  const int m = digit < 0 ? -digit : digit;
+  return m == 0 ? 0 : m - 1;
+}
+
+__device__ __forceinline__ fe load_b(const int32_t* sb, int c, int digit) {
+  const int e = entry_of(digit);
+  fe q;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) q.v[l] = sb[(l * kQuad + c) * kEntries + e];
+  return fe_sel(digit == 0, ident_slot(c), q);
+}
+
+// `tab` points at the thread's column of Shared::tab.
+__device__ __forceinline__ fe load_lane(const int32_t* tab, int c, int digit) {
+  const int e = entry_of(digit);
+  fe q;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) q.v[l] = tab[(e * NL + l) * kThreads];
+  return fe_sel(digit == 0, ident_slot(c), q);
+}
+
+__device__ __forceinline__ void store_lane(int32_t* tab, int t, const fe& q) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) tab[(t * NL + l) * kThreads] = q.v[l];
 }
 
 // [s]B - [k]A: 64 windows of 4 doublings, + d_s * B, + d_k * (-A). With
-// kAffine every lane-table entry has Z = 1, and its add is a mixed one.
-template <bool kAffine>
-__device__ ge straus(const ge_cached* tab, const int8_t* sd, const int8_t* kd, const fe* sc) {
-  ge acc = ge_identity();
+// `mixed` every lane-table entry has Z = 1, and its add is a mixed one.
+__device__ __forceinline__ fe straus(const Shared& sh, int tid, bool mixed) {
+  const int c = tid & (kQuad - 1);
+  const int ln = tid / kQuad;
+  fe v = fe_const(c == 1 || c == 2 ? 1 : 0);  // the identity (0, 1, 1, 0)
 #pragma unroll 1
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < kWindows; ++i) {
 #pragma unroll 1
-    for (int j = 0; j < 4; ++j) acc = ge_double(acc);
-    acc = ge_madd(acc, select_b(sc, sd[i]));
-    const ge_cached q = select_lane(tab, kd[i]);
-    acc = kAffine ? ge_madd(acc, ge_niels{q.YpX, q.YmX, q.T2d}) : ge_add_cached(acc, q);
+    for (int j = 0; j < 4; ++j) v = q_double(v, c);
+    const int ds = digit(sh.sdig + ln, i);
+    v = q_add(v, load_b(sh.b, c, ds), c, ds < 0, true);
+    const int dk = digit(sh.kdig + ln, i);
+    v = q_add(v, load_lane(sh.tab + tid, c, dk), c, dk < 0, mixed);
   }
-  return acc;
+  return v;
 }
 
-// Subtract R, multiply by the cofactor, test for the identity.
-__device__ bool finish(ge acc, const ge& r, const fe& d2) {
-  acc = ge_add_cached(acc, ge_to_cached(ge_neg(r), d2));
+// Subtract R (rq = slot c of cached R, whose Z is 1), multiply by the
+// cofactor, test for the identity.
+__device__ __forceinline__ bool finish(fe v, const fe& rq, int c) {
+  v = q_add(v, rq, c, true, true);                           // F1
 #pragma unroll 1
-  for (int j = 0; j < 3; ++j) acc = ge_double(acc);
-  return ge_is_identity(acc);
+  for (int j = 0; j < 3; ++j) v = q_double(v, c);            // F2
+  const fe x = shfl(v, 0);                                   // F3
+  const fe y = shfl(v, 1);
+  const fe z = shfl(v, 2);
+  return fe_is_zero(x) && fe_is_zero(fe_sub(y, z));
 }
 
-__device__ __forceinline__ void load_consts(const uint8_t* __restrict__ consts, fe* sc) {
-  for (int i = threadIdx.x; i < kNumConsts; i += blockDim.x) sc[i] = fe_frombytes(consts + 32 * i);
+// Decode the constants into shared memory: [1..8]B as (Y+X, Y-X, 1, 2dT)
+// slots, then d, sqrt(-1), 2d.
+__device__ __forceinline__ void load_consts(const uint8_t* __restrict__ consts, Shared& sh) {
+  for (int i = threadIdx.x; i < kNumConsts; i += blockDim.x) {
+    const fe v = fe_frombytes(consts + 32 * i);
+    if (i < 3 * kEntries) {
+      const int e = i / 3, comp = i % 3, slot = comp == 2 ? 3 : comp;
+#pragma unroll
+      for (int l = 0; l < NL; ++l) sh.b[(l * kQuad + slot) * kEntries + e] = v.v[l];
+      if (comp == 0) {
+#pragma unroll
+        for (int l = 0; l < NL; ++l) sh.b[(l * kQuad + 2) * kEntries + e] = l == 0 ? 1 : 0;
+      }
+    } else {
+      sh.k[i - 3 * kEntries] = v;
+    }
+  }
   __syncthreads();
 }
 
@@ -431,84 +661,116 @@ __device__ __forceinline__ void load_row(const uint8_t* __restrict__ src, uint8_
   for (int i = 0; i < 32; ++i) dst[i] = src[i];
 }
 
-__global__ void __launch_bounds__(kThreads) ed25519_verify_kernel(
+// Threads 0 and 1 of the quad recode s and k into the lane's digit columns.
+__device__ __forceinline__ void recode_digits(Shared& sh, const uint8_t* s, const uint8_t* k,
+                                              size_t lane, int c, int ln) {
+  if (c < 2) recode((c == 0 ? s : k) + 32 * lane, (c == 0 ? sh.sdig : sh.kdig) + ln);
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks) ed25519_verify_kernel(
     const uint8_t* __restrict__ pk, const uint8_t* __restrict__ r,
     const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
     const uint8_t* __restrict__ consts, uint8_t* __restrict__ out, int n) {
-  __shared__ fe sc[kNumConsts];
-  load_consts(consts, sc);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  __shared__ Shared sh;
+  load_consts(consts, sh);
+  const int tid = threadIdx.x;
+  const int c = tid & (kQuad - 1);
+  const int ln = tid / kQuad;
+  const int lane_id = blockIdx.x * kLanes + ln;
+  const size_t lane = lane_id < n ? lane_id : n - 1;  // padded lanes compute, never store
 
+  // X1: even threads decompress A, odd threads R; each prepares its own
+  // slot and the one its partner (c ^ 1) needs.
   uint8_t row[32];
-  ge a, rp;
-  load_row(pk + 32 * size_t(lane), row);
-  const bool a_ok = ge_decompress(row, sc[kConstD], sc[kConstSqrtM1], &a);
-  load_row(r + 32 * size_t(lane), row);
-  const bool r_ok = ge_decompress(row, sc[kConstD], sc[kConstSqrtM1], &rp);
+  load_row(((c & 1) ? r : pk) + 32 * lane, row);
+  ge p;
+  const bool ok = ge_decompress(row, sh.k[kConstD], sh.k[kConstSqrtM1], &p);
+  const bool even = (c & 1) == 0;
+  const fe ypx = fe_add(p.Y, p.X);
+  const fe ymx = fe_sub(p.Y, p.X);
+  const fe t2d = fe_mul(p.T, sh.k[kConstD2]);
+  const fe own = fe_sel(even, pick4(p.X, p.Y, p.Z, p.T, c), pick4(ypx, ymx, p.Z, t2d, c));
+  const fe send =
+      fe_sel(even, pick4(p.X, p.Y, p.Z, p.T, c ^ 1), pick4(ypx, ymx, p.Z, t2d, c ^ 1));
+  const fe got = shfl_xor(send, 1);                          // X2
+  const bool other_ok = __shfl_xor_sync(kFull, static_cast<int>(ok), 1, kQuad) != 0;
+  const fe a_c = fe_sel(even, own, got);
+  const fe rq = fe_sel(even, got, own);
+  const bool a_ok = even ? ok : other_ok;
+  const bool r_ok = even ? other_ok : ok;
 
   // Lane table: entry t is (t + 1)(-A) in cached form.
-  ge_cached tab[8];
-  const ge neg_a = ge_neg(a);
-  tab[0] = ge_to_cached(neg_a, sc[kConstD2]);
-  ge acc = neg_a;
+  int32_t* tab = sh.tab + tid;
+  fe v = fe_sel(c == 0 || c == 3, fe_neg(a_c), a_c);
+  const fe q1 = q_cached(v, c, sh.k[kConstD2]);              // T1
+  store_lane(tab, 0, q1);
 #pragma unroll 1
-  for (int t = 1; t < 8; ++t) {
-    acc = ge_add_cached(acc, tab[0]);
-    tab[t] = ge_to_cached(acc, sc[kConstD2]);
+  for (int t = 1; t < kEntries; ++t) {                       // T2
+    v = q_add(v, q1, c, false, false);
+    store_lane(tab, t, q_cached(v, c, sh.k[kConstD2]));
   }
 
-  int8_t sd[64], kd[64];
-  recode(s + 32 * size_t(lane), sd);
-  recode(k + 32 * size_t(lane), kd);
-  acc = straus<false>(tab, sd, kd, sc);
-  out[lane] = (finish(acc, rp, sc[kConstD2]) && a_ok && r_ok) ? 1 : 0;
+  recode_digits(sh, s, k, lane, c, ln);
+  const bool pass = finish(straus(sh, tid, false), rq, c) && a_ok && r_ok;
+  if (c == 0 && lane_id < n) out[lane_id] = pass ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads) ed25519_verify_tables_kernel(
+__global__ void __launch_bounds__(kThreads + kDecompThreads, kMinBlocksK2)
+ed25519_verify_tables_kernel(
     const uint8_t* __restrict__ tab_in, const uint8_t* __restrict__ a_ok,
     const uint8_t* __restrict__ r, const uint8_t* __restrict__ s,
     const uint8_t* __restrict__ k, const uint8_t* __restrict__ consts,
     uint8_t* __restrict__ out, int n) {
-  __shared__ fe sc[kNumConsts];
-  load_consts(consts, sc);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+  __shared__ Shared sh;
+  load_consts(consts, sh);
+  const int tid = threadIdx.x;
+  const int c = tid & (kQuad - 1);
+  const int ln = tid < kThreads ? tid / kQuad : tid - kThreads;
+  const int lane_id = blockIdx.x * kLanes + ln;
+  const size_t lane = lane_id < n ? lane_id : n - 1;  // padded lanes compute, never store
 
-  // Column `lane` of the (8, 4, 32, N) table: byte (t, c, l) sits at
-  // ((t * 4 + c) * 32 + l) * N + lane, so a warp reads 32 adjacent bytes.
-  // zdiff stays 0 iff every entry's Z is the bytes of 1 (host-built tables).
-  ge_cached tab[8];
-  uint8_t row[32];
-  uint32_t zdiff = 0;
+  fe v = fe_const(0);
+  if (tid < kThreads) {
+    // Thread c reads component c of every entry from column `lane` of the
+    // (8, 4, 32, N) table (byte (t, c, l) at ((t * 4 + c) * 32 + l) * N +
+    // lane), in one pass. zdiff stays 0 on thread 2 iff every entry's Z is
+    // the bytes of 1 (host-built tables); the quad then adds mixed.
+    int32_t* tab = sh.tab + tid;
+    uint8_t row[32];
+    uint32_t zdiff = 0;
 #pragma unroll 1
-  for (int t = 0; t < 8; ++t) {
-    fe comp[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const uint8_t* col = tab_in + size_t((t * 4 + c) * 32) * n + lane;
+    for (int t = 0; t < kEntries; ++t) {
+      const uint8_t* col = tab_in + size_t((t * kQuad + c) * 32) * n + lane;
 #pragma unroll
       for (int l = 0; l < 32; ++l) row[l] = col[size_t(l) * n];
-      if (c == 2) {
 #pragma unroll
-        for (int l = 0; l < 32; ++l) zdiff |= row[l] ^ (l == 0 ? 1u : 0u);
-      }
-      comp[c] = fe_frombytes(row);
+      for (int l = 0; l < 32; ++l) zdiff |= row[l] ^ (l == 0 ? 1u : 0u);
+      store_lane(tab, t, fe_frombytes(row));
     }
-    tab[t] = ge_cached{comp[0], comp[1], comp[2], comp[3]};
+    const bool mixed = __shfl_sync(kFull, zdiff, 2, kQuad) == 0;
+    recode_digits(sh, s, k, lane, c, ln);
+    v = straus(sh, tid, mixed);
+  } else {
+    // The last warp decompresses R of the block's lanes, one a thread,
+    // while the quads run the Straus loop.
+    uint8_t row[32];
+    load_row(r + 32 * lane, row);
+    ge p;
+    sh.r_ok[ln] = ge_decompress(row, sh.k[kConstD], sh.k[kConstSqrtM1], &p) ? 1 : 0;
+    sh.rc[0][ln] = fe_add(p.Y, p.X);
+    sh.rc[1][ln] = fe_sub(p.Y, p.X);
+    sh.rc[2][ln] = fe_mul(p.T, sh.k[kConstD2]);
   }
-
-  ge rp;
-  load_row(r + 32 * size_t(lane), row);
-  const bool r_ok = ge_decompress(row, sc[kConstD], sc[kConstSqrtM1], &rp);
-  int8_t sd[64], kd[64];
-  recode(s + 32 * size_t(lane), sd);
-  recode(k + 32 * size_t(lane), kd);
-  const ge acc = zdiff == 0 ? straus<true>(tab, sd, kd, sc) : straus<false>(tab, sd, kd, sc);
-  out[lane] = (finish(acc, rp, sc[kConstD2]) && a_ok[lane] != 0 && r_ok) ? 1 : 0;
+  __syncthreads();
+  if (tid >= kThreads) return;
+  // Slot c of cached R: Y+X, Y-X, Z = 1, 2dT.
+  const fe rq = fe_sel(c == 2, fe_const(1), sh.rc[c == 3 ? 2 : (c & 1)][ln]);
+  const bool pass = finish(v, rq, c) && a_ok[lane] != 0 && sh.r_ok[ln] != 0;
+  if (c == 0 && lane_id < n) out[lane_id] = pass ? 1 : 0;
 }
 
-inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+inline int blocks(int n) { return (n + kLanes - 1) / kLanes; }
 
 }  // namespace
 
@@ -527,10 +789,40 @@ extern "C" int ed25519_verify_tables_launch(const void* tab, const void* a_ok, c
                                             const void* s, const void* k, const void* consts,
                                             void* out, int n, void* stream) {
   if (n <= 0) return 0;
-  ed25519_verify_tables_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  ed25519_verify_tables_kernel<<<blocks(n), kThreads + kDecompThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(tab), static_cast<const uint8_t*>(a_ok),
       static_cast<const uint8_t*>(r), static_cast<const uint8_t*>(s),
       static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(consts),
       static_cast<uint8_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+template <typename Kernel>
+int attributes(Kernel kernel, int threads, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = threads;
+  out[4] = kLanes;
+  out[5] = resident;
+  return 0;
+}
+
+}  // namespace
+
+// Launch facts of kernel `which` (0: K1, 1: K2) on the current device:
+// out = {registers a thread, local (stack) bytes a thread, static shared
+// bytes a block, threads a block, lanes a block, blocks resident on an SM}.
+extern "C" int ed25519_kernel_attributes(int which, int* out) {
+  return which == 0 ? attributes(ed25519_verify_kernel, kThreads, out)
+                    : attributes(ed25519_verify_tables_kernel, kThreads + kDecompThreads, out);
 }

@@ -14,6 +14,8 @@ bound) and are built by :mod:`._build`:
 For CUDA tensors a wrapper launches its kernel on the current stream,
 or raises; for CPU tensors it runs the plain PyTorch version in
 :mod:`.ed25519_batch`. ``LAUNCHES`` counts kernel launches only.
+:func:`kernel_attributes` reports each kernel's registers, stack, shared
+memory and occupancy on the current CUDA device.
 """
 
 from __future__ import annotations
@@ -42,7 +44,13 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     "ed25519_verify_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
     "ed25519_verify_tables_launch": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
+    "ed25519_kernel_attributes": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
+# What ed25519_kernel_attributes writes, in order.
+ATTRIBUTE_KEYS = (
+    "registers", "local_bytes", "shared_bytes", "threads_per_block", "lanes_per_block",
+    "resident_blocks_per_sm",
+)
 
 
 def reset_launches() -> None:
@@ -110,3 +118,19 @@ def verify_tables(
     if r.device.type != "cuda":
         raise ValueError(f"verify_tables: unsupported device {r.device}")
     return _launch("ed25519_verify_tables_launch", (tab, a_ok, r, s, k), n, r.device)
+
+
+def kernel_attributes() -> Dict[str, Dict[str, int]]:
+    """{kernel: {key: value}} for K1 ("verify") and K2 ("verify_tables")
+    on the current CUDA device: ``cudaFuncGetAttributes`` (registers a
+    thread, local bytes a thread, static shared bytes a block), the launch
+    shape, and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    fn = _launcher("ed25519_kernel_attributes")
+    out = {}
+    for which, name in enumerate(("verify", "verify_tables")):
+        buf = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
+        rc = fn(which, buf)
+        if rc != 0:
+            raise RuntimeError(f"ed25519_kernel_attributes({name}) failed: CUDA error {rc}")
+        out[name] = dict(zip(ATTRIBUTE_KEYS, buf))
+    return out

@@ -4,6 +4,7 @@ silent move of device work to the CPU."""
 import ast
 import contextlib
 import os
+import re
 import subprocess
 import sys
 import types
@@ -144,3 +145,24 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 2"):
         cuda_verify._launch("ed25519_verify_launch", (rows,) * 4, 4, torch.device("cpu"))
     assert cuda_verify.LAUNCHES == before  # a refused launch is not counted
+
+
+def test_kernel_attributes_name_every_field_and_raise_on_error(monkeypatch):
+    """kernel_attributes gives each slot the C function writes its key,
+    and a CUDA error raises."""
+    with open(os.path.join(PKG, "csrc", "ed25519_verify.cu")) as fh:
+        written = sorted({int(i) for i in re.findall(r"out\[(\d)\] =", fh.read())})
+    assert written == list(range(len(cuda_verify.ATTRIBUTE_KEYS)))
+
+    def fake(which, buf):
+        for i in range(len(cuda_verify.ATTRIBUTE_KEYS)):
+            buf[i] = 10 * which + i
+        return 0
+
+    monkeypatch.setattr(cuda_verify, "_launcher", lambda name: fake)
+    got = cuda_verify.kernel_attributes()
+    assert got["verify"]["registers"] == 0 and got["verify_tables"]["registers"] == 10
+    assert got["verify_tables"]["resident_blocks_per_sm"] == 15
+    monkeypatch.setattr(cuda_verify, "_launcher", lambda name: (lambda which, buf: 98))
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        cuda_verify.kernel_attributes()
