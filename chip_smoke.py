@@ -11,28 +11,42 @@ and, in order:
 0. set-up: makes every key, message and signature of the run from one
    numpy seed, signing with the port's pure-Python RFC 8032 signer in a
    pool of worker processes (before any CUDA work; timed on its own);
-1. device: prints the card and builds the kernels with nvcc;
-2. kernels: runs each kernel (K1 ``verify``, K2 ``verify_tables``) on
-   1,024 seeded lanes with planted faults and ZIP-215 edge cases, on the
-   card, and requires its verdicts to equal its plain PyTorch version's
-   lane for lane and, on the faulty lanes and a sample of the rest, the
-   host oracle's (K2 also on the same tables scaled to Z != 1); then
-   checks kernel against plain version again on 1,001 and 4,095 lanes
-   (ragged edges), a 4,096-lane chunk (the main path's shape: the 1,024
-   lanes four times, each copy rotated) and 16,384 lanes; times the
-   kernel at 4,096 and 16,384 lanes and the plain version at 4,096 (CUDA
-   events, median); and prints each kernel's registers, stack and shared
-   bytes, and its resident and launched warps per SM;
+1. device: prints the card and builds the kernels with nvcc (one process
+   per source, in parallel);
+2. kernels: runs each verify kernel (K1 ``verify``, K2 ``verify_tables``,
+   K3 ``verify_resident``) on 1,024 seeded lanes with planted faults and
+   ZIP-215 edge cases, on the card, and requires its verdicts to equal
+   its plain PyTorch version's lane for lane and, on the faulty lanes and
+   a sample of the rest, the host oracle's (K2 also on the same tables
+   scaled to Z != 1; K3 on a store of the lanes' keys, with its columns
+   in order and shuffled); then checks kernel against plain version again
+   on 1,001 and 4,095 lanes (ragged edges), a 4,096-lane chunk (the main
+   path's shape: the 1,024 lanes four times, each copy rotated) and
+   16,384 lanes; times the kernel at 4,096 and 16,384 lanes and the plain
+   version at 4,096 (CUDA events around back-to-back launches; K3 and K4
+   also through their C launchers, without the wrappers' host work) (K3 on a store with one column
+   a lane, indices consecutive and shuffled, beside ``index_select``
+   then K2); and prints each kernel's registers, stack and shared bytes,
+   and its resident and launched warps per SM. K4 (``challenge``) is
+   held to hashlib and ``reduce_mod_l`` at the SHA-512 padding
+   boundaries and on prefixed challenges of 1-3 blocks at 1,024, 4,095
+   (padded) and 4,096 lanes, and to its plain version; it is timed at
+   4,096 lanes of the phase-3 shape;
 3. verify_batch: 8,192 lanes from 256 signers with 8 planted bad lanes and
-   no activated validator set (K1, two chunks), and its sigs/s;
-4. verify_commit: a 10,000-validator commit (activates the set, builds
-   the tables on the host, K2 over three chunks), a second commit at the
-   next height (the steady state: no table builds), its p50 latency, and
-   a third commit with one bad signature, which must be rejected at that
-   index.
+   no activated validator set (K1 and K4, two chunks each), and its
+   sigs/s;
+4. verify_commit with the resident store on (the default on CUDA): a
+   10,000-validator commit (activates the set, builds the tables on the
+   host, uploads the store once, K3 over three chunks), a second commit
+   at the next height (the steady state: no table builds, no upload),
+   its p50 latency, and a third commit with one bad signature, which must
+   be rejected at that index. K4 hashes the chunks whose sign-bytes have
+   one length; 4b. the same steady commit with the store off (K2 over
+   three chunks, the tables shipped each commit), its runs alternating
+   with store-on runs, and both p50s.
 
 Kernel launch counts are reset just before phase 3 and read just after
-phase 4. Each phase prints one JSON line; then the kernel table, the
+phase 4b. Each phase prints one JSON line; then the kernel table, the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA it exits with code 2 and prints no result.
@@ -64,22 +78,41 @@ COMMIT_HEIGHTS = (1, 2, 3)  # cold, steady state, bad signature
 BAD_COMMIT_INDEX = 4321
 CHAIN_ID = "chip-smoke"
 P50_REPS = 9
+STORE_OFF_REPS = 7
 BATCH_REPS = 5
+TABLE_BYTES = 8 * 4 * 32  # one key's (8, 4, 32) uint8 table column
+HASH_LENGTHS = (0, 55, 56, 64, 111, 112, 128)  # SHA-512 padding boundaries
+HASH_MSG_LEN_BY_BLOCKS = {1: 40, 2: 120, 3: 250}  # after the 64-byte R || A prefix
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
 # a squaring 55, each product two 32-bit integer multiplies.
-SQS_PER_LANE = {"verify": 1546, "verify_tables": 1291}
-MULS_PER_LANE = {"verify": 2107, "verify_tables": 1960}
+SQS_PER_LANE = {"verify": 1546, "verify_tables": 1291, "verify_resident": 1291}
+MULS_PER_LANE = {"verify": 2107, "verify_tables": 1960, "verify_resident": 1960}
 INT32_MULS_PER_FE_SQ = 110
 INT32_MULS_PER_FE_MUL = 200
-INT32_MULS_PER_SM_CLOCK = 64  # CUDA programming guide, compute capability 9.0
+INT32_OPS_PER_SM_CLOCK = 64  # CUDA programming guide, compute capability 9.0
+# 32-bit integer instructions a SHA-512 block, as counted in the source
+# note of csrc/sha512_challenge.cu.
+INT32_OPS_PER_SHA512_BLOCK = 3696
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # Bytes a lane must move: each input row read once, the verdict written once.
-BYTES_PER_LANE = {"verify": 4 * 32 + 1, "verify_tables": 8 * 4 * 32 + 1 + 3 * 32 + 1}
+BYTES_PER_LANE = {
+    "verify": 4 * 32 + 1,
+    "verify_tables": TABLE_BYTES + 1 + 3 * 32 + 1,
+    "verify_resident": 4 + TABLE_BYTES + 1 + 3 * 32 + 1,
+}
 REPLACES = {
     "verify": "tendermint_tpu/ops/pallas_verify.py:443",
     "verify_tables": "tendermint_tpu/ops/pallas_verify.py:498",
+    "verify_resident": "tendermint_tpu/ops/ed25519_batch.py:341",
+    "challenge": "tendermint_tpu/ops/hash512.py:298",
+}
+SOURCES = {
+    "verify": "tendermint_tpu_torch/csrc/ed25519_verify.cu",
+    "verify_tables": "tendermint_tpu_torch/csrc/ed25519_verify.cu",
+    "verify_resident": "tendermint_tpu_torch/csrc/ed25519_verify.cu",
+    "challenge": "tendermint_tpu_torch/csrc/sha512_challenge.cu",
 }
 
 
@@ -104,7 +137,7 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def host_profile(fn, top: int = 20) -> dict:
+def host_profile(fn, top: int = 30) -> dict:
     """One call of ``fn`` under cProfile: the functions with the largest
     cumulative time, as {"file:function": ms}, and the profiled wall ms.
     The profiler slows Python code, so read the shares, not the sums."""
@@ -128,21 +161,24 @@ def host_profile(fn, top: int = 20) -> dict:
     return {"profiled_wall_ms": wall_ms, "cumulative_ms": out}
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs, by CUDA events."""
+def cuda_ms(fn, reps: int, rounds: int = 3) -> float:
+    """Device time of one ``fn()``: CUDA events around ``reps`` calls
+    back to back (so the host's time between calls hides behind the
+    device's), divided by ``reps``; the median of ``rounds`` such runs."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -287,10 +323,17 @@ def projective(tab: np.ndarray, lam: int) -> np.ndarray:
 
 
 def lane_subset(args, keys, idx):
-    """The lanes ``idx`` of a kernel's inputs (the table's lane axis is
-    its last)."""
-    return [a.index_select(a.dim() - 1 if k == "tab" else 0, idx).contiguous()
-            for k, a in zip(keys, args)]
+    """The lanes ``idx`` (a CPU index) of a kernel's inputs: the table's
+    lane axis is its last, the resident store is shared by every lane,
+    and the resident index stays on the host."""
+    out = []
+    for key, a in zip(keys, args):
+        if key == "store":
+            out.append(a)
+        else:
+            dim = a.dim() - 1 if key == "tab" else 0
+            out.append(a.index_select(dim, idx.to(a.device)).contiguous())
+    return out
 
 
 def rotated_lanes(lanes: int):
@@ -299,6 +342,117 @@ def rotated_lanes(lanes: int):
     lane sits where its copy does."""
     return np.concatenate([np.roll(np.arange(KERNEL_LANES), 37 * b)
                            for b in range(lanes // KERNEL_LANES)])
+
+
+def kernel_args(inputs, keys, dev):
+    """A kernel's arguments on the card; the resident index stays on the
+    host, where its wrapper checks it."""
+    import torch
+
+    return [torch.as_tensor(inputs[k]).to("cpu" if k == "idx" else dev) for k in keys]
+
+
+def signer_store(pks, tabs, shuffle_rng=None):
+    """A resident store of the lanes' distinct keys: column 0 the pad
+    table, then one column a key, in the order of first appearance (or
+    shuffled). Returns the (8, 4, 32, K) store and the lanes' columns."""
+    from tendermint_tpu_torch.ops import ed25519_batch as eb
+
+    keys = list(dict.fromkeys(pks))
+    order = np.arange(len(keys)) if shuffle_rng is None else shuffle_rng.permutation(len(keys))
+    col_of = {keys[j]: 1 + c for c, j in enumerate(order)}
+    cols = [eb._pad_table()] + [None] * len(keys)
+    for pk, tab in zip(pks, tabs):
+        cols[col_of[pk]] = tab
+    store = np.ascontiguousarray(np.stack(cols).transpose(1, 2, 3, 0))
+    return store, np.array([col_of[pk] for pk in pks], dtype=np.int32)
+
+
+def compare_rows(got, want):
+    """(rows of ``got`` that differ from ``want``, max |got - want|), for
+    two arrays of one shape whose first axis is the lane."""
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).reshape(len(got), -1)
+    return int(diff.any(axis=1).sum()), int(diff.max(initial=0))
+
+
+def check_lane_sets(name, kernel, plain, args, keys, got, lane_sets):
+    """Kernel against plain version on every lane set, and against the
+    1,024-lane verdicts; returns ({lanes: mismatches}, max |error|,
+    {lanes: arguments})."""
+    import torch
+
+    by_lanes, err, subsets = {}, 0, {}
+    for n_lanes, idx_np in lane_sets.items():
+        sub = lane_subset(args, keys, torch.from_numpy(idx_np))
+        got_sub = kernel(*sub).cpu().numpy()
+        plain_sub = plain(*sub).cpu().numpy()
+        by_lanes[n_lanes], e = compare_rows(got_sub, plain_sub)
+        check(by_lanes[n_lanes] == 0,
+              f"{name}: {by_lanes[n_lanes]} of {n_lanes} lanes differ from the plain version")
+        check(np.array_equal(got_sub, got[idx_np]),
+              f"{name}: {n_lanes}-lane verdicts differ from the {KERNEL_LANES}-lane ones")
+        err = max(err, e)
+        subsets[n_lanes] = sub
+    return by_lanes, err, subsets
+
+
+def launch_facts(a, lanes, sms):
+    warps_per_block = a["threads_per_block"] // 32
+    blocks = -(-lanes // a["lanes_per_block"])
+    return {
+        "registers": a["registers"],
+        "local_bytes": a["local_bytes"],
+        "shared_bytes_per_block": a["shared_bytes"],
+        "threads_per_block": a["threads_per_block"],
+        "resident_warps_per_sm": a["resident_blocks_per_sm"] * warps_per_block,
+        "launched_warps_per_sm_at_4096_max": -(-blocks // sms) * warps_per_block,
+        "launched_warps_per_sm_at_4096_mean": blocks * warps_per_block / sms,
+    }
+
+
+def resident_timing(k2_subsets, dev, rng):
+    """K3 on a store with one column a lane (as a commit's store is), its
+    indices consecutive and shuffled, beside ``index_select`` then K2, at
+    TIMING_LANES and WIDE_TIMING_LANES. Every variant's verdicts must equal
+    K2's on the same lanes."""
+    import torch
+
+    from tendermint_tpu_torch.ops import cuda_verify, ed25519_batch as eb
+
+    pad = torch.from_numpy(eb._pad_table()).to(dev)[..., None]
+    out = {}
+    for n_lanes in (TIMING_LANES, WIDE_TIMING_LANES):
+        tab, ok, r, s, k = k2_subsets[n_lanes]
+        want = cuda_verify.verify_tables(tab, ok, r, s, k).cpu().numpy()
+        consec = torch.cat([pad, tab], dim=3).contiguous()
+        idx_c = torch.arange(1, n_lanes + 1, dtype=torch.int32)
+        perm = torch.from_numpy(rng.permutation(n_lanes).astype(np.int64))
+        shuffled = torch.empty_like(consec)
+        shuffled[..., 0] = pad[..., 0]
+        shuffled[..., 1 + perm.to(dev)] = tab
+        idx_s = (1 + perm).to(torch.int32)
+        idx_c_dev, idx_s_dev, idx_l_dev = idx_c.to(dev), idx_s.to(dev), idx_c.to(dev).long()
+        variants = {
+            "consecutive": lambda: launch_resident(consec, idx_c_dev, ok, r, s, k),
+            "shuffled": lambda: launch_resident(shuffled, idx_s_dev, ok, r, s, k),
+            "index_select_then_k2": lambda: cuda_verify.verify_tables(
+                consec.index_select(3, idx_l_dev), ok, r, s, k),
+            "wrapper_consecutive": lambda: cuda_verify.verify_resident(consec, idx_c, ok, r, s, k),
+        }
+        for label, fn in variants.items():
+            check(np.array_equal(fn().cpu().numpy(), want),
+                  f"verify_resident ({label}, {n_lanes} lanes) differs from K2")
+            out[f"ms_{label}_at_{n_lanes}"] = cuda_ms(fn, reps=20 if n_lanes == TIMING_LANES else 10)
+    return out
+
+
+def launch_resident(store, idx_dev, ok, r, s, k):
+    """K3 launched with its index already on the card: the kernel's own
+    time, without the wrapper's host check and index upload."""
+    from tendermint_tpu_torch.ops import cuda_verify
+
+    return cuda_verify._launch("ed25519_verify_resident_launch", "verify_resident",
+                               (store, idx_dev, ok, r, s, k), r.shape[0], r.device, store.shape[3])
 
 
 def phase_kernels(lanes, dev):
@@ -316,11 +470,20 @@ def phase_kernels(lanes, dev):
     # The same points with Z != 1: K2's general (non-mixed) table add.
     proj_tabs = [projective(t, 2 + i) for i, t in enumerate(tabs)]
     inp_p, _ = eb._prep_table_chunk(pks, msgs, sigs, proj_tabs, list(oks), KERNEL_LANES)
+    # K3: a store of the lanes' keys, columns in order of appearance, and
+    # the same store with its columns shuffled.
+    rng = np.random.default_rng(SEED + 1)
+    stores = [signer_store(pks, tabs), signer_store(pks, tabs, rng)]
+    inp_r = [dict(inp_t, store=st, idx=ix) for st, ix in stores]
+    k3_keys = ("store", "idx", "ok", "r", "s", "k")
     cases = {
         "verify": (cuda_verify.verify, eb.verify_kernel, ("pk", "r", "s", "k"), inp, host_ok),
         "verify_tables": (
             cuda_verify.verify_tables, eb.verify_kernel_tables,
             ("tab", "ok", "r", "s", "k"), inp_t, host_ok_t,
+        ),
+        "verify_resident": (
+            cuda_verify.verify_resident, eb.verify_kernel_resident, k3_keys, inp_r[0], host_ok_t,
         ),
     }
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -336,12 +499,12 @@ def phase_kernels(lanes, dev):
         TIMING_LANES: big_np,
         WIDE_TIMING_LANES: rotated_lanes(WIDE_TIMING_LANES),
     }
-    rows = {}
+    rows, all_subsets = {}, {}
     for name, (kernel, plain, keys, inputs, ok) in cases.items():
-        args = [torch.from_numpy(inputs[k]).to(dev) for k in keys]
+        args = kernel_args(inputs, keys, dev)
         got = kernel(*args).cpu().numpy()
         ref_out = plain(*args).cpu().numpy()
-        mismatches = int((got != ref_out).sum())
+        mismatches, err_1024 = compare_rows(got, ref_out)
         check(mismatches == 0, f"{name}: {mismatches} lanes differ from the plain version")
         bad = [i for i in checked if bool(got[i] and ok[i]) != want[i]]
         check(not bad, f"{name}: lanes {bad} differ from the host oracle")
@@ -349,51 +512,51 @@ def phase_kernels(lanes, dev):
               f"{name}: valid lanes rejected")
         extra = {}
         if name == "verify_tables":
-            pargs = [torch.from_numpy(inp_p[k]).to(dev) for k in keys]
+            pargs = kernel_args(inp_p, keys, dev)
             got_p = kernel(*pargs).cpu().numpy()
-            proj_mismatches = int((got_p != plain(*pargs).cpu().numpy()).sum())
+            proj_mismatches, err_p = compare_rows(got_p, plain(*pargs).cpu().numpy())
             check(proj_mismatches == 0 and np.array_equal(got_p, got),
                   f"{name}: projective tables give {proj_mismatches} mismatches")
             extra["projective_mismatches"] = proj_mismatches
-        by_lanes = {KERNEL_LANES: mismatches}
-        err = np.abs(got.astype(np.int32) - ref_out.astype(np.int32)).max()
-        subsets = {}
-        for n_lanes, idx_np in lane_sets.items():
-            sub = lane_subset(args, keys, torch.from_numpy(idx_np).to(dev))
-            got_sub = kernel(*sub).cpu().numpy()
-            plain_sub = plain(*sub).cpu().numpy()
-            by_lanes[n_lanes] = int((got_sub != plain_sub).sum())
-            check(by_lanes[n_lanes] == 0,
-                  f"{name}: {by_lanes[n_lanes]} of {n_lanes} lanes differ from the plain version")
-            check(np.array_equal(got_sub, got[idx_np]),
-                  f"{name}: {n_lanes}-lane verdicts differ from the {KERNEL_LANES}-lane ones")
-            err = max(err, np.abs(got_sub.astype(np.int32) - plain_sub.astype(np.int32)).max())
-            subsets[n_lanes] = sub
+            err_1024 = max(err_1024, err_p)
+        by_lanes, err, subsets = check_lane_sets(name, kernel, plain, args, keys, got, lane_sets)
+        by_lanes[KERNEL_LANES] = mismatches
+        err = max(err, err_1024)
+        all_subsets[name] = subsets
+        if name == "verify_resident":
+            check(np.array_equal(got, rows["verify_tables"]["_got"]), "verify_resident differs from K2")
+            sargs = kernel_args(inp_r[1], keys, dev)
+            got_s = kernel(*sargs).cpu().numpy()
+            plain_s = plain(*sargs).cpu().numpy()
+            by_shuffled, err_s, _ = check_lane_sets(name, kernel, plain, sargs, keys, got, lane_sets)
+            by_shuffled[KERNEL_LANES], err_1024 = compare_rows(got_s, plain_s)
+            check(by_shuffled[KERNEL_LANES] == 0 and np.array_equal(got_s, got),
+                  f"verify_resident with shuffled store columns: {by_shuffled[KERNEL_LANES]} lanes "
+                  "differ from the plain version")
+            err = max(err, err_s, err_1024)
+            extra["mismatches_by_lanes_shuffled_store"] = {
+                str(k): v for k, v in sorted(by_shuffled.items())}
+            extra["store_columns"] = int(stores[0][0].shape[3])
+            extra.update(resident_timing(all_subsets["verify_tables"], dev, rng))
         big, wide = subsets[TIMING_LANES], subsets[WIDE_TIMING_LANES]
-        ms = cuda_ms(lambda: kernel(*big), reps=20)
-        ms_wide = cuda_ms(lambda: kernel(*wide), reps=10)
-        plain_ms = cuda_ms(lambda: plain(*big), reps=3)
+        if name == "verify_resident":  # the kernel alone; the wrapper's time is in `extra`
+            big, wide = ([a.to(dev) for a in sub] for sub in (big, wide))
+            kernel_t = launch_resident
+        else:
+            kernel_t = kernel
+        ms = cuda_ms(lambda: kernel_t(*big), reps=20)
+        ms_wide = cuda_ms(lambda: kernel_t(*wide), reps=10)
+        plain_ms = cuda_ms(lambda: plain(*big), reps=1)
         ops_s = TIMING_LANES * (
             SQS_PER_LANE[name] * INT32_MULS_PER_FE_SQ + MULS_PER_LANE[name] * INT32_MULS_PER_FE_MUL
-        ) / (sms * INT32_MULS_PER_SM_CLOCK * clock_hz)
+        ) / (sms * INT32_OPS_PER_SM_CLOCK * clock_hz)
         bytes_s = TIMING_LANES * BYTES_PER_LANE[name] / HBM_BYTES_PER_S
         bound_ms = max(ops_s, bytes_s) * 1e3
-        a = attrs[name]
-        warps_per_block = a["threads_per_block"] // 32
-        blocks = -(-TIMING_LANES // a["lanes_per_block"])
-        launch = {
-            "registers": a["registers"],
-            "local_bytes": a["local_bytes"],
-            "shared_bytes_per_block": a["shared_bytes"],
-            "threads_per_block": a["threads_per_block"],
-            "resident_warps_per_sm": a["resident_blocks_per_sm"] * warps_per_block,
-            "launched_warps_per_sm_at_4096_max": -(-blocks // sms) * warps_per_block,
-            "launched_warps_per_sm_at_4096_mean": blocks * warps_per_block / sms,
-        }
+        launch = launch_facts(attrs[name], TIMING_LANES, sms)
         rows[name] = {
             "name": name,
             "route": "cuda",
-            "source": "tendermint_tpu_torch/csrc/ed25519_verify.cu",
+            "source": SOURCES[name],
             "replaces": REPLACES[name],
             "max_abs_err": float(err),
             "ms": ms,
@@ -409,24 +572,139 @@ def phase_kernels(lanes, dev):
             "mismatches_at_timing_lanes": by_lanes[TIMING_LANES],
             "mismatches_by_lanes": {str(k): v for k, v in sorted(by_lanes.items())},
             **launch,
+            **extra,
+            "_got": got,
         }
         emit({"phase": "kernel", "name": name, "lanes": KERNEL_LANES, "match_plain": True,
               "lanes_checked_vs_oracle": len(checked), "timing_lanes": TIMING_LANES,
               "mismatches_by_lanes": rows[name]["mismatches_by_lanes"], **extra,
               "ms": ms, "ms_at_16384": ms_wide, "plain_ms": plain_ms, "bound_ms": bound_ms,
               "bound_share": bound_ms / ms, **launch, "sms": sms, "max_sm_clock_hz": clock_hz})
+    for row in rows.values():
+        del row["_got"]
+    rows["challenge"] = phase_challenge(dev, sms, clock_hz)
     return rows
+
+
+def phase_challenge(dev, sms, clock_hz):
+    """K4 against hashlib and reduce_mod_l, and against its plain version;
+    its time at TIMING_LANES of the phase-3 shape."""
+    import torch
+
+    from tendermint_tpu_torch.crypto.hashing import reduce_mod_l, sha512_batch, sha512_batch_prefixed
+    from tendermint_tpu_torch.ops import cuda_hash, ed25519_batch as eb, hash512
+
+    rng = np.random.default_rng(SEED + 2)
+    err = 0
+    by_length = {}
+    for length in HASH_LENGTHS:  # the SHA-512 padding boundaries
+        mat = rng.integers(0, 256, size=(64, length), dtype=np.uint8)
+        blocks = torch.from_numpy(hash512._pack(mat)).to(dev)
+        want = reduce_mod_l(sha512_batch([row.tobytes() for row in mat]))
+        by_length[str(length)], e = compare_rows(cuda_hash.challenge(blocks).cpu().numpy(), want)
+        check(by_length[str(length)] == 0,
+              f"challenge: {by_length[str(length)]} rows differ from hashlib mod L at {length} bytes")
+        err = max(err, e)
+    pad_row_np = eb._pad_rows()[3].reshape(32)
+    pad_row = torch.from_numpy(pad_row_np).to(dev)
+    vs_host, vs_plain = {}, {}
+    for n_lanes, pad_to in ((KERNEL_LANES, KERNEL_LANES), (TIMING_LANES - 1, TIMING_LANES),
+                            (TIMING_LANES, TIMING_LANES)):
+        for nblocks, msg_len in HASH_MSG_LEN_BY_BLOCKS.items():
+            prefix = rng.integers(0, 256, size=(n_lanes, 64), dtype=np.uint8)
+            mat = rng.integers(0, 256, size=(n_lanes, msg_len), dtype=np.uint8)
+            blocks = torch.from_numpy(hash512._pack(np.concatenate([prefix, mat], axis=1))).to(dev)
+            check(blocks.shape[1] == 128 * nblocks, "challenge: block count")
+            got = cuda_hash.challenge(blocks, pad_row, pad_to).cpu().numpy()
+            want = reduce_mod_l(sha512_batch_prefixed(prefix, [r.tobytes() for r in mat]))
+            want = np.concatenate([want, np.tile(pad_row_np, (pad_to - n_lanes, 1))])
+            plain = hash512.challenge_kernel(blocks, pad_row, pad_to).cpu().numpy()
+            key = f"{n_lanes}x{nblocks}"
+            vs_host[key], e_host = compare_rows(got, want)
+            vs_plain[key], e_plain = compare_rows(got, plain)
+            check(vs_host[key] == 0 and vs_plain[key] == 0,
+                  f"challenge: {n_lanes} lanes, {nblocks} blocks: {vs_host[key]} rows differ "
+                  f"from hashlib mod L, {vs_plain[key]} from the plain version")
+            err = max(err, e_host, e_plain)
+    nblocks = 2  # phase 3: R || A || a 120-byte message
+    timed = {}
+    for n_lanes in (TIMING_LANES, WIDE_TIMING_LANES):
+        prefix = rng.integers(0, 256, size=(n_lanes, 64), dtype=np.uint8)
+        mat = rng.integers(0, 256, size=(n_lanes, HASH_MSG_LEN_BY_BLOCKS[nblocks]), dtype=np.uint8)
+        blocks = torch.from_numpy(hash512._pack(np.concatenate([prefix, mat], axis=1))).to(dev)
+        # The kernel's own time: its C launcher back to back (the wrapper's
+        # Python takes longer than the kernel); the wrapper's time beside it.
+        out = torch.empty((n_lanes, 32), dtype=torch.uint8, device=dev)
+        launcher = cuda_hash._launcher("sha512_challenge_launch")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        raw = (blocks.data_ptr(), nblocks, n_lanes, None, out.data_ptr(), n_lanes, stream)
+        check(launcher(*raw) == 0, "challenge: raw launch failed")
+        check(torch.equal(out, cuda_hash.challenge(blocks)), "challenge: raw launch differs")
+        timed[n_lanes] = cuda_ms(lambda: launcher(*raw), reps=200)
+        if n_lanes == TIMING_LANES:
+            ms_wrapper = cuda_ms(lambda: cuda_hash.challenge(blocks), reps=200)
+            plain_ms = cuda_ms(lambda: hash512.challenge_kernel(blocks), reps=1)
+    ms = timed[TIMING_LANES]
+    ops_s = TIMING_LANES * nblocks * INT32_OPS_PER_SHA512_BLOCK / (
+        sms * INT32_OPS_PER_SM_CLOCK * clock_hz)
+    bytes_s = TIMING_LANES * (128 * nblocks + 32) / HBM_BYTES_PER_S
+    bound_ms = max(ops_s, bytes_s) * 1e3
+    launch = launch_facts(cuda_hash.challenge_attributes(), TIMING_LANES, sms)
+    row = {
+        "name": "challenge",
+        "route": "cuda",
+        "source": SOURCES["challenge"],
+        "replaces": REPLACES["challenge"],
+        "max_abs_err": float(err),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "library_ms": None,
+        "match_plain": True,
+        "timing_lanes": TIMING_LANES,
+        "timing_blocks": nblocks,
+        "ms_at_16384": timed[WIDE_TIMING_LANES],
+        "ms_wrapper": ms_wrapper,
+        "bound_share": bound_ms / ms,
+        "mismatches_by_boundary_length": by_length,
+        "mismatches_by_lanes_x_blocks": vs_host,
+        "plain_mismatches_by_lanes_x_blocks": vs_plain,
+        **launch,
+    }
+    emit({"phase": "kernel", **row})
+    return row
 
 
 # --- phase 3 -------------------------------------------------------------------
 
 
+def chunk_sizes(lanes):
+    """The padded sizes of the chunks ``lanes`` lanes are verified in."""
+    from tendermint_tpu_torch.ops import ed25519_batch as eb
+
+    return [eb._bucket(min(eb.CHUNK, lanes - lo)) for lo in range(0, lanes, eb.CHUNK)]
+
+
+def launches():
+    """Every kernel's launch count so far."""
+    from tendermint_tpu_torch.ops import cuda_hash, cuda_verify
+
+    return {**cuda_verify.LAUNCHES, **cuda_hash.LAUNCHES}
+
+
+def delta(before):
+    return {k: v - before[k] for k, v in launches().items() if v != before[k]}
+
+
 def phase_verify_batch(lanes, dev):
-    from tendermint_tpu_torch.ops import cuda_verify, precompute, verify_batch
+    from tendermint_tpu_torch.ops import hash512, precompute, resident, verify_batch
 
     pks, msgs, sigs, want = lanes
     precompute.reset()  # no activated set: every lane takes K1
-    k1_before = cuda_verify.LAUNCHES["verify"]
+    check(resident.stats()["resident_keys"] == 0, "precompute.reset() left the store")
+    before = launches()
+    lanes_before = hash512.stats()["device_lanes"]
     times = []
     for _ in range(BATCH_REPS):
         precompute.results.clear()
@@ -434,59 +712,128 @@ def phase_verify_batch(lanes, dev):
         got = verify_batch(pks, msgs, sigs, device=dev)
         times.append(time.perf_counter() - t0)
         check(np.array_equal(np.asarray(got), want), "verify_batch verdicts wrong")
-    k1 = cuda_verify.LAUNCHES["verify"] - k1_before
-    check(k1 == 2 * BATCH_REPS, f"verify_batch launched K1 {k1} times, expected {2 * BATCH_REPS}")
-    check(cuda_verify.LAUNCHES["verify_tables"] == 0, "verify_batch took K2 without a table")
+    d = delta(before)
+    device_lanes = hash512.stats()["device_lanes"] - lanes_before
+    want_n = len(chunk_sizes(BATCH_LANES)) * BATCH_REPS
+    check(d == {"verify": want_n, "challenge": want_n},
+          f"verify_batch launches {d}, expected K1 and K4 {want_n} times each")
+    check(device_lanes == BATCH_LANES * BATCH_REPS,
+          f"device hash took {device_lanes} lanes, expected {BATCH_LANES * BATCH_REPS}")
     precompute.results.clear()
     profile = host_profile(lambda: verify_batch(pks, msgs, sigs, device=dev))
     emit({"phase": "verify_batch", "lanes": BATCH_LANES, "bad_lanes_rejected": int((~want).sum()),
           "seconds": times, "sigs_per_s_median": BATCH_LANES / statistics.median(times),
-          "k1_launches": k1, "host_profile": profile})
+          "launches": d, "device_hash_lanes": device_lanes, "host_profile": profile})
 
 
 # --- phase 4 -------------------------------------------------------------------
 
 
+def sign_bytes_lengths(commit):
+    """The distinct sign-bytes lengths of a commit, over all lanes and per
+    chunk."""
+    from tendermint_tpu_torch.ops import ed25519_batch as eb
+
+    lens = [len(commit.vote_sign_bytes(CHAIN_ID, i)) for i in range(COMMIT_VALIDATORS)]
+    return sorted(set(lens)), [sorted(set(lens[lo:lo + eb.CHUNK])) for lo in range(0, len(lens), eb.CHUNK)]
+
+
 def phase_commit(workload, dev):
-    from tendermint_tpu_torch.ops import cuda_verify, precompute
+    from tendermint_tpu_torch.ops import hash512, precompute, resident
     from tendermint_tpu_torch.types.validation import InvalidCommitError, verify_commit
 
     vset, block_id, commits = workload
-    chunks = -(-COMMIT_VALIDATORS // 4096)
+    chunks = len(chunk_sizes(COMMIT_VALIDATORS))
+    lengths, chunk_lengths = sign_bytes_lengths(commits[1])
+    # The device hash takes the chunks whose messages share one length.
+    hashed = sum(len(c) == 1 for c in chunk_lengths)
 
-    def run(commit):
-        before = dict(cuda_verify.LAUNCHES)
+    def run(commit, kernel):
+        before = launches()
+        mixed = hash512.stats()["declined_mixed_lengths"]
         builds = precompute.tables.builds
         t = time.perf_counter()
         verify_commit(CHAIN_ID, vset, block_id, commit.height, commit, device=dev)
         secs = time.perf_counter() - t
-        delta = {k: cuda_verify.LAUNCHES[k] - before[k] for k in before}
-        check(delta == {"verify": 0, "verify_tables": chunks}, f"commit launches {delta}")
+        d = delta(before)
+        want = {kernel: chunks, **({"challenge": hashed} if hashed else {})}
+        check(d == want, f"commit launches {d}, expected {want}")
+        check(hash512.stats()["declined_mixed_lengths"] - mixed == chunks - hashed,
+              "chunks of mixed sign-bytes lengths not sent to host hashing")
         return secs, precompute.tables.builds - builds
 
-    cold_s, cold_builds = run(commits[0])
+    def steady(kernel, reps):
+        out = []
+        for _ in range(reps):  # the same commit with the verdict cache emptied
+            precompute.results.clear()
+            secs, builds = run(commits[1], kernel)
+            check(builds == 0, "table builds in the steady state")
+            out.append(secs)
+        return out
+
+    resident.reset()
+    cold_s, cold_builds = run(commits[0], "verify_resident")
     check(cold_builds == COMMIT_VALIDATORS, f"first commit built {cold_builds} tables")
-    steady_s, steady_builds = run(commits[1])
+    store = resident.stats()
+    check(store["uploads"] == 1 and store["resident_keys"] == COMMIT_VALIDATORS
+          and store["h2d_bytes"] == (COMMIT_VALIDATORS + 1) * TABLE_BYTES,
+          f"cold commit store {store}")
+    steady_s, steady_builds = run(commits[1], "verify_resident")
     check(steady_builds == 0, f"steady-state commit built {steady_builds} tables")
-    reps = []
-    for _ in range(P50_REPS):  # the same commit with the verdict cache emptied
-        precompute.results.clear()
-        secs, builds = run(commits[1])
-        check(builds == 0, "table builds in the steady state")
-        reps.append(secs)
+    reps = steady("verify_resident", P50_REPS)
     precompute.results.clear()
-    profile = host_profile(lambda: run(commits[1]))
+    profile = host_profile(lambda: run(commits[1], "verify_resident"))
+    after = resident.stats()
+    check(after["uploads"] == 1 and after["gathered_h2d_bytes"] == 0,
+          f"steady commits moved table bytes: {after}")
     try:
         verify_commit(CHAIN_ID, vset, block_id, commits[2].height, commits[2], device=dev)
     except InvalidCommitError as exc:
         check(f"(#{BAD_COMMIT_INDEX})" in str(exc), f"bad commit rejected wrongly: {exc}")
     else:
         raise SmokeFailure("commit with a bad signature was accepted")
-    emit({"phase": "verify_commit", "validators": COMMIT_VALIDATORS,
+    emit({"phase": "verify_commit", "resident_store": "on", "validators": COMMIT_VALIDATORS,
           "cold_ms": cold_s * 1e3, "table_builds_cold": cold_builds,
           "steady_first_ms": steady_s * 1e3, "steady_ms": [r * 1e3 for r in reps],
-          "steady_p50_ms": statistics.median(reps) * 1e3, "k2_launches_per_commit": chunks,
-          "bad_signature_index": BAD_COMMIT_INDEX, "host_profile": profile})
+          "steady_p50_ms": statistics.median(reps) * 1e3, "k3_launches_per_commit": chunks,
+          "k4_launches_per_commit": hashed, "sign_bytes_lengths": lengths,
+          "sign_bytes_lengths_by_chunk": chunk_lengths,
+          "host_hashed_chunks_per_commit": chunks - hashed, "host_hash_reason": "mixed lengths",
+          "store": resident.stats(), "bad_signature_index": BAD_COMMIT_INDEX,
+          "host_profile": profile})
+
+    # 4b: the store off, the same steady commit: K2 and the tables shipped.
+    # Off and on runs alternate, so the host's drift falls on both.
+    off_reps, on_reps = [], []
+    gathered = resident.stats()["gathered_h2d_bytes"]
+    for _ in range(STORE_OFF_REPS):
+        resident.configure("off")
+        try:
+            off_reps += steady("verify_tables", 1)
+        finally:
+            resident.configure(None)
+        on_reps += steady("verify_resident", 1)
+    per_commit = (resident.stats()["gathered_h2d_bytes"] - gathered) / STORE_OFF_REPS
+    padded = sum(chunk_sizes(COMMIT_VALIDATORS))
+    check(per_commit == padded * TABLE_BYTES,
+          f"store off: {per_commit} table bytes a commit, expected {padded * TABLE_BYTES}")
+    check(resident.stats()["uploads"] == 1, "the store was uploaded again")
+    resident.configure("off")
+    try:
+        precompute.results.clear()
+        off_profile = host_profile(lambda: run(commits[1], "verify_tables"))
+    finally:
+        resident.configure(None)
+    emit({"phase": "verify_commit", "resident_store": "off", "validators": COMMIT_VALIDATORS,
+          "steady_ms": [r * 1e3 for r in off_reps],
+          "steady_p50_ms": statistics.median(off_reps) * 1e3,
+          "interleaved_store_on_ms": [r * 1e3 for r in on_reps],
+          "interleaved_store_on_p50_ms": statistics.median(on_reps) * 1e3,
+          "phase4_store_on_p50_ms": statistics.median(reps) * 1e3,
+          "k2_launches_per_commit": chunks, "gathered_table_bytes_per_commit": per_commit,
+          "host_profile": off_profile})
+    precompute.reset()
+    check(resident.stats()["resident_keys"] == 0, "precompute.reset() left the store")
 
 
 def main() -> int:
@@ -495,7 +842,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 2
-    from tendermint_tpu_torch.ops import _build, cuda_verify
+    from tendermint_tpu_torch.ops import _build, cuda_hash, cuda_verify
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -520,12 +867,13 @@ def main() -> int:
 
     rows = phase_kernels(kernel_lanes, dev)
     cuda_verify.reset_launches()  # the main path starts here
+    cuda_hash.reset_launches()
     phase_verify_batch(batch, dev)
     phase_commit(commit, dev)
-    launches = dict(cuda_verify.LAUNCHES)
+    counts = launches()
     for name, row in rows.items():
-        check(launches[name] > 0, f"kernel {name} never launched on the main path")
-        row["launches"] = launches[name]
+        check(counts[name] > 0, f"kernel {name} never launched on the main path")
+        row["launches"] = counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

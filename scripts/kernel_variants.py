@@ -7,12 +7,13 @@ Each PATH is a version of ``tendermint_tpu_torch/csrc/ed25519_verify.cu``
 (the committed one, or an edited copy). Every variant is built with the
 port's nvcc flags into ``build/variants``; then, for each round, the
 variants take turns: the loaded library is swapped for the variant's and
-``chip_smoke.phase_kernels`` runs, which checks both kernels against
+``chip_smoke.phase_kernels`` runs, which checks the kernels against
 their plain versions (failing on any mismatch) and times them. Each turn
 prints one line
 
     RESULT <round> <name> {"verify": [ms, ms_at_16384, registers,
-    local_bytes, resident_warps_per_sm], "verify_tables": [...]}
+    local_bytes, resident_warps_per_sm], "verify_tables": [...],
+    "verify_resident": [...], "challenge": [...]}
 
 and the run ends with the card's ``nvidia-smi`` name and power limit.
 Without CUDA it exits with code 2.

@@ -1,19 +1,27 @@
-// Batched Ed25519 ZIP-215 verification on Hopper (sm_90a): two kernels.
+// Batched Ed25519 ZIP-215 verification on Hopper (sm_90a): three kernels.
 //
-// What each entry point replaces (tendermint_tpu/ops/pallas_verify.py):
-//   ed25519_verify_kernel        <- _verify_kernel (via verify_fn /
-//                                   compiled_verify): decompress A and R,
-//                                   build the [1..8](-A) lane table, run
-//                                   the Straus loop, finish.
-//   ed25519_verify_tables_kernel <- _verify_tables_kernel (via
-//                                   verify_tables_fn / compiled_verify_tables):
-//                                   the lane table arrives as canonical
-//                                   (8, 4, 32, N) uint8 limbs; only R is
-//                                   decompressed.
-// Both compute, per lane, [8]([s]B - R - [k]A) == identity with liberal
+// What each entry point replaces:
+//   ed25519_verify_kernel          <- tendermint_tpu/ops/pallas_verify.py
+//                                     _verify_kernel (via verify_fn /
+//                                     compiled_verify): decompress A and R,
+//                                     build the [1..8](-A) lane table, run
+//                                     the Straus loop, finish.
+//   ed25519_verify_tables_kernel   <- pallas_verify.py _verify_tables_kernel
+//                                     (via verify_tables_fn /
+//                                     compiled_verify_tables): the lane table
+//                                     arrives as canonical (8, 4, 32, N)
+//                                     uint8 limbs; only R is decompressed.
+//   ed25519_verify_resident_kernel <- tendermint_tpu/ops/ed25519_batch.py
+//                                     verify_kernel_resident (an XLA graph,
+//                                     jnp.take then the table kernel): K2
+//                                     with each lane's table read from
+//                                     column idx[lane] of the resident
+//                                     (8, 4, 32, K) store, the gather folded
+//                                     into K2's table loads.
+// All compute, per lane, [8]([s]B - R - [k]A) == identity with liberal
 // decompression (y >= p accepted, x == 0 with sign 1 rejected), exactly as
-// tendermint_tpu_torch/ops/ed25519_batch.verify_kernel{,_tables} do; the
-// host ANDs in s < L. s and k must be < 2^253 for the signed recode.
+// tendermint_tpu_torch/ops/ed25519_batch.verify_kernel{,_tables,_resident}
+// do; the host ANDs in s < L. s and k must be < 2^253 for the signed recode.
 //
 // Field. The TPU kernel used f32 radix-2^8 limbs because its VPU has no
 // wide integer multiply; here a field element is 10 int32 limbs of 26/25
@@ -27,16 +35,20 @@
 // Bound. Per lane, in field squarings S and multiplies M: a decompression
 // is 255 S + 19 M (pow22523 251 S + 11 M), K1's table build 64 M, each of
 // the 64 windows 4 doublings (4 S + 4 M each), a madd (7 M) and a lane-table
-// add: 8 M in K1, 7 M in K2, whose host-built entries have Z = 1 so the add
-// is a mixed one; the finish is 12 S + 21 M. So K1 needs 1,546 S + 2,107 M
-// and K2 1,291 S + 1,960 M (the multiply by sqrt(-1) that some
+// add: 8 M in K1, 7 M in K2 and K3, whose host-built entries have Z = 1 so
+// the add is a mixed one; the finish is 12 S + 21 M. So K1 needs 1,546 S +
+// 2,107 M and K2 and K3 1,291 S + 1,960 M (the multiply by sqrt(-1) that some
 // decompressions take is left out). A multiply is 100 wide 32x32->64-bit
 // products and a squaring 55, each wide product two 32-bit multiplies, and
 // an H100 SM retires 64 32-bit integer multiplies per clock (CUDA
 // programming guide, compute capability 9.0), so the card is bound by its
 // integer multiply rate: at 132 SMs and 1.98 GHz, 4,096 lanes need at
-// least 0.145 ms (K1) and 0.131 ms (K2). Bytes are negligible (129 B per
-// K1 lane, 8 x 4 x 32 + 1 + 3 x 32 + 1 = 1,122 B per K2 lane).
+// least 0.145 ms (K1) and 0.131 ms (K2, K3). Bytes are negligible (129 B
+// per K1 lane, 8 x 4 x 32 + 1 + 3 x 32 + 1 = 1,122 B per K2 lane, and 4 more
+// for K3's index). K3's loads coalesce as K2's when a chunk's indices run
+// consecutively (a commit's store columns follow the set's order) and
+// scatter when they do not; a 10,001-column store is 10 MB and sits in the
+// 50 MB L2.
 //
 // Design: four threads per lane. With one thread per lane (the first
 // version) a 4,096-lane chunk was 128 warps, one per SM, so three of an
@@ -53,6 +65,8 @@
 // A doubling is one round of four squarings and one round of four products;
 // an addition two rounds of four products (thread 2 skips its product in a
 // mixed add). So a thread does 4 S + 8 M a window instead of 16 S + 31 M.
+// K3 is K2 with another table address (see verify_tables_body), so the
+// quad schedule, the fifth warp and the mixed flag below hold for it too.
 // Operands move between the quad's threads by __shfl_sync(width = 4): every
 // thread copies one register of a named thread of its quad. The step
 // tables, which tests/test_torch_quad_schedule.py runs step for step on the
@@ -716,13 +730,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ed25519_verify_kernel(
   if (c == 0 && lane_id < n) out[lane_id] = pass ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads + kDecompThreads, kMinBlocksK2)
-ed25519_verify_tables_kernel(
-    const uint8_t* __restrict__ tab_in, const uint8_t* __restrict__ a_ok,
-    const uint8_t* __restrict__ r, const uint8_t* __restrict__ s,
-    const uint8_t* __restrict__ k, const uint8_t* __restrict__ consts,
-    uint8_t* __restrict__ out, int n) {
-  __shared__ Shared sh;
+// K2 and K3 share this body; they differ only in where lane `lane`'s table
+// column lies. The table is laid out (8, 4, 32, stride): byte (t, c, l) of
+// column j at ((t * 4 + c) * 32 + l) * stride + j. K2 reads column `lane`
+// of its gathered (8, 4, 32, n) input; K3 reads column idx[lane] of the
+// (8, 4, 32, K) resident store, so the gather costs no pass of its own.
+template <bool kResident>
+__device__ __forceinline__ void verify_tables_body(
+    Shared& sh, const uint8_t* __restrict__ tab_in, const int32_t* __restrict__ idx, int stride,
+    const uint8_t* __restrict__ a_ok, const uint8_t* __restrict__ r,
+    const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
+    const uint8_t* __restrict__ consts, uint8_t* __restrict__ out, int n) {
   load_consts(consts, sh);
   const int tid = threadIdx.x;
   const int c = tid & (kQuad - 1);
@@ -732,18 +750,18 @@ ed25519_verify_tables_kernel(
 
   fe v = fe_const(0);
   if (tid < kThreads) {
-    // Thread c reads component c of every entry from column `lane` of the
-    // (8, 4, 32, N) table (byte (t, c, l) at ((t * 4 + c) * 32 + l) * N +
-    // lane), in one pass. zdiff stays 0 on thread 2 iff every entry's Z is
-    // the bytes of 1 (host-built tables); the quad then adds mixed.
+    // Thread c reads component c of every entry from the lane's column, in
+    // one pass. zdiff stays 0 on thread 2 iff every entry's Z is the bytes
+    // of 1 (host-built tables); the quad then adds mixed.
+    const size_t col_j = kResident ? static_cast<size_t>(idx[lane]) : lane;
     int32_t* tab = sh.tab + tid;
     uint8_t row[32];
     uint32_t zdiff = 0;
 #pragma unroll 1
     for (int t = 0; t < kEntries; ++t) {
-      const uint8_t* col = tab_in + size_t((t * kQuad + c) * 32) * n + lane;
+      const uint8_t* col = tab_in + size_t((t * kQuad + c) * 32) * stride + col_j;
 #pragma unroll
-      for (int l = 0; l < 32; ++l) row[l] = col[size_t(l) * n];
+      for (int l = 0; l < 32; ++l) row[l] = col[size_t(l) * stride];
 #pragma unroll
       for (int l = 0; l < 32; ++l) zdiff |= row[l] ^ (l == 0 ? 1u : 0u);
       store_lane(tab, t, fe_frombytes(row));
@@ -768,6 +786,26 @@ ed25519_verify_tables_kernel(
   const fe rq = fe_sel(c == 2, fe_const(1), sh.rc[c == 3 ? 2 : (c & 1)][ln]);
   const bool pass = finish(v, rq, c) && a_ok[lane] != 0 && sh.r_ok[ln] != 0;
   if (c == 0 && lane_id < n) out[lane_id] = pass ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kThreads + kDecompThreads, kMinBlocksK2)
+ed25519_verify_tables_kernel(
+    const uint8_t* __restrict__ tab_in, const uint8_t* __restrict__ a_ok,
+    const uint8_t* __restrict__ r, const uint8_t* __restrict__ s,
+    const uint8_t* __restrict__ k, const uint8_t* __restrict__ consts,
+    uint8_t* __restrict__ out, int n) {
+  __shared__ Shared sh;
+  verify_tables_body<false>(sh, tab_in, nullptr, n, a_ok, r, s, k, consts, out, n);
+}
+
+__global__ void __launch_bounds__(kThreads + kDecompThreads, kMinBlocksK2)
+ed25519_verify_resident_kernel(
+    const uint8_t* __restrict__ store, const int32_t* __restrict__ idx, int store_cols,
+    const uint8_t* __restrict__ a_ok, const uint8_t* __restrict__ r,
+    const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
+    const uint8_t* __restrict__ consts, uint8_t* __restrict__ out, int n) {
+  __shared__ Shared sh;
+  verify_tables_body<true>(sh, store, idx, store_cols, a_ok, r, s, k, consts, out, n);
 }
 
 inline int blocks(int n) { return (n + kLanes - 1) / kLanes; }
@@ -798,6 +836,22 @@ extern "C" int ed25519_verify_tables_launch(const void* tab, const void* a_ok, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3: the store is (8, 4, 32, store_cols) uint8 and idx (n,) int32 column
+// indices into it, each in [0, store_cols) (the wrapper checks).
+extern "C" int ed25519_verify_resident_launch(const void* store, const void* idx, const void* a_ok,
+                                              const void* r, const void* s, const void* k,
+                                              const void* consts, void* out, int n, int store_cols,
+                                              void* stream) {
+  if (n <= 0) return 0;
+  ed25519_verify_resident_kernel<<<blocks(n), kThreads + kDecompThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(store), static_cast<const int32_t*>(idx), store_cols,
+      static_cast<const uint8_t*>(a_ok), static_cast<const uint8_t*>(r),
+      static_cast<const uint8_t*>(s), static_cast<const uint8_t*>(k),
+      static_cast<const uint8_t*>(consts), static_cast<uint8_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 namespace {
 
 template <typename Kernel>
@@ -819,10 +873,15 @@ int attributes(Kernel kernel, int threads, int* out) {
 
 }  // namespace
 
-// Launch facts of kernel `which` (0: K1, 1: K2) on the current device:
-// out = {registers a thread, local (stack) bytes a thread, static shared
-// bytes a block, threads a block, lanes a block, blocks resident on an SM}.
+// Launch facts of kernel `which` (0: K1, 1: K2, 2: K3) on the current
+// device: out = {registers a thread, local (stack) bytes a thread, static
+// shared bytes a block, threads a block, lanes a block, blocks resident on
+// an SM}.
 extern "C" int ed25519_kernel_attributes(int which, int* out) {
-  return which == 0 ? attributes(ed25519_verify_kernel, kThreads, out)
-                    : attributes(ed25519_verify_tables_kernel, kThreads + kDecompThreads, out);
+  switch (which) {
+    case 0: return attributes(ed25519_verify_kernel, kThreads, out);
+    case 1: return attributes(ed25519_verify_tables_kernel, kThreads + kDecompThreads, out);
+    case 2: return attributes(ed25519_verify_resident_kernel, kThreads + kDecompThreads, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

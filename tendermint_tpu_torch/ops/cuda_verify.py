@@ -1,8 +1,9 @@
-"""Wrappers of the two Ed25519 verification kernels.
+"""Wrappers of the three Ed25519 verification kernels.
 
-Counterpart of ``tendermint_tpu/ops/pallas_verify.py``. The kernels live
-in ``csrc/ed25519_verify.cu`` (its header note gives the design and the
-bound) and are built by :mod:`._build`:
+Counterpart of ``tendermint_tpu/ops/pallas_verify.py`` and of the
+resident graph of ``tendermint_tpu/ops/ed25519_batch.py``. The kernels
+live in ``csrc/ed25519_verify.cu`` (its header note gives the design and
+the bound) and are built by :mod:`._build`:
 
 - :func:`verify` (K1, replaces ``pallas_verify._verify_kernel``):
   (N, 32) uint8 A, R, s, k -> (N,) bool; decompresses A and R and
@@ -10,6 +11,9 @@ bound) and are built by :mod:`._build`:
 - :func:`verify_tables` (K2, replaces
   ``pallas_verify._verify_tables_kernel``): takes the gathered
   (8, 4, 32, N) uint8 tables and the (N,) uint8 a_ok instead of A.
+- :func:`verify_resident` (K3, replaces
+  ``ed25519_batch.verify_kernel_resident``): K2 with lane i's table read
+  from column ``idx[i]`` of the resident (8, 4, 32, K) store.
 
 For CUDA tensors a wrapper launches its kernel on the current stream,
 or raises; for CPU tensors it runs the plain PyTorch version in
@@ -28,7 +32,7 @@ import torch
 
 from tendermint_tpu_torch.ops import _build, ed25519_batch as plain, field as F
 
-LAUNCHES: Dict[str, int] = {"verify": 0, "verify_tables": 0}
+LAUNCHES: Dict[str, int] = {"verify": 0, "verify_tables": 0, "verify_resident": 0}
 
 # Field constants the kernels load into shared memory, as canonical
 # radix-2^8 byte rows: [1..8]B in Niels form (rows 0..23, entry-major),
@@ -44,6 +48,7 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     "ed25519_verify_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
     "ed25519_verify_tables_launch": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
+    "ed25519_verify_resident_launch": [_P] * 8 + [ctypes.c_int, ctypes.c_int, _P],
     "ed25519_kernel_attributes": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
 # What ed25519_kernel_attributes writes, in order.
@@ -76,18 +81,20 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name: str, args, n: int, device: torch.device) -> torch.Tensor:
+def _launch(name: str, key: str, args, n: int, device: torch.device, *ints: int) -> torch.Tensor:
+    """Launch C function ``name`` on tensors ``args`` (then the constants,
+    the output, n and ``ints``); count it under ``LAUNCHES[key]``."""
     out = torch.empty(n, dtype=torch.uint8, device=device)
     if n:
         with torch.cuda.device(device):
             consts = F.on(CONSTS, out)
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = _launcher(name)(
-                *[a.data_ptr() for a in args], consts.data_ptr(), out.data_ptr(), n, stream
+                *[a.data_ptr() for a in args], consts.data_ptr(), out.data_ptr(), n, *ints, stream
             )
         if rc != 0:
             raise RuntimeError(f"{name} failed: CUDA error {rc}")
-        LAUNCHES["verify_tables" if "tables" in name else "verify"] += 1
+        LAUNCHES[key] += 1
     return out.view(torch.bool)
 
 
@@ -100,7 +107,7 @@ def verify(pk: torch.Tensor, r: torch.Tensor, s: torch.Tensor, k: torch.Tensor) 
         return plain.verify_kernel(pk, r, s, k)
     if pk.device.type != "cuda":
         raise ValueError(f"verify: unsupported device {pk.device}")
-    return _launch("ed25519_verify_launch", (pk, r, s, k), n, pk.device)
+    return _launch("ed25519_verify_launch", "verify", (pk, r, s, k), n, pk.device)
 
 
 def verify_tables(
@@ -117,17 +124,59 @@ def verify_tables(
         return plain.verify_kernel_tables(tab, a_ok, r, s, k)
     if r.device.type != "cuda":
         raise ValueError(f"verify_tables: unsupported device {r.device}")
-    return _launch("ed25519_verify_tables_launch", (tab, a_ok, r, s, k), n, r.device)
+    return _launch("ed25519_verify_tables_launch", "verify_tables", (tab, a_ok, r, s, k), n, r.device)
+
+
+def verify_resident(
+    store: torch.Tensor,
+    idx: torch.Tensor,
+    a_ok: torch.Tensor,
+    r: torch.Tensor,
+    s: torch.Tensor,
+    k: torch.Tensor,
+) -> torch.Tensor:
+    """K3: (8, 4, 32, K) uint8 store, (N,) int32 column indices, (N,)
+    uint8 a_ok, (N, 32) uint8 R, s, k -> (N,) bool.
+
+    ``idx`` is the host-built index, a CPU tensor: the wrapper checks
+    0 <= idx < K on it and uploads it with the launch.
+    """
+    n = r.shape[0]
+    if store.dim() != 4:
+        raise ValueError(f"store: expected shape (8, 4, 32, K), got {tuple(store.shape)}")
+    cols = store.shape[3]
+    _check("store", store, (8, 4, 32, cols), r.device)
+    _check("a_ok", a_ok, (n,), r.device)
+    for name, t in (("r", r), ("s", s), ("k", k)):
+        _check(name, t, (n, 32), r.device)
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx: expected int32, got {idx.dtype}")
+    if tuple(idx.shape) != (n,) or not idx.is_contiguous():
+        raise ValueError(f"idx: expected contiguous shape ({n},), got {tuple(idx.shape)}")
+    if idx.device.type != "cpu":
+        raise ValueError(f"idx: the host-built index must be a CPU tensor, got {idx.device}")
+    if n and (int(idx.min()) < 0 or int(idx.max()) >= cols):
+        raise ValueError(f"idx: values must lie in [0, {cols})")
+    if r.device.type == "cpu":
+        return plain.verify_kernel_resident(store, idx, a_ok, r, s, k)
+    if r.device.type != "cuda":
+        raise ValueError(f"verify_resident: unsupported device {r.device}")
+    idx_dev = F.upload(idx, r.device)
+    return _launch(
+        "ed25519_verify_resident_launch", "verify_resident", (store, idx_dev, a_ok, r, s, k),
+        n, r.device, cols,
+    )
 
 
 def kernel_attributes() -> Dict[str, Dict[str, int]]:
-    """{kernel: {key: value}} for K1 ("verify") and K2 ("verify_tables")
-    on the current CUDA device: ``cudaFuncGetAttributes`` (registers a
+    """{kernel: {key: value}} for K1 ("verify"), K2 ("verify_tables") and
+    K3 ("verify_resident") on the current CUDA device:
+    ``cudaFuncGetAttributes`` (registers a
     thread, local bytes a thread, static shared bytes a block), the launch
     shape, and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
     fn = _launcher("ed25519_kernel_attributes")
     out = {}
-    for which, name in enumerate(("verify", "verify_tables")):
+    for which, name in enumerate(("verify", "verify_tables", "verify_resident")):
         buf = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
         rc = fn(which, buf)
         if rc != 0:

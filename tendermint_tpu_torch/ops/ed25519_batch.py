@@ -9,19 +9,23 @@ with a shared-doubling (Straus) double-scalar multiplication over 64
 signed 4-bit windows (digits in [-8, 8)): a constant Niels table of
 [1..8]B and a per-lane cached table of [1..8](-A_i).
 
-:func:`verify_kernel` (decompress A and R, build the lane tables) and
+:func:`verify_kernel` (decompress A and R, build the lane tables),
 :func:`verify_kernel_tables` (tables gathered from ops/precompute.py,
-decompress R only) are the *plain* PyTorch versions of the two CUDA
-kernels in ``csrc/ed25519_verify.cu``; ``ops/cuda_verify.py`` launches
-the kernels for CUDA tensors and calls these for CPU tensors.
+decompress R only) and :func:`verify_kernel_resident` (tables read from
+the resident store of ops/resident.py by column index) are the *plain*
+PyTorch versions of the three CUDA kernels in ``csrc/ed25519_verify.cu``;
+``ops/cuda_verify.py`` launches the kernels for CUDA tensors and calls
+these for CPU tensors.
 
 :func:`verify_batch` is the entry point: the result cache answers lanes
-seen before; the rest split into table and legacy jobs chunked at
-:data:`CHUNK` lanes, and the chunks are double-buffered (chunk i's
-kernel is enqueued, then chunk i+1's host prep runs). Host prep is the
-s < L check and the challenge k = SHA-512(R‖A‖M) mod L; the device gets
-raw (N, 32) uint8 rows. The verdicts are ANDed with the host checks.
-A device error propagates: there is no host fallback in this module.
+seen before; the rest split into resident, table and legacy jobs, in
+that order, chunked at :data:`CHUNK` lanes, and the chunks are
+double-buffered (chunk i's kernel is enqueued, then chunk i+1's host prep
+runs). Host prep is the s < L check and the challenge k = SHA-512(R‖A‖M)
+mod L, which a chunk of equal-length messages hashes on the device
+(ops/hash512.py, K4) and keeps there; the device gets raw (N, 32) uint8
+rows. The verdicts are ANDed with the host checks. A device error
+propagates: there is no host fallback in this module.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from tendermint_tpu_torch.crypto.hashing import (
     sha512_batch_mod_l,
     sha512_batch_prefixed,
 )
-from tendermint_tpu_torch.ops import curve, field as F, precompute
+from tendermint_tpu_torch.ops import curve, field as F, hash512, precompute, resident
 
 _L_BYTES_BE = np.frombuffer(L.to_bytes(32, "big"), dtype=np.uint8)
 
@@ -227,6 +231,21 @@ def verify_kernel_tables(
     return _finish_verify(acc, r_pt, (a_ok != 0) & r_ok)
 
 
+def verify_kernel_resident(
+    store: torch.Tensor,
+    idx: torch.Tensor,
+    a_ok: torch.Tensor,
+    r_bytes: torch.Tensor,
+    s_bytes: torch.Tensor,
+    k_bytes: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of the K3 kernel: gather lane i's table from column
+    ``idx[i]`` of the (8, 4, 32, K) uint8 resident store, then
+    :func:`verify_kernel_tables`."""
+    tab = store.index_select(3, idx.to(device=store.device, dtype=torch.int64))
+    return verify_kernel_tables(tab, a_ok, r_bytes, s_bytes, k_bytes)
+
+
 # --- host-side preparation --------------------------------------------------
 
 
@@ -285,9 +304,29 @@ def _s_canonical(s_arr: np.ndarray) -> np.ndarray:
     return canonical_lt(s_arr, _L_BYTES_BE)
 
 
-def _challenge_k(prefix: np.ndarray, msgs: Sequence[bytes]) -> np.ndarray:
-    """Challenge scalars k = SHA-512(R‖A‖M) mod L, (N, 32) uint8."""
+def _challenge_k(
+    prefix: np.ndarray, msgs: Sequence[bytes], device=None, pad_to: Optional[int] = None
+):
+    """Challenge scalars k = SHA-512(R‖A‖M) mod L of one chunk.
+
+    Prefers the device hash (ops/hash512.py) for the chunk's ``device``:
+    it returns a ``(pad_to, 32)`` uint8 tensor that stays on the device,
+    pad rows included. Otherwise (no device, off, or an ineligible chunk)
+    it hashes on the host and returns an (N, 32) uint8 array.
+    """
+    if device is not None:
+        k_dev = hash512.try_challenge_device(prefix, msgs, device, pad_to, _pad_rows()[3])
+        if k_dev is not None:
+            return k_dev
     return reduce_mod_l(sha512_batch_prefixed(prefix, list(msgs)))
+
+
+def _pad_k(k, n: int, m: int):
+    """k of n lanes padded to m rows: a device tensor comes padded
+    already; a host array gets the pad row."""
+    if isinstance(k, torch.Tensor) or m <= n:
+        return k
+    return np.concatenate([k, np.tile(_pad_rows()[3], (m - n, 1))])
 
 
 def prepare_batch(
@@ -295,18 +334,21 @@ def prepare_batch(
     msgs: Sequence[bytes],
     sigs: Sequence[bytes],
     pad_to: Optional[int] = None,
+    device=None,
 ) -> Tuple[dict, np.ndarray]:
     """Host prep: hash challenges, stack raw bytes, pad to the bucket.
 
     Returns (kernel inputs dict of (M, 32) uint8 arrays, host_ok (N,)
-    bool of structural checks: lengths and s < L)."""
+    bool of structural checks: lengths and s < L). With a ``device``
+    whose hash path takes the chunk, k is a device tensor."""
     n = len(pubkeys)
+    m = pad_to if pad_to is not None else _bucket(n)
     if all(len(pk) == 32 and len(sg) == 64 for pk, sg in zip(pubkeys, sigs)):
         pk_arr = np.frombuffer(b"".join(pubkeys), dtype=np.uint8).reshape(n, 32)
         sig_arr = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(n, 64)
         r_arr, s_arr = sig_arr[:, :32], sig_arr[:, 32:]
         host_ok = _s_canonical(s_arr)
-        k_arr = _challenge_k(np.concatenate([r_arr, pk_arr], axis=1), msgs)
+        k_arr = _challenge_k(np.concatenate([r_arr, pk_arr], axis=1), msgs, device, m)
     else:
         host_ok = np.ones(n, dtype=bool)
         pk_arr = np.zeros((n, 32), dtype=np.uint8)
@@ -331,17 +373,41 @@ def prepare_batch(
                 b"".join(k_list), dtype=np.uint8
             ).reshape(-1, 32)
 
-    m = pad_to if pad_to is not None else _bucket(n)
+    k_arr = _pad_k(k_arr, n, m)
     if m > n:
-        pk_row, r_row, s_row, k_row = _pad_rows()
+        pk_row, r_row, s_row, _ = _pad_rows()
         reps = (m - n, 1)
         pk_arr = np.concatenate([pk_arr, np.tile(pk_row, reps)])
         r_arr = np.concatenate([r_arr, np.tile(r_row, reps)])
         s_arr = np.concatenate([s_arr, np.tile(s_row, reps)])
-        k_arr = np.concatenate([k_arr, np.tile(k_row, reps)])
     # Own, writable, C-ordered copies: torch.from_numpy shares them.
-    inputs = dict(pk=np.array(pk_arr), r=np.array(r_arr), s=np.array(s_arr), k=np.array(k_arr))
+    inputs = dict(pk=np.array(pk_arr), r=np.array(r_arr), s=np.array(s_arr), k=_own(k_arr))
     return inputs, host_ok
+
+
+def _own(k):
+    return k if isinstance(k, torch.Tensor) else np.array(k)
+
+
+def _prep_rsk(
+    pks: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes], pad_to: int, device
+) -> Tuple[dict, np.ndarray]:
+    """The R, s and k rows of a chunk of well-formed lanes, padded to
+    ``pad_to``, and its host_ok (s < L)."""
+    n = len(pks)
+    pk_arr = np.frombuffer(b"".join(pks), dtype=np.uint8).reshape(n, 32)
+    sig_arr = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(n, 64)
+    r_arr, s_arr = sig_arr[:, :32], sig_arr[:, 32:]
+    host_ok = _s_canonical(s_arr)
+    k_arr = _pad_k(
+        _challenge_k(np.concatenate([r_arr, pk_arr], axis=1), msgs, device, pad_to), n, pad_to
+    )
+    if pad_to > n:
+        _, r_row, s_row, _ = _pad_rows()
+        reps = (pad_to - n, 1)
+        r_arr = np.concatenate([r_arr, np.tile(r_row, reps)])
+        s_arr = np.concatenate([s_arr, np.tile(s_row, reps)])
+    return dict(r=np.array(r_arr), s=np.array(s_arr), k=_own(k_arr)), host_ok
 
 
 def _prep_table_chunk(
@@ -351,37 +417,48 @@ def _prep_table_chunk(
     tabs: Sequence[np.ndarray],
     oks: Sequence[bool],
     pad_to: int,
+    device=None,
 ) -> Tuple[dict, np.ndarray]:
     """Host prep for a cache-hit chunk: hash challenges and stack the
     per-key table columns into the kernel's (8, 4, 32, M) uint8 input.
     Lengths are pre-validated by the caller (ill-formed lanes take the
-    legacy path)."""
+    legacy path). The stacked table's bytes are counted as gathered
+    table traffic (``resident.stats()["gathered_h2d_bytes"]``)."""
     n = len(pks)
-    pk_arr = np.frombuffer(b"".join(pks), dtype=np.uint8).reshape(n, 32)
-    sig_arr = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(n, 64)
-    r_arr, s_arr = sig_arr[:, :32], sig_arr[:, 32:]
-    host_ok = _s_canonical(s_arr)
-    k_arr = _challenge_k(np.concatenate([r_arr, pk_arr], axis=1), msgs)
+    inputs, host_ok = _prep_rsk(pks, msgs, sigs, pad_to, device)
     tab = np.stack(tabs)  # (n, 8, 4, 32) uint8
     a_ok = np.fromiter(oks, dtype=bool, count=n).astype(np.uint8)
     if pad_to > n:
-        _, r_row, s_row, k_row = _pad_rows()
-        reps = (pad_to - n, 1)
-        r_arr = np.concatenate([r_arr, np.tile(r_row, reps)])
-        s_arr = np.concatenate([s_arr, np.tile(s_row, reps)])
-        k_arr = np.concatenate([k_arr, np.tile(k_row, reps)])
         tab = np.concatenate(
             [tab, np.broadcast_to(_pad_table()[None], (pad_to - n, TABLE_WIDTH, 4, 32))]
         )
         a_ok = np.concatenate([a_ok, np.ones(pad_to - n, dtype=np.uint8)])
-    inputs = dict(
-        tab=np.ascontiguousarray(tab.transpose(1, 2, 3, 0)),  # (8, 4, 32, M)
-        ok=a_ok,
-        r=np.array(r_arr),
-        s=np.array(s_arr),
-        k=np.array(k_arr),
-    )
-    return inputs, host_ok
+    tab = np.ascontiguousarray(tab.transpose(1, 2, 3, 0))  # (8, 4, 32, M)
+    resident.note_table_h2d(tab.nbytes)
+    return dict(tab=tab, ok=a_ok, **inputs), host_ok
+
+
+def _prep_resident_chunk(
+    pks: Sequence[bytes],
+    msgs: Sequence[bytes],
+    sigs: Sequence[bytes],
+    idxs: np.ndarray,
+    oks: np.ndarray,
+    store: torch.Tensor,
+    pad_to: int,
+    device=None,
+) -> Tuple[dict, np.ndarray]:
+    """Host prep for a resident-store chunk: the tables already live on
+    the device, so the chunk ships its (M,) int32 store columns beside the
+    R, s and k rows. Pad lanes index column 0, the pad key's table, with
+    a_ok = 1."""
+    n = len(pks)
+    inputs, host_ok = _prep_rsk(pks, msgs, sigs, pad_to, device)
+    idx = np.zeros(pad_to, dtype=np.int32)
+    idx[:n] = idxs
+    a_ok = np.ones(pad_to, dtype=np.uint8)
+    a_ok[:n] = oks
+    return dict(store=store, idx=idx, ok=a_ok, **inputs), host_ok
 
 
 def _run_chunk(inputs: dict, device: torch.device) -> torch.Tensor:
@@ -389,7 +466,7 @@ def _run_chunk(inputs: dict, device: torch.device) -> torch.Tensor:
     on ``device`` without waiting for them."""
     from tendermint_tpu_torch.ops import cuda_verify
 
-    args = [torch.from_numpy(inputs[key]).to(device) for key in ("pk", "r", "s", "k")]
+    args = [F.upload(inputs[key], device) for key in ("pk", "r", "s", "k")]
     return cuda_verify.verify(*args)
 
 
@@ -397,8 +474,17 @@ def _run_chunk_tables(inputs: dict, device: torch.device) -> torch.Tensor:
     """Launch one padded cache-hit chunk (K2)."""
     from tendermint_tpu_torch.ops import cuda_verify
 
-    args = [torch.from_numpy(inputs[key]).to(device) for key in ("tab", "ok", "r", "s", "k")]
+    args = [F.upload(inputs[key], device) for key in ("tab", "ok", "r", "s", "k")]
     return cuda_verify.verify_tables(*args)
+
+
+def _run_chunk_resident(inputs: dict, device: torch.device) -> torch.Tensor:
+    """Launch one padded resident chunk (K3): only the column indices
+    and the R, s, k rows ship; the store is on the device already."""
+    from tendermint_tpu_torch.ops import cuda_verify
+
+    args = [F.upload(inputs[key], device) for key in ("ok", "r", "s", "k")]
+    return cuda_verify.verify_resident(inputs["store"], torch.from_numpy(inputs["idx"]), *args)
 
 
 def _chunk_rows(rows: np.ndarray, span: int = CHUNK) -> List[np.ndarray]:
@@ -451,9 +537,9 @@ def _verify_uncached(
 ) -> np.ndarray:
     """Device verification of lanes the result cache could not answer."""
     n = len(pubkeys)
-    # Lanes whose key has a cached (or eligible, host-built) table take
-    # the table kernel; ill-formed lanes stay on the legacy path, whose
-    # prep handles bad lengths.
+    # Lanes whose key has a cached (or eligible, host-built) table take a
+    # table kernel; ill-formed lanes stay on the legacy path, whose prep
+    # handles bad lengths.
     entries, has_table = precompute.tables.gather(pubkeys)
     if entries is not None:
         has_table &= np.fromiter(
@@ -461,7 +547,14 @@ def _verify_uncached(
             dtype=bool,
             count=n,
         )
-    jobs = [("tables", rows) for rows in _chunk_rows(np.nonzero(has_table)[0])]
+    # Of those, lanes whose key lives in the device-resident store ship
+    # only their store column.
+    res_mask = np.zeros(n, dtype=bool)
+    res = resident.acquire(pubkeys, has_table, device)
+    if res is not None:
+        res_mask, res_idx, res_ok, res_store = res
+    jobs = [("resident", rows) for rows in _chunk_rows(np.nonzero(res_mask)[0])]
+    jobs += [("tables", rows) for rows in _chunk_rows(np.nonzero(has_table & ~res_mask)[0])]
     jobs += [("legacy", rows) for rows in _chunk_rows(np.nonzero(~has_table)[0])]
 
     def prep(job) -> Tuple[dict, np.ndarray]:
@@ -469,15 +562,23 @@ def _verify_uncached(
         pks = [pubkeys[i] for i in rows]
         ms = [msgs[i] for i in rows]
         sgs = [sigs[i] for i in rows]
+        pad_to = _bucket(len(rows))
+        if kind == "resident":
+            idxs = res_idx[rows]
+            return _prep_resident_chunk(
+                pks, ms, sgs, idxs, res_ok[idxs], res_store, pad_to, device
+            )
         if kind == "tables":
             return _prep_table_chunk(
                 pks, ms, sgs,
                 [entries[i][0] for i in rows],
                 [entries[i][1] for i in rows],
-                _bucket(len(rows)),
+                pad_to,
+                device,
             )
-        return prepare_batch(pks, ms, sgs)
+        return prepare_batch(pks, ms, sgs, pad_to, device)
 
+    runners = {"resident": _run_chunk_resident, "tables": _run_chunk_tables, "legacy": _run_chunk}
     results = np.ones(n, dtype=bool)
     host_ok_all = np.ones(n, dtype=bool)
     outs = []
@@ -487,8 +588,7 @@ def _verify_uncached(
     for j, (kind, rows) in enumerate(jobs):
         inputs, host_ok = prepped
         host_ok_all[rows] = host_ok[: len(rows)]
-        run = _run_chunk_tables if kind == "tables" else _run_chunk
-        outs.append(run(inputs, device))
+        outs.append(runners[kind](inputs, device))
         if j + 1 < len(jobs):
             prepped = prep(jobs[j + 1])
     for (_, rows), out in zip(jobs, outs):

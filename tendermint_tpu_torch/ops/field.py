@@ -79,6 +79,18 @@ def on(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def upload(x, device) -> torch.Tensor:
+    """A host array or CPU tensor on ``device``. To a CUDA device it goes
+    through pinned memory without blocking the host: a copy from pageable
+    memory waits for every kernel queued before it on the stream, which
+    would hold the next chunk's host prep behind this chunk's kernel."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 # Column index i + j of the product limb pair (i, j), for fe_mul.
 _COL_IDX = (np.arange(NLIMBS)[:, None] + np.arange(NLIMBS)[None, :]).reshape(-1)
 

@@ -1,7 +1,7 @@
 """Validator-set-aware precompute and result caches for the verify path.
 
 Counterpart of ``tendermint_tpu/ops/precompute.py`` without its tracing
-and metrics hooks, env knobs and observers.
+and metrics hooks and env knobs.
 
 - :class:`PrecomputeCache`: a bounded, thread-safe LRU keyed by raw
   pubkey bytes, holding the host-built table column ``(8, 4, 32)``
@@ -16,6 +16,14 @@ and metrics hooks, env knobs and observers.
 Only keys of an *activated* validator set get host-built tables, so
 one-off keys from ad-hoc batches cannot thrash the cache; activating a
 new set drops entries of keys that left every active set.
+
+Observers (:func:`register_observer`) hear of every entry that leaves
+the cache: ``fn(kind, payload)`` with kind ``"rotation"`` (keys that left
+every live set), ``"evict"`` (an LRU eviction) or ``"clear"``, and
+payload the tuple of affected pubkeys (empty for ``"clear"``). Events are
+queued under the cache lock and delivered outside it, in order; the
+device-resident store (ops/resident.py) drops its copy on them. An
+observer's exception propagates to the caller that triggered the event.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from __future__ import annotations
 import hashlib
 import threading
 from collections import OrderedDict
-from typing import Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -36,6 +44,16 @@ RESULT_CAP = 65536  # cached verdicts
 _ACTIVE_SETS_CAP = 8  # distinct validator sets considered live at once
 
 Entry = Tuple[np.ndarray, bool]
+
+_observers_lock = threading.Lock()
+_observers: List[Callable[[str, tuple], None]] = []  # guarded-by: _observers_lock
+
+
+def register_observer(fn: Callable[[str, tuple], None]) -> None:
+    """Subscribe ``fn(kind, payload)`` to table-cache invalidation events."""
+    with _observers_lock:
+        if fn not in _observers:
+            _observers.append(fn)
 
 
 def _limbs(v: int) -> np.ndarray:
@@ -96,15 +114,28 @@ class PrecomputeCache:
         self._entries: "OrderedDict[bytes, Entry]" = OrderedDict()  # guarded-by: _lock
         self._active_sets: "OrderedDict[bytes, FrozenSet[bytes]]" = OrderedDict()  # guarded-by: _lock
         self._eligible: FrozenSet[bytes] = frozenset()  # guarded-by: _lock
+        self._pending_events: List[Tuple[str, tuple]] = []  # guarded-by: _lock
         self.builds = 0  # host table builds; guarded-by: _lock
+
+    def _flush_events(self) -> None:
+        """Deliver the queued events to the observers, outside the lock."""
+        with self._lock:
+            events, self._pending_events = self._pending_events, []
+        if not events:
+            return
+        with _observers_lock:
+            observers = list(_observers)
+        for kind, payload in events:
+            for fn in observers:
+                fn(kind, payload)
 
     def activate_validator_set(self, vset) -> bool:
         """Mark a validator set live: its keys become table-eligible.
 
         Re-activating a known set is an LRU touch. A new set retires the
         oldest live set beyond the bound and drops cached tables of keys
-        that belong to no live set (committee rotation). Returns True
-        when the set was newly registered.
+        that belong to no live set (committee rotation, a ``"rotation"``
+        event). Returns True when the set was newly registered.
         """
         keys = _vset_ed25519_keys(vset)
         digest = hashlib.sha256(b"".join(sorted(keys))).digest()
@@ -115,21 +146,37 @@ class PrecomputeCache:
             self._active_sets[digest] = keys
             while len(self._active_sets) > _ACTIVE_SETS_CAP:
                 self._active_sets.popitem(last=False)
-            self._eligible = frozenset().union(*self._active_sets.values())
-            stale = [pk for pk in self._entries if pk not in self._eligible]
-            for pk in stale:
-                del self._entries[pk]
-            return True
+            self._recompute_eligible_locked()
+        self._flush_events()
+        return True
+
+    def _recompute_eligible_locked(self) -> None:
+        self._eligible = frozenset().union(*self._active_sets.values())
+        stale = tuple(pk for pk in self._entries if pk not in self._eligible)
+        for pk in stale:
+            del self._entries[pk]
+        if stale:
+            self._pending_events.append(("rotation", stale))
 
     def insert(self, pk: bytes, table: np.ndarray, ok: bool) -> None:
         with self._lock:
             self._insert_locked(pk, table, ok)
+        self._flush_events()
 
     def _insert_locked(self, pk: bytes, table: np.ndarray, ok: bool) -> None:
         self._entries[pk] = (table, ok)
         self._entries.move_to_end(pk)
         while len(self._entries) > self.cap:
-            self._entries.popitem(last=False)
+            old_pk, _ = self._entries.popitem(last=False)
+            self._pending_events.append(("evict", (old_pk,)))
+
+    def snapshot_eligible(self) -> List[Tuple[bytes, np.ndarray, bool]]:
+        """``(pk, table, ok)`` of every cached key of a live set, in
+        the cache's order: the slice the resident store uploads. No LRU
+        touch: this is a replication read, not a lookup."""
+        with self._lock:
+            return [(pk, tab, ok) for pk, (tab, ok) in self._entries.items()
+                    if pk in self._eligible]
 
     def gather(self, pubkeys: Sequence[bytes]) -> Tuple[Optional[List[Optional[Entry]]], np.ndarray]:
         """Per-lane table lookup/build for a batch.
@@ -162,16 +209,20 @@ class PrecomputeCache:
                 if entry is not None:
                     entries[i] = entry
                     has_table[i] = True
+        self._flush_events()
         if not has_table.any():
             return None, has_table
         return entries, has_table
 
     def clear(self) -> None:
+        """Drop every entry and set (a ``"clear"`` event)."""
         with self._lock:
             self._entries.clear()
             self._active_sets.clear()
             self._eligible = frozenset()
             self.builds = 0
+            self._pending_events.append(("clear", ()))
+        self._flush_events()
 
 
 class ResultCache:
@@ -240,6 +291,7 @@ def from_reference_tables(np_tables: Mapping[bytes, Entry]) -> int:
 
 
 def reset() -> None:
-    """Drop all cached state and counters (tests, benchmark isolation)."""
+    """Drop all cached state and counters (tests, benchmark isolation);
+    the observers hear ``"clear"``."""
     tables.clear()
     results.clear()

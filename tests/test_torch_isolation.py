@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 import tendermint_tpu_torch
 from tendermint_tpu_torch.crypto import batch as tbatch
-from tendermint_tpu_torch.ops import cuda_verify, verify_batch
+from tendermint_tpu_torch.ops import cuda_hash, cuda_verify, verify_batch
 from tendermint_tpu_torch.types import validation as tval
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -127,6 +127,13 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     fake = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_verify.verify(fake, fake, fake, fake)
+    store = torch.zeros((8, 4, 32, 3), dtype=torch.uint8, device="meta")
+    ok = torch.zeros(4, dtype=torch.uint8, device="meta")
+    idx = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_verify.verify_resident(store, idx, ok, fake, fake, fake)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_hash.challenge(torch.zeros((4, 128), dtype=torch.uint8, device="meta"))
 
     def failed_build(stem):
         raise RuntimeError(f"nvcc failed for {stem}.cu")
@@ -134,25 +141,38 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(cuda_verify._build, "load", failed_build)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         cuda_verify._launcher("ed25519_verify_launch")
+    with pytest.raises(RuntimeError, match="nvcc failed for sha512_challenge"):
+        cuda_hash._launcher("sha512_challenge_launch")
 
-    monkeypatch.setattr(cuda_verify, "_launcher", lambda name: (lambda *args: 2))
+    refused = lambda name: (lambda *args: 2)
+    monkeypatch.setattr(cuda_verify, "_launcher", refused)
+    monkeypatch.setattr(cuda_hash, "_launcher", refused)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(
         torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(cuda_stream=0)
     )
     rows = torch.zeros((4, 32), dtype=torch.uint8)
-    before = dict(cuda_verify.LAUNCHES)
+    cpu = torch.device("cpu")
+    before = (dict(cuda_verify.LAUNCHES), dict(cuda_hash.LAUNCHES))
     with pytest.raises(RuntimeError, match="CUDA error 2"):
-        cuda_verify._launch("ed25519_verify_launch", (rows,) * 4, 4, torch.device("cpu"))
-    assert cuda_verify.LAUNCHES == before  # a refused launch is not counted
+        cuda_verify._launch("ed25519_verify_launch", "verify", (rows,) * 4, 4, cpu)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        cuda_verify._launch(
+            "ed25519_verify_resident_launch", "verify_resident", (rows,) * 6, 4, cpu, 3
+        )
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        cuda_hash._run("sha512_challenge_launch", "challenge", (0, 1, 4, None, 0, 4), cpu)
+    # a refused launch is not counted
+    assert (cuda_verify.LAUNCHES, cuda_hash.LAUNCHES) == before
 
 
 def test_kernel_attributes_name_every_field_and_raise_on_error(monkeypatch):
     """kernel_attributes gives each slot the C function writes its key,
     and a CUDA error raises."""
-    with open(os.path.join(PKG, "csrc", "ed25519_verify.cu")) as fh:
-        written = sorted({int(i) for i in re.findall(r"out\[(\d)\] =", fh.read())})
-    assert written == list(range(len(cuda_verify.ATTRIBUTE_KEYS)))
+    for src in ("ed25519_verify.cu", "sha512_challenge.cu"):
+        with open(os.path.join(PKG, "csrc", src)) as fh:
+            written = sorted({int(i) for i in re.findall(r"out\[(\d)\] =", fh.read())})
+        assert written == list(range(len(cuda_verify.ATTRIBUTE_KEYS))), src
 
     def fake(which, buf):
         for i in range(len(cuda_verify.ATTRIBUTE_KEYS)):
@@ -163,6 +183,12 @@ def test_kernel_attributes_name_every_field_and_raise_on_error(monkeypatch):
     got = cuda_verify.kernel_attributes()
     assert got["verify"]["registers"] == 0 and got["verify_tables"]["registers"] == 10
     assert got["verify_tables"]["resident_blocks_per_sm"] == 15
+    assert got["verify_resident"]["registers"] == 20
+    monkeypatch.setattr(cuda_hash, "_launcher", lambda name: (lambda buf: fake(3, buf)))
+    assert cuda_hash.challenge_attributes()["threads_per_block"] == 33
     monkeypatch.setattr(cuda_verify, "_launcher", lambda name: (lambda which, buf: 98))
     with pytest.raises(RuntimeError, match="CUDA error 98"):
         cuda_verify.kernel_attributes()
+    monkeypatch.setattr(cuda_hash, "_launcher", lambda name: (lambda buf: 98))
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        cuda_hash.challenge_attributes()

@@ -3,10 +3,10 @@
 A 24-validator commit (at least 16 signatures up to +2/3, so both
 packages take their device tier, the light variant too) is built twice from the same seeds, once from each
 package's types, and ``verify_commit`` / ``verify_commit_light`` must
-pass or raise the same error with the same message in both. Then the
-port's ``verify_batch`` alone: a batch that mixes lanes with activated
-keys and lanes without, so both plain kernels run in one call, and the
-edge cases of its contract.
+pass or raise the same error with the same message in both. Then
+``verify_batch``: a batch that mixes lanes with activated keys and lanes
+without, so both plain kernels run in one call, with the same verdicts
+as the JAX package's; and the edge cases of its contract.
 """
 
 import pytest
@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 import tendermint_tpu_torch
 from tendermint_tpu import types as jtypes
-from tendermint_tpu.ops import precompute as jpc
+from tendermint_tpu.ops import ed25519_batch as jeb, precompute as jpc
 from tendermint_tpu_torch.crypto import batch as tbatch, ed25519_ref as ref
 from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
 from tendermint_tpu_torch.encoding.canonical import Timestamp
@@ -164,7 +164,7 @@ def _count_calls(monkeypatch, name):
 
 
 def test_mixed_batch_runs_both_plain_kernels(nets, monkeypatch):
-    (_, _), (tprivs, tvset) = nets
+    (_, jvset), (tprivs, tvset) = nets
     tbatch.note_validator_set(tvset)  # these keys get tables
     others = [Ed25519PrivKey.from_seed(bytes([200 + i]) * 32) for i in range(12)]
     signers = tprivs[:12] + others
@@ -183,6 +183,10 @@ def test_mixed_batch_runs_both_plain_kernels(nets, monkeypatch):
     # The same lanes again: the result cache answers, nothing launches.
     assert verify_batch(pks, msgs, sigs) == want
     assert k1 == [64] and k2 == [64]
+    # The JAX package, the same set activated, gives the same verdicts.
+    jpc.activate_validator_set(jvset)
+    assert jeb.verify_batch(pks, msgs, sigs) == want
+    assert jpc.tables.builds == 12
 
 
 def test_verify_batch_contract_edges(nets):
