@@ -17,21 +17,22 @@ and, in order:
    K3 ``verify_resident``) on 1,024 seeded lanes with planted faults and
    ZIP-215 edge cases, on the card, and requires its verdicts to equal
    its plain PyTorch version's lane for lane and, on the faulty lanes and
-   a sample of the rest, the host oracle's (K2 also on the same tables
-   scaled to Z != 1; K3 on a store of the lanes' keys, with its columns
-   in order and shuffled); then checks kernel against plain version again
-   on 1,001 and 4,095 lanes (ragged edges), a 4,096-lane chunk (the main
-   path's shape: the 1,024 lanes four times, each copy rotated) and
-   16,384 lanes; times the kernel at 4,096 and 16,384 lanes and the plain
-   version at 4,096 (CUDA events around back-to-back launches; K3 and K4
-   also through their C launchers, without the wrappers' host work) (K3 on a store with one column
-   a lane, indices consecutive and shuffled, beside ``index_select``
-   then K2); and prints each kernel's registers, stack and shared bytes,
-   and its resident and launched warps per SM. K4 (``challenge``) is
-   held to hashlib and ``reduce_mod_l`` at the SHA-512 padding
-   boundaries and on prefixed challenges of 1-3 blocks at 1,024, 4,095
-   (padded) and 4,096 lanes, and to its plain version; it is timed at
-   4,096 lanes of the phase-3 shape;
+   a sample of the rest, the host oracle's; then checks kernel against
+   plain version again on 1,001 and 4,095 lanes (ragged edges), a
+   4,096-lane chunk (the main path's shape: the 1,024 lanes four times,
+   each copy rotated) and 16,384 lanes (K2 also on the same tables scaled
+   to Z != 1; K3 on a store of the lanes' keys, with its columns in order
+   and shuffled); times the kernel at 4,096 and 16,384 lanes and the
+   plain version at 4,096 (CUDA events around back-to-back launches; K3
+   and K4 through their C launchers, without the wrappers' host work; K3
+   also on a store with one column a lane, indices consecutive and
+   shuffled, beside ``index_select`` then K2); and prints each kernel's
+   registers, stack and shared bytes, and its resident and launched
+   warps per SM. K4 (``challenge``) is held to hashlib and
+   ``reduce_mod_l`` at the SHA-512 padding boundaries and on prefixed
+   challenges of 1-3 blocks at 1,024, 1,001, 4,095 (padded), 4,096 and
+   16,384 lanes, and to its plain version; it is timed at 4,096 and
+   16,384 lanes of the phase-3 shape;
 3. verify_batch: 8,192 lanes from 256 signers with 8 planted bad lanes and
    no activated validator set (K1 and K4, two chunks each), and its
    sigs/s;
@@ -455,7 +456,9 @@ def launch_resident(store, idx_dev, ok, r, s, k):
                                (store, idx_dev, ok, r, s, k), r.shape[0], r.device, store.shape[3])
 
 
-def phase_kernels(lanes, dev):
+def phase_kernels(lanes, dev, challenge=True):
+    """K1-K3 (and K4 with ``challenge``) against their plain versions and
+    the host oracle, timed; returns the ``kernels`` rows by name."""
     import torch
 
     from tendermint_tpu_torch.crypto import ed25519_ref as ref
@@ -517,8 +520,11 @@ def phase_kernels(lanes, dev):
             proj_mismatches, err_p = compare_rows(got_p, plain(*pargs).cpu().numpy())
             check(proj_mismatches == 0 and np.array_equal(got_p, got),
                   f"{name}: projective tables give {proj_mismatches} mismatches")
+            by_proj, err_pl, _ = check_lane_sets(name, kernel, plain, pargs, keys, got, lane_sets)
+            by_proj[KERNEL_LANES] = proj_mismatches
             extra["projective_mismatches"] = proj_mismatches
-            err_1024 = max(err_1024, err_p)
+            extra["mismatches_by_lanes_projective"] = {str(k): v for k, v in sorted(by_proj.items())}
+            err_1024 = max(err_1024, err_p, err_pl)
         by_lanes, err, subsets = check_lane_sets(name, kernel, plain, args, keys, got, lane_sets)
         by_lanes[KERNEL_LANES] = mismatches
         err = max(err, err_1024)
@@ -582,7 +588,8 @@ def phase_kernels(lanes, dev):
               "bound_share": bound_ms / ms, **launch, "sms": sms, "max_sm_clock_hz": clock_hz})
     for row in rows.values():
         del row["_got"]
-    rows["challenge"] = phase_challenge(dev, sms, clock_hz)
+    if challenge:
+        rows["challenge"] = phase_challenge(dev, sms, clock_hz)
     return rows
 
 
@@ -608,8 +615,9 @@ def phase_challenge(dev, sms, clock_hz):
     pad_row_np = eb._pad_rows()[3].reshape(32)
     pad_row = torch.from_numpy(pad_row_np).to(dev)
     vs_host, vs_plain = {}, {}
-    for n_lanes, pad_to in ((KERNEL_LANES, KERNEL_LANES), (TIMING_LANES - 1, TIMING_LANES),
-                            (TIMING_LANES, TIMING_LANES)):
+    for n_lanes, pad_to in ((KERNEL_LANES, KERNEL_LANES), (RAGGED_LANES[0], RAGGED_LANES[0]),
+                            (TIMING_LANES - 1, TIMING_LANES), (TIMING_LANES, TIMING_LANES),
+                            (WIDE_TIMING_LANES, WIDE_TIMING_LANES)):
         for nblocks, msg_len in HASH_MSG_LEN_BY_BLOCKS.items():
             prefix = rng.integers(0, 256, size=(n_lanes, 64), dtype=np.uint8)
             mat = rng.integers(0, 256, size=(n_lanes, msg_len), dtype=np.uint8)

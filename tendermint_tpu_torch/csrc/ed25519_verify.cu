@@ -28,9 +28,15 @@
 // bits (the ref10 layout, value = sum v[i] * 2^ceil(25.5 i)) and a product
 // is 100 32x32->64-bit multiply-adds into int64 columns. All limbs stay
 // non-negative: subtraction adds 2p, and every add, sub and mul ends in one
-// carry pass, so "loose" limbs are < 2^26 (even) and <= 2^25 + 2^14 (odd).
-// Products of loose limbs with the x2 (odd*odd) and x19 (wrap) factors stay
-// < 2^56.3, so a column of 10 is < 2^60.
+// carry pass, so "loose" limbs are < 2^26 (even) and < 2^25 + 2^15 (odd),
+// at most 2p's limbs. One operand skips its carry pass: the left factor of
+// round 2 (D4, A4) and of A2 (fe_lin_nc, u + w + 2p - z uncarried), whose
+// limbs stay below 3 * 2^27 (even) and 3 * 2^26 + 2^18 (odd), the right
+// factor being loose. Then every int32 factor (x2 for odd * odd, x19 for a
+// wrapped column) is below 2^31, a column below 2^61.6 (2^59 for two loose
+// factors), under the 2^62 that carry64 takes, and the fold leaves at most
+// 2^14.8 for limb 1. (Worst cases computed limb by limb; the terms
+// subtracted, z, are never the doubled p2, so 2p - z >= 0.)
 //
 // Bound. Per lane, in field squarings S and multiplies M: a decompression
 // is 255 S + 19 M (pow22523 251 S + 11 M), K1's table build 64 M, each of
@@ -43,30 +49,59 @@
 // an H100 SM retires 64 32-bit integer multiplies per clock (CUDA
 // programming guide, compute capability 9.0), so the card is bound by its
 // integer multiply rate: at 132 SMs and 1.98 GHz, 4,096 lanes need at
-// least 0.145 ms (K1) and 0.131 ms (K2, K3). Bytes are negligible (129 B
-// per K1 lane, 8 x 4 x 32 + 1 + 3 x 32 + 1 = 1,122 B per K2 lane, and 4 more
-// for K3's index). K3's loads coalesce as K2's when a chunk's indices run
+// least 0.145 ms (K1) and 0.131 ms (K2, K3). The comb below does a little
+// more than the Straus half it replaces: each B warp's 4 doublings (3 x
+// (16 S + 16 M) a lane) and the quads' three adds of its parts (3 x 8 M +
+// 3 M of conversion), about 1.5% of the count, which the bound leaves out
+// so that it compares across designs. Bytes are negligible (129 B per K1
+// lane, 8 x 4 x 32 + 1 + 3 x 32 + 1 = 1,122 B per K2 lane, and 4 more for
+// K3's index). K3's loads coalesce as K2's when a chunk's indices run
 // consecutively (a commit's store columns follow the set's order) and
 // scatter when they do not; a 10,001-column store is 10 MB and sits in the
 // 50 MB L2.
 //
-// Design: four threads per lane. With one thread per lane (the first
-// version) a 4,096-lane chunk was 128 warps, one per SM, so three of an
-// SM's four schedulers had nothing to issue and the kernels ran at 12.5%
-// of the bound (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W). Here a quad of four adjacent threads carries a lane, one
-// thread per extended coordinate, with the parallel formulas of Hisil,
-// Wong, Carter and Dawson ("Twisted Edwards Curves Revisited", 2008, a =
-// -1, extended coordinates):
+// Design: warps with one job each. A block carries 32 lanes:
+//
+//   warps 0-3  the quads: four threads a lane run [k](-A), 64 windows of 4
+//              doublings and a lane-table add, then add [s]B and finish;
+//   warp 4     (K2, K3) the R warp: one thread a lane decompresses R;
+//   the rest   kBWarps = 3 B warps: one thread a lane sums a third of the
+//              fixed-base comb for [s]B.
+//
+// The TPU kernel's loop, and this file's first Hopper version, computed
+// [s]B - [k]A in one Straus chain of 64 windows, each 4 doublings, a madd
+// of [1..8]B and a lane-table add: 384 quad operations of two dependent
+// rounds a lane. At a 4,096-lane chunk each SM holds one block, one quad
+// warp on each scheduler, and that chain sets the time. [s]B needs nothing
+// from the lane (s is known at launch, B is fixed), so the B warps compute
+// it beside the chain, in ref10's ge_scalarmult_base order over a table of
+// (e + 1) 256^j B (j < 32, e < 8), and the quads' chain falls from 768 to
+// 646 rounds. The comb's multiplies are as many as the Straus madds', and
+// each scheduler's wide multiplies are what runs short: one B warp for all
+// of the comb put its whole load on one scheduler and its quad warp fell
+// behind (K3 0.384 against the Straus loop's 0.387 ms in one call;
+// scripts/kernel_variants.py, NVIDIA H100 80GB HBM3, 700.00 W). Three B
+// warps, each over comb rows j = b mod 3 with its own 4 doublings, sit on
+// the three schedulers that do not hold the R warp, and the quads add the
+// three parts. Measured against the Straus-loop version in one call, two
+// rounds each (scripts/kernel_variants.py, NVIDIA H100 80GB HBM3, 700.00
+// W): at 4,096 lanes K3 0.312-0.322 ms against 0.380-0.383 (41% of the
+// bound), K2 0.313-0.317 against 0.380-0.382, K1 0.405-0.413 against
+// 0.450-0.458; at 16,384 lanes K3 1.044-1.062 against 1.083.
+//
+// The quads. A quad of four adjacent threads carries a lane, one thread
+// per extended coordinate, with the parallel formulas of Hisil, Wong,
+// Carter and Dawson ("Twisted Edwards Curves Revisited", 2008, a = -1,
+// extended coordinates):
 //
 //   thread c (= threadIdx.x & 3) holds coordinate c of the accumulator
 //   (X, Y, Z, T), and slot c of an added operand in cached order
-//   (Y+X, Y-X, Z, 2dT); a Niels operand of [1..8]B has slot 2 = 1.
+//   (Y+X, Y-X, Z, 2dT); a Niels operand has slot 2 = 1.
 //
 // A doubling is one round of four squarings and one round of four products;
 // an addition two rounds of four products (thread 2 skips its product in a
-// mixed add). So a thread does 4 S + 8 M a window instead of 16 S + 31 M.
-// K3 is K2 with another table address (see verify_tables_body), so the
-// quad schedule, the fifth warp and the mixed flag below hold for it too.
+// mixed add). K3 is K2 with another table address (see verify_tables_body),
+// so the warp roles and the mixed flag below hold for it too.
 // Operands move between the quad's threads by __shfl_sync(width = 4): every
 // thread copies one register of a named thread of its quad. The step
 // tables, which tests/test_torch_quad_schedule.py runs step for step on the
@@ -98,7 +133,8 @@
 //   K1 table; in: v = (-A)[c]
 //   T1   q_cached(v) = q1: entry 0
 //   T2   7 x { v = q_add(v, q1); entry t = q_cached(v) }
-//   finish; in: v = ([s]B - [k]A)[c], rq
+//   finish; in: v = ([k](-A))[c], rq, after the block's barrier
+//   F0   3 x q_add(v, slot c of B warp b's part of [s]B)
 //   F1   q_add(v, rq, neg, mixed): R has Z = 1
 //   F2   3 x q_double
 //   F3   xchg  x, y, z <- v@0..2; the lane passes iff X == 0 and Y == Z
@@ -106,54 +142,57 @@
 // Negation needs no exchange: adding -Q = (Y-X, Y+X, Z, -2dT) is adding Q
 // with threads 0 and 1 multiplying the other sum, B and A trading places
 // and C negated in A3. So thread c only ever reads slot c of a table entry.
-// Round 2 forms only the two factors each thread needs, each in one carry
-// pass (fe_lin): a shuffle whose source differs by thread does the
-// selecting, so no thread computes all of E, F, G, H. An operation
-// exchanges 8 field elements (80 shuffles) against 2 multiplies a thread.
+// Round 2 forms only the two factors each thread needs: a shuffle whose
+// source differs by thread does the selecting, so no thread computes all
+// of E, F, G, H. An operation exchanges 8 field elements (80 shuffles)
+// against 2 multiplies a thread.
 //
 // Digit selection is branchless: entry |d| - 1 is read at a clamped index
-// and the identity slot substituted for d = 0. K2's mixed flag is the
-// quad's own (quads of a warp may differ) and only predicates thread 2's
-// product in A2, so every shuffle runs with all 32 threads converged. A
-// padded lane (past n) computes on lane n - 1 and skips the store: no
-// thread returns early.
+// and the identity substituted for d = 0, in the quads and in the B warps.
+// K2's mixed flag is the quad's own (quads of a warp may differ) and only
+// predicates thread 2's product in A2, so every shuffle runs with all 32
+// threads converged. A padded lane (past n) computes on lane n - 1 and
+// skips the store: no thread returns before the barrier.
 //
-// Launch. A block carries 32 lanes in 4 warps of quads (128 threads): a
-// 4,096-lane chunk is 128 blocks, at most one on each of the 132 SMs, so
-// every SM that works has one quad warp per scheduler, and no SM gets two
-// blocks while another idles. K1's __launch_bounds__(128, 4) holds a thread
-// to 128 registers so that four blocks (16 warps) fit on an SM when a
-// launch has more lanes; ptxas then spills 40-56 bytes in the set-up code
-// around decompression, and nothing in the Straus loop. K2's block has a
-// fifth warp (160 threads, see Decompression), so three blocks fit.
+// Launch. A 4,096-lane chunk is 128 blocks, at most one on each of the 132
+// SMs. K1's block has 224 threads (quads and B warps; its quads decompress
+// A and R themselves), K2's and K3's 256. __launch_bounds__ asks for two
+// blocks an SM, which holds a thread to 128 registers; ptxas then spills
+// into a 56-byte stack frame. With one block an SM it spills nothing (153
+// registers, 230 in K1) and ran as fast at 4,096 lanes, but a 16,384-lane
+// launch then takes four waves of one block an SM and ran 17-20% slower
+// (scripts/kernel_variants.py, NVIDIA H100 80GB HBM3, 700.00 W).
 //
-// Shared memory, 48,280 bytes a block (under the 48 KB of static shared
-// memory, so no cudaFuncSetAttribute):
+// Shared memory, 95,128 bytes a block, dynamic (the launchers allow it with
+// cudaFuncSetAttribute and return its error):
 //   tab   [8 entries][10 limbs][128 threads] int32: the lane table, each
 //         thread's slot in its own column. A warp reads 32 consecutive
 //         words for any digits, so no bank conflicts; 40,960 B.
-//   b     [10 limbs][4 slots][8 entries] int32: [1..8]B. The 32 (slot,
-//         entry) pairs of a limb fall in 32 banks; 1,280 B.
+//   comb  [32 rows][3 components][10 limbs][8 entries] int32: decoded once
+//         a block from rows 27.. of the constants. All threads of a B warp
+//         read one row at a step, and its 8 entries of a limb fall in 8
+//         banks; 30,720 B. Reading the rows through L1 (__ldg) from the
+//         constants instead ran as fast (scripts/kernel_alternatives.py,
+//         l1), so the table stays in shared memory, beside everything else
+//         the block reads.
 //   k     d, sqrt(-1), 2d; 120 B.
-//   sdig, kdig  [32 window pairs][32 lanes] uint8: the signed digits of s
-//         and k, two 4-bit digits a byte, written by threads 0 and 1 of
-//         the quad; 2 x 1,024 B.
-//   rc, r_ok  [3][32 lanes] fe and [32] uint8: K2's R in cached form
-//         (Y+X, Y-X, 2dT; Z = 1) and its verdict; 3,872 B (unused by K1).
+//   sdig  [3 B warps][32 window pairs][32 lanes] uint8: each B warp's
+//         recode of s, two 4-bit digits a byte; 3,072 B.
+//   kdig  [32 window pairs][32 lanes] uint8: k, written by thread 0 of the
+//         quad; 1,024 B.
+//   sb    [3][4 slots][32 lanes] fe: the B warps' parts of [s]B, cached
+//         (Y+X, Y-X, Z, 2dT); 15,360 B.
+//   rc, r_ok  [3][32 lanes] fe and [32] uint8: K2's and K3's R in cached
+//         form (Y+X, Y-X, 2dT; Z = 1) and its verdict; 3,872 B.
 // Nothing is indexed by data in registers, so no table or digit string
 // sits on the stack.
 //
 // Decompression cannot be split: pow22523 is a serial chain of 251
 // squarings. In K1 threads 0 and 2 decompress A while threads 1 and 3
 // decompress R (the same instructions, so the quad does not diverge), and
-// the table needs A before the Straus loop. K2 needs R only at the finish:
-// a fifth warp decompresses the block's 32 R points, one a thread, into
-// shared memory while the quads run the Straus loop, and a __syncthreads()
-// hands them over. With one quad warp per scheduler the schedulers are
-// mostly waiting on latency, so the fifth warp's chain costs the quads
-// little, and K2 no longer spends the chain's time in front of the loop
-// (10% of K2's time; scripts/kernel_variants.py, NVIDIA H100 80GB HBM3,
-// 700.00 W).
+// the table needs A before the Straus loop. K2 and K3 need R only at the
+// finish: the R warp decompresses the block's 32 R points, one a thread,
+// into shared memory while the quads run their loop.
 //
 // Each launcher returns cudaGetLastError() and never synchronizes.
 
@@ -163,16 +202,25 @@
 namespace {
 
 constexpr int NL = 10;
-constexpr int kQuad = 4;                     // threads per lane
-constexpr int kThreads = 128;                // threads per block
-constexpr int kLanes = kThreads / kQuad;     // lanes per block
-constexpr int kMinBlocks = 4;                // K1 blocks per SM the registers must allow
-constexpr int kDecompThreads = 32;           // K2's extra warp: R, one lane a thread
-constexpr int kMinBlocksK2 = 3;
+constexpr int kQuad = 4;                     // threads per lane on the k chain
+constexpr int kWarp = 32;
+constexpr int kQuadThreads = 128;            // the quad warps: 4 threads a lane
+constexpr int kLanes = kQuadThreads / kQuad; // lanes per block
+constexpr int kBWarps = 3;                   // the comb's warps, a third of its rows each
+constexpr int kThreadsK1 = kQuadThreads + kBWarps * kWarp;        // quads, B warps
+constexpr int kThreadsK2 = kQuadThreads + (1 + kBWarps) * kWarp;  // quads, R warp, B warps
+constexpr int kMinBlocks = 2;                // blocks per SM the registers must allow
 constexpr int kEntries = 8;                  // [1..8] tables
 constexpr int kWindows = 64;
+constexpr int kCombRows = 32;                // comb row j holds [1..8] 256^j B
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kNumConsts = 27;  // 8 x 3 Niels limbs of [1..8]B, then d, sqrt(-1), 2d
+// The constants buffer, canonical 32-byte rows: [1..8]B in Niels form
+// (rows 0..23, entry-major; no kernel of this file reads them), d,
+// sqrt(-1), 2d (rows 24..26), then the comb: row kCombConst + (j * 8 + e)
+// * 3 + comp is component comp (Y+X, Y-X, 2dT) of (e + 1) 256^j B.
+constexpr int kConstK = 24;
+constexpr int kCombConst = 27;
+constexpr int kNumConsts = kCombConst + kCombRows * kEntries * 3;
 constexpr int kConstD = 0;
 constexpr int kConstSqrtM1 = 1;
 constexpr int kConstD2 = 2;
@@ -181,15 +229,17 @@ struct fe { int32_t v[NL]; };
 struct ge { fe X, Y, Z, T; };                 // extended coordinates
 
 struct Shared {
-  int32_t tab[kEntries * NL * kThreads];      // [entry][limb][thread]
-  int32_t b[NL * kQuad * kEntries];           // [limb][slot][entry]
+  int32_t tab[kEntries * NL * kQuadThreads];  // [entry][limb][thread]
+  int32_t comb[kCombRows * 3 * NL * kEntries];  // [row][component][limb][entry]
   fe k[3];                                    // d, sqrt(-1), 2d
-  uint8_t sdig[kWindows / 2 * kLanes];        // [window pair][lane], a digit a nibble
+  uint8_t sdig[kBWarps][kWindows / 2 * kLanes];  // [B warp][window pair][lane], a digit a nibble
   uint8_t kdig[kWindows / 2 * kLanes];
-  fe rc[3][kLanes];                           // K2: Y+X, Y-X, 2dT of R
-  uint8_t r_ok[kLanes];                       // K2: R decompressed
+  fe sb[kBWarps][4][kLanes];                  // B warp b's part of [s]B, cached, slot c
+  fe rc[3][kLanes];                           // K2, K3: Y+X, Y-X, 2dT of R
+  uint8_t r_ok[kLanes];                       // K2, K3: R decompressed
 };
-static_assert(sizeof(Shared) <= 48 * 1024, "static shared memory");
+// Dynamic shared memory (cudaFuncSetAttribute in the launchers).
+static_assert(sizeof(Shared) <= 227 * 1024, "shared memory of one block");
 
 __device__ __forceinline__ int width(int i) { return (i & 1) ? 25 : 26; }
 
@@ -247,6 +297,13 @@ __device__ __forceinline__ fe fe_const(int32_t x) {
   return r;
 }
 
+__device__ __forceinline__ fe fe_sel(bool c, const fe& a, const fe& b) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = c ? a.v[i] : b.v[i];
+  return r;
+}
+
 __device__ __forceinline__ fe fe_add(const fe& a, const fe& b) {
   int32_t h[NL];
 #pragma unroll
@@ -268,6 +325,15 @@ __device__ __forceinline__ fe fe_lin(const fe& u, const fe& w, const fe& z) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) h[i] = u.v[i] + w.v[i] + (two_p(i) - z.v[i]);
   return carry32(h);
+}
+
+// u + w - z without the carry pass: limbs below 3 * 2^27 (even) and
+// 3 * 2^26 + 2^18 (odd), for a left factor of fe_mul only (see Field).
+__device__ __forceinline__ fe fe_lin_nc(const fe& u, const fe& w, const fe& z) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = u.v[i] + w.v[i] + (two_p(i) - z.v[i]);
+  return r;
 }
 
 __device__ __forceinline__ fe fe_neg(const fe& a) {
@@ -386,6 +452,39 @@ __device__ __forceinline__ fe fe_frombytes(const uint8_t b[32]) {
   return r;
 }
 
+// --- one lane per thread: the comb's point operations ------------------------
+
+// ref10's ge_madd: h + (neg ? -q : q) for q = (Y+X, Y-X, 2dT) with Z = 1,
+// in 7 M. -q is (Y-X, Y+X, -2dT): the sums swap and F and G trade places.
+__device__ __forceinline__ ge ge_madd(const ge& h, const fe& ypx, const fe& ymx, const fe& t2d,
+                                      bool neg) {
+  const fe a = fe_mul(fe_sub(h.Y, h.X), fe_sel(neg, ypx, ymx));
+  const fe b = fe_mul(fe_add(h.Y, h.X), fe_sel(neg, ymx, ypx));
+  const fe c = fe_mul(h.T, t2d);
+  const fe d = fe_add(h.Z, h.Z);
+  const fe e = fe_sub(b, a);
+  const fe hh = fe_add(b, a);
+  const fe dpc = fe_add(d, c);
+  const fe dmc = fe_sub(d, c);
+  const fe f = fe_sel(neg, dpc, dmc);
+  const fe g = fe_sel(neg, dmc, dpc);
+  return ge{fe_mul(e, f), fe_mul(g, hh), fe_mul(f, g), fe_mul(e, hh)};
+}
+
+// dbl-2008-hwcd (a = -1), as ops/curve.pt_double: 4 S + 4 M.
+__device__ __forceinline__ ge ge_dbl(const ge& p) {
+  const fe a = fe_sq(p.X);
+  const fe b = fe_sq(p.Y);
+  const fe zz = fe_sq(p.Z);
+  const fe sxy = fe_sq(fe_add(p.X, p.Y));
+  const fe c = fe_add(zz, zz);
+  const fe h = fe_add(a, b);
+  const fe e = fe_sub(h, sxy);
+  const fe g = fe_sub(a, b);
+  const fe f = fe_add(c, g);
+  return ge{fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h)};
+}
+
 __device__ __forceinline__ fe fe_pow22523(const fe& z) {
   fe t0 = fe_sq(z);                   // z^2
   fe t1 = fe_mul(z, fe_sqn(t0, 2));   // z^9
@@ -460,13 +559,6 @@ __device__ __forceinline__ int digit(const uint8_t* dig, int w) {
 }
 
 // --- four threads per lane: the quad schedule ----------------------------------
-
-__device__ __forceinline__ fe fe_sel(bool c, const fe& a, const fe& b) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = c ? a.v[i] : b.v[i];
-  return r;
-}
 
 // a where keep, else 0.
 __device__ __forceinline__ fe fe_and(const fe& a, bool keep) {
@@ -558,7 +650,7 @@ __device__ __forceinline__ fe publish(const fe& r, int c, bool neg) {
 }
 
 __device__ __forceinline__ fe round2(const fe& pub, uint64_t rt, int c, int neg) {
-  const fe lhs = fe_lin(route_term(pub, rt, 0, c, neg), route_term(pub, rt, 1, c, neg),
+  const fe lhs = fe_lin_nc(route_term(pub, rt, 0, c, neg), route_term(pub, rt, 1, c, neg),
                         route_term(pub, rt, 2, c, neg));
   const fe rhs = fe_lin(route_term(pub, rt, 3, c, neg), route_term(pub, rt, 4, c, neg),
                         route_term(pub, rt, 5, c, neg));
@@ -578,8 +670,8 @@ __device__ __forceinline__ fe q_add(const fe& v, const fe& q, int c, bool neg, b
   const fe u = shfl(v, c < 2 ? 1 : c);
   const fe x = shfl(v, 0);
   const bool plus = (c == 0) != neg;
-  const fe lhs = fe_lin(u, fe_and(x, c < 2 && plus), fe_and(x, c < 2 && !plus));
-  fe r = lhs;                                                // A2
+  const fe lhs = fe_lin_nc(u, fe_and(x, c < 2 && plus), fe_and(x, c < 2 && !plus));
+  fe r = u;                                                // A2
   if (!(mixed && c == 2)) r = fe_mul(lhs, q);
   return round2(publish(r, c, neg), kAddRoute, c, neg);      // A3, A4
 }
@@ -598,30 +690,22 @@ __device__ __forceinline__ int entry_of(int digit) {
   return m == 0 ? 0 : m - 1;
 }
 
-__device__ __forceinline__ fe load_b(const int32_t* sb, int c, int digit) {
-  const int e = entry_of(digit);
-  fe q;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) q.v[l] = sb[(l * kQuad + c) * kEntries + e];
-  return fe_sel(digit == 0, ident_slot(c), q);
-}
-
 // `tab` points at the thread's column of Shared::tab.
 __device__ __forceinline__ fe load_lane(const int32_t* tab, int c, int digit) {
   const int e = entry_of(digit);
   fe q;
 #pragma unroll
-  for (int l = 0; l < NL; ++l) q.v[l] = tab[(e * NL + l) * kThreads];
+  for (int l = 0; l < NL; ++l) q.v[l] = tab[(e * NL + l) * kQuadThreads];
   return fe_sel(digit == 0, ident_slot(c), q);
 }
 
 __device__ __forceinline__ void store_lane(int32_t* tab, int t, const fe& q) {
 #pragma unroll
-  for (int l = 0; l < NL; ++l) tab[(t * NL + l) * kThreads] = q.v[l];
+  for (int l = 0; l < NL; ++l) tab[(t * NL + l) * kQuadThreads] = q.v[l];
 }
 
-// [s]B - [k]A: 64 windows of 4 doublings, + d_s * B, + d_k * (-A). With
-// `mixed` every lane-table entry has Z = 1, and its add is a mixed one.
+// [k](-A): 64 windows of 4 doublings and + d_k * (-A). With `mixed`
+// every lane-table entry has Z = 1, and its add is a mixed one.
 __device__ __forceinline__ fe straus(const Shared& sh, int tid, bool mixed) {
   const int c = tid & (kQuad - 1);
   const int ln = tid / kQuad;
@@ -630,17 +714,18 @@ __device__ __forceinline__ fe straus(const Shared& sh, int tid, bool mixed) {
   for (int i = 0; i < kWindows; ++i) {
 #pragma unroll 1
     for (int j = 0; j < 4; ++j) v = q_double(v, c);
-    const int ds = digit(sh.sdig + ln, i);
-    v = q_add(v, load_b(sh.b, c, ds), c, ds < 0, true);
     const int dk = digit(sh.kdig + ln, i);
     v = q_add(v, load_lane(sh.tab + tid, c, dk), c, dk < 0, mixed);
   }
   return v;
 }
 
-// Subtract R (rq = slot c of cached R, whose Z is 1), multiply by the
-// cofactor, test for the identity.
-__device__ __forceinline__ bool finish(fe v, const fe& rq, int c) {
+// After the block's barrier: add the B warps' parts of [s]B (slot c of
+// their cached forms, Z != 1), subtract R (rq = slot c of cached R, whose
+// Z is 1), multiply by the cofactor, test for the identity.
+__device__ __forceinline__ bool finish(const Shared& sh, fe v, const fe& rq, int c, int ln) {
+#pragma unroll 1
+  for (int b = 0; b < kBWarps; ++b) v = q_add(v, sh.sb[b][c][ln], c, false, false);  // F0
   v = q_add(v, rq, c, true, true);                           // F1
 #pragma unroll 1
   for (int j = 0; j < 3; ++j) v = q_double(v, c);            // F2
@@ -650,24 +735,67 @@ __device__ __forceinline__ bool finish(fe v, const fe& rq, int c) {
   return fe_is_zero(x) && fe_is_zero(fe_sub(y, z));
 }
 
-// Decode the constants into shared memory: [1..8]B as (Y+X, Y-X, 1, 2dT)
-// slots, then d, sqrt(-1), 2d.
+// Decode d, sqrt(-1), 2d and the comb into shared memory.
 __device__ __forceinline__ void load_consts(const uint8_t* __restrict__ consts, Shared& sh) {
-  for (int i = threadIdx.x; i < kNumConsts; i += blockDim.x) {
-    const fe v = fe_frombytes(consts + 32 * i);
-    if (i < 3 * kEntries) {
-      const int e = i / 3, comp = i % 3, slot = comp == 2 ? 3 : comp;
-#pragma unroll
-      for (int l = 0; l < NL; ++l) sh.b[(l * kQuad + slot) * kEntries + e] = v.v[l];
-      if (comp == 0) {
-#pragma unroll
-        for (int l = 0; l < NL; ++l) sh.b[(l * kQuad + 2) * kEntries + e] = l == 0 ? 1 : 0;
-      }
+  for (int i = threadIdx.x; i < kNumConsts - kConstK; i += blockDim.x) {
+    const fe v = fe_frombytes(consts + 32 * (kConstK + i));
+    const int row = i - (kCombConst - kConstK);
+    if (row < 0) {
+      sh.k[i] = v;
     } else {
-      sh.k[i - 3 * kEntries] = v;
+      const int comp = row % 3, e = row / 3 % kEntries, j = row / (3 * kEntries);
+#pragma unroll
+      for (int l = 0; l < NL; ++l) sh.comb[((j * 3 + comp) * NL + l) * kEntries + e] = v.v[l];
     }
   }
   __syncthreads();
+}
+
+// Niels entry |d| of comb row j, the identity (1, 1, 0) for d = 0. A warp
+// reads one row (all its threads are at the same step) and at most 8
+// entries, which lie in 8 banks: no conflicts.
+__device__ __forceinline__ void load_comb(const Shared& sh, int j, int d, fe& ypx, fe& ymx,
+                                          fe& t2d) {
+  const int32_t* row = sh.comb + j * 3 * NL * kEntries + entry_of(d);
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    ypx.v[l] = row[l * kEntries];
+    ymx.v[l] = row[(NL + l) * kEntries];
+    t2d.v[l] = row[(2 * NL + l) * kEntries];
+  }
+  ypx = fe_sel(d == 0, fe_const(1), ypx);
+  ymx = fe_sel(d == 0, fe_const(1), ymx);
+  t2d = fe_and(t2d, d != 0);
+}
+
+// B warp b, one lane a thread: its part of [s]B by the fixed-base comb,
+// in ref10's ge_scalarmult_base order, over comb rows j = b mod kBWarps.
+// Digit w of the recode (most significant first) weighs 16^(63 - w), so
+// byte 31 - j of the lane's digit column holds the digit of 16 * 256^j
+// (low nibble) and that of 256^j (high nibble): sum the first kind over
+// the warp's rows, multiply by 16, then sum the second kind. 22 or 21
+// mixed adds and 4 doublings; the part goes to shared memory in cached
+// form, and the quads add the kBWarps parts.
+__device__ __forceinline__ void comb_sb(Shared& sh, const uint8_t* __restrict__ s, int ln, int b) {
+  uint8_t* dig = sh.sdig[b] + ln;
+  recode(s, dig);
+  ge h{fe_const(0), fe_const(1), fe_const(1), fe_const(0)};
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll 1
+    for (int j = 0; j < 4 * half; ++j) h = ge_dbl(h);
+#pragma unroll 1
+    for (int j = b; j < kCombRows; j += kBWarps) {
+      const int d = digit(dig, 2 * (kCombRows - 1 - j) + half);
+      fe ypx, ymx, t2d;
+      load_comb(sh, j, d, ypx, ymx, t2d);
+      h = ge_madd(h, ypx, ymx, t2d, d < 0);
+    }
+  }
+  sh.sb[b][0][ln] = fe_add(h.Y, h.X);
+  sh.sb[b][1][ln] = fe_sub(h.Y, h.X);
+  sh.sb[b][2][ln] = h.Z;
+  sh.sb[b][3][ln] = fe_mul(h.T, sh.k[kConstD2]);
 }
 
 __device__ __forceinline__ void load_row(const uint8_t* __restrict__ src, uint8_t dst[32]) {
@@ -675,58 +803,76 @@ __device__ __forceinline__ void load_row(const uint8_t* __restrict__ src, uint8_
   for (int i = 0; i < 32; ++i) dst[i] = src[i];
 }
 
-// Threads 0 and 1 of the quad recode s and k into the lane's digit columns.
-__device__ __forceinline__ void recode_digits(Shared& sh, const uint8_t* s, const uint8_t* k,
-                                              size_t lane, int c, int ln) {
-  if (c < 2) recode((c == 0 ? s : k) + 32 * lane, (c == 0 ? sh.sdig : sh.kdig) + ln);
+// Thread 0 of the quad recodes k into the lane's digit column.
+__device__ __forceinline__ void recode_k(Shared& sh, const uint8_t* k, size_t lane, int c, int ln) {
+  if (c == 0) recode(k + 32 * lane, sh.kdig + ln);
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks) ed25519_verify_kernel(
+// Lane (in the block) of thread tid: a quad thread's, or a helper warp's
+// thread's own.
+__device__ __forceinline__ int block_lane(int tid) {
+  return tid < kQuadThreads ? tid / kQuad : (tid - kQuadThreads) & (kWarp - 1);
+}
+
+__device__ __forceinline__ Shared& shared() {
+  extern __shared__ __align__(16) uint8_t smem[];
+  return *reinterpret_cast<Shared*>(smem);
+}
+
+__global__ void __launch_bounds__(kThreadsK1, kMinBlocks) ed25519_verify_kernel(
     const uint8_t* __restrict__ pk, const uint8_t* __restrict__ r,
     const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
     const uint8_t* __restrict__ consts, uint8_t* __restrict__ out, int n) {
-  __shared__ Shared sh;
+  Shared& sh = shared();
   load_consts(consts, sh);
   const int tid = threadIdx.x;
   const int c = tid & (kQuad - 1);
-  const int ln = tid / kQuad;
+  const int ln = block_lane(tid);
   const int lane_id = blockIdx.x * kLanes + ln;
   const size_t lane = lane_id < n ? lane_id : n - 1;  // padded lanes compute, never store
 
-  // X1: even threads decompress A, odd threads R; each prepares its own
-  // slot and the one its partner (c ^ 1) needs.
-  uint8_t row[32];
-  load_row(((c & 1) ? r : pk) + 32 * lane, row);
-  ge p;
-  const bool ok = ge_decompress(row, sh.k[kConstD], sh.k[kConstSqrtM1], &p);
-  const bool even = (c & 1) == 0;
-  const fe ypx = fe_add(p.Y, p.X);
-  const fe ymx = fe_sub(p.Y, p.X);
-  const fe t2d = fe_mul(p.T, sh.k[kConstD2]);
-  const fe own = fe_sel(even, pick4(p.X, p.Y, p.Z, p.T, c), pick4(ypx, ymx, p.Z, t2d, c));
-  const fe send =
-      fe_sel(even, pick4(p.X, p.Y, p.Z, p.T, c ^ 1), pick4(ypx, ymx, p.Z, t2d, c ^ 1));
-  const fe got = shfl_xor(send, 1);                          // X2
-  const bool other_ok = __shfl_xor_sync(kFull, static_cast<int>(ok), 1, kQuad) != 0;
-  const fe a_c = fe_sel(even, own, got);
-  const fe rq = fe_sel(even, got, own);
-  const bool a_ok = even ? ok : other_ok;
-  const bool r_ok = even ? other_ok : ok;
+  fe v = fe_const(0), rq = fe_const(0);
+  bool a_ok = false, r_ok = false;
+  if (tid < kQuadThreads) {
+    // X1: even threads decompress A, odd threads R; each prepares its own
+    // slot and the one its partner (c ^ 1) needs.
+    uint8_t row[32];
+    load_row(((c & 1) ? r : pk) + 32 * lane, row);
+    ge p;
+    const bool ok = ge_decompress(row, sh.k[kConstD], sh.k[kConstSqrtM1], &p);
+    const bool even = (c & 1) == 0;
+    const fe ypx = fe_add(p.Y, p.X);
+    const fe ymx = fe_sub(p.Y, p.X);
+    const fe t2d = fe_mul(p.T, sh.k[kConstD2]);
+    const fe own = fe_sel(even, pick4(p.X, p.Y, p.Z, p.T, c), pick4(ypx, ymx, p.Z, t2d, c));
+    const fe send =
+        fe_sel(even, pick4(p.X, p.Y, p.Z, p.T, c ^ 1), pick4(ypx, ymx, p.Z, t2d, c ^ 1));
+    const fe got = shfl_xor(send, 1);                        // X2
+    const bool other_ok = __shfl_xor_sync(kFull, static_cast<int>(ok), 1, kQuad) != 0;
+    const fe a_c = fe_sel(even, own, got);
+    rq = fe_sel(even, got, own);
+    a_ok = even ? ok : other_ok;
+    r_ok = even ? other_ok : ok;
 
-  // Lane table: entry t is (t + 1)(-A) in cached form.
-  int32_t* tab = sh.tab + tid;
-  fe v = fe_sel(c == 0 || c == 3, fe_neg(a_c), a_c);
-  const fe q1 = q_cached(v, c, sh.k[kConstD2]);              // T1
-  store_lane(tab, 0, q1);
+    // Lane table: entry t is (t + 1)(-A) in cached form.
+    int32_t* tab = sh.tab + tid;
+    v = fe_sel(c == 0 || c == 3, fe_neg(a_c), a_c);
+    const fe q1 = q_cached(v, c, sh.k[kConstD2]);            // T1
+    store_lane(tab, 0, q1);
 #pragma unroll 1
-  for (int t = 1; t < kEntries; ++t) {                       // T2
-    v = q_add(v, q1, c, false, false);
-    store_lane(tab, t, q_cached(v, c, sh.k[kConstD2]));
+    for (int t = 1; t < kEntries; ++t) {                     // T2
+      v = q_add(v, q1, c, false, false);
+      store_lane(tab, t, q_cached(v, c, sh.k[kConstD2]));
+    }
+    recode_k(sh, k, lane, c, ln);
+    v = straus(sh, tid, false);
+  } else {
+    comb_sb(sh, s + 32 * lane, ln, (tid - kQuadThreads) / kWarp);
   }
-
-  recode_digits(sh, s, k, lane, c, ln);
-  const bool pass = finish(straus(sh, tid, false), rq, c) && a_ok && r_ok;
+  __syncthreads();
+  if (tid >= kQuadThreads) return;
+  const bool pass = finish(sh, v, rq, c, ln) && a_ok && r_ok;
   if (c == 0 && lane_id < n) out[lane_id] = pass ? 1 : 0;
 }
 
@@ -737,19 +883,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ed25519_verify_kernel(
 // (8, 4, 32, K) resident store, so the gather costs no pass of its own.
 template <bool kResident>
 __device__ __forceinline__ void verify_tables_body(
-    Shared& sh, const uint8_t* __restrict__ tab_in, const int32_t* __restrict__ idx, int stride,
+    const uint8_t* __restrict__ tab_in, const int32_t* __restrict__ idx, int stride,
     const uint8_t* __restrict__ a_ok, const uint8_t* __restrict__ r,
     const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
     const uint8_t* __restrict__ consts, uint8_t* __restrict__ out, int n) {
+  Shared& sh = shared();
   load_consts(consts, sh);
   const int tid = threadIdx.x;
   const int c = tid & (kQuad - 1);
-  const int ln = tid < kThreads ? tid / kQuad : tid - kThreads;
+  const int ln = block_lane(tid);
   const int lane_id = blockIdx.x * kLanes + ln;
   const size_t lane = lane_id < n ? lane_id : n - 1;  // padded lanes compute, never store
 
   fe v = fe_const(0);
-  if (tid < kThreads) {
+  if (tid < kQuadThreads) {
     // Thread c reads component c of every entry from the lane's column, in
     // one pass. zdiff stays 0 on thread 2 iff every entry's Z is the bytes
     // of 1 (host-built tables); the quad then adds mixed.
@@ -767,11 +914,11 @@ __device__ __forceinline__ void verify_tables_body(
       store_lane(tab, t, fe_frombytes(row));
     }
     const bool mixed = __shfl_sync(kFull, zdiff, 2, kQuad) == 0;
-    recode_digits(sh, s, k, lane, c, ln);
+    recode_k(sh, k, lane, c, ln);
     v = straus(sh, tid, mixed);
-  } else {
-    // The last warp decompresses R of the block's lanes, one a thread,
-    // while the quads run the Straus loop.
+  } else if (tid < kQuadThreads + kWarp) {
+    // The R warp decompresses R of the block's lanes, one a thread, while
+    // the quads run the Straus loop.
     uint8_t row[32];
     load_row(r + 32 * lane, row);
     ge p;
@@ -779,36 +926,43 @@ __device__ __forceinline__ void verify_tables_body(
     sh.rc[0][ln] = fe_add(p.Y, p.X);
     sh.rc[1][ln] = fe_sub(p.Y, p.X);
     sh.rc[2][ln] = fe_mul(p.T, sh.k[kConstD2]);
+  } else {
+    comb_sb(sh, s + 32 * lane, ln, (tid - kQuadThreads) / kWarp - 1);
   }
   __syncthreads();
-  if (tid >= kThreads) return;
+  if (tid >= kQuadThreads) return;
   // Slot c of cached R: Y+X, Y-X, Z = 1, 2dT.
   const fe rq = fe_sel(c == 2, fe_const(1), sh.rc[c == 3 ? 2 : (c & 1)][ln]);
-  const bool pass = finish(v, rq, c) && a_ok[lane] != 0 && sh.r_ok[ln] != 0;
+  const bool pass = finish(sh, v, rq, c, ln) && a_ok[lane] != 0 && sh.r_ok[ln] != 0;
   if (c == 0 && lane_id < n) out[lane_id] = pass ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads + kDecompThreads, kMinBlocksK2)
-ed25519_verify_tables_kernel(
+__global__ void __launch_bounds__(kThreadsK2, kMinBlocks) ed25519_verify_tables_kernel(
     const uint8_t* __restrict__ tab_in, const uint8_t* __restrict__ a_ok,
     const uint8_t* __restrict__ r, const uint8_t* __restrict__ s,
     const uint8_t* __restrict__ k, const uint8_t* __restrict__ consts,
     uint8_t* __restrict__ out, int n) {
-  __shared__ Shared sh;
-  verify_tables_body<false>(sh, tab_in, nullptr, n, a_ok, r, s, k, consts, out, n);
+  verify_tables_body<false>(tab_in, nullptr, n, a_ok, r, s, k, consts, out, n);
 }
 
-__global__ void __launch_bounds__(kThreads + kDecompThreads, kMinBlocksK2)
-ed25519_verify_resident_kernel(
+__global__ void __launch_bounds__(kThreadsK2, kMinBlocks) ed25519_verify_resident_kernel(
     const uint8_t* __restrict__ store, const int32_t* __restrict__ idx, int store_cols,
     const uint8_t* __restrict__ a_ok, const uint8_t* __restrict__ r,
     const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
     const uint8_t* __restrict__ consts, uint8_t* __restrict__ out, int n) {
-  __shared__ Shared sh;
-  verify_tables_body<true>(sh, store, idx, store_cols, a_ok, r, s, k, consts, out, n);
+  verify_tables_body<true>(store, idx, store_cols, a_ok, r, s, k, consts, out, n);
 }
 
 inline int blocks(int n) { return (n + kLanes - 1) / kLanes; }
+
+// A block takes sizeof(Shared) bytes of dynamic shared memory, more than
+// the 48 KB a kernel may take unless it is allowed; the launchers allow it
+// before every launch and return the error if that fails.
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(sizeof(Shared)));
+}
 
 }  // namespace
 
@@ -816,7 +970,10 @@ extern "C" int ed25519_verify_launch(const void* pk, const void* r, const void* 
                                      const void* k, const void* consts, void* out, int n,
                                      void* stream) {
   if (n <= 0) return 0;
-  ed25519_verify_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t err = allow_shared(ed25519_verify_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ed25519_verify_kernel<<<blocks(n), kThreadsK1, sizeof(Shared),
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(pk), static_cast<const uint8_t*>(r),
       static_cast<const uint8_t*>(s), static_cast<const uint8_t*>(k),
       static_cast<const uint8_t*>(consts), static_cast<uint8_t*>(out), n);
@@ -827,7 +984,9 @@ extern "C" int ed25519_verify_tables_launch(const void* tab, const void* a_ok, c
                                             const void* s, const void* k, const void* consts,
                                             void* out, int n, void* stream) {
   if (n <= 0) return 0;
-  ed25519_verify_tables_kernel<<<blocks(n), kThreads + kDecompThreads, 0,
+  const cudaError_t err = allow_shared(ed25519_verify_tables_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ed25519_verify_tables_kernel<<<blocks(n), kThreadsK2, sizeof(Shared),
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(tab), static_cast<const uint8_t*>(a_ok),
       static_cast<const uint8_t*>(r), static_cast<const uint8_t*>(s),
@@ -843,7 +1002,9 @@ extern "C" int ed25519_verify_resident_launch(const void* store, const void* idx
                                               const void* consts, void* out, int n, int store_cols,
                                               void* stream) {
   if (n <= 0) return 0;
-  ed25519_verify_resident_kernel<<<blocks(n), kThreads + kDecompThreads, 0,
+  const cudaError_t err = allow_shared(ed25519_verify_resident_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ed25519_verify_resident_kernel<<<blocks(n), kThreadsK2, sizeof(Shared),
                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(store), static_cast<const int32_t*>(idx), store_cols,
       static_cast<const uint8_t*>(a_ok), static_cast<const uint8_t*>(r),
@@ -856,15 +1017,17 @@ namespace {
 
 template <typename Kernel>
 int attributes(Kernel kernel, int threads, int* out) {
+  cudaError_t err = allow_shared(kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   int resident = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, sizeof(Shared));
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes + sizeof(Shared));
   out[3] = threads;
   out[4] = kLanes;
   out[5] = resident;
@@ -874,14 +1037,14 @@ int attributes(Kernel kernel, int threads, int* out) {
 }  // namespace
 
 // Launch facts of kernel `which` (0: K1, 1: K2, 2: K3) on the current
-// device: out = {registers a thread, local (stack) bytes a thread, static
-// shared bytes a block, threads a block, lanes a block, blocks resident on
-// an SM}.
+// device: out = {registers a thread, local (stack) bytes a thread, shared
+// bytes a block (static and dynamic), threads a block, lanes a block,
+// blocks resident on an SM}.
 extern "C" int ed25519_kernel_attributes(int which, int* out) {
   switch (which) {
-    case 0: return attributes(ed25519_verify_kernel, kThreads, out);
-    case 1: return attributes(ed25519_verify_tables_kernel, kThreads + kDecompThreads, out);
-    case 2: return attributes(ed25519_verify_resident_kernel, kThreads + kDecompThreads, out);
+    case 0: return attributes(ed25519_verify_kernel, kThreadsK1, out);
+    case 1: return attributes(ed25519_verify_tables_kernel, kThreadsK2, out);
+    case 2: return attributes(ed25519_verify_resident_kernel, kThreadsK2, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

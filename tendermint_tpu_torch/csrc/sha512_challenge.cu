@@ -11,15 +11,47 @@
 //                            lanes), so k of a padded chunk stays on the
 //                            device in one launch.
 //
-// Design: one thread a lane, on native uint64_t words. The TPU kernel held
-// a word as a (hi, lo) pair of uint32 vectors; here a 64-bit rotation is
-// two funnel shifts and a three-input XOR one LOP3 a half. The 80 round
-// constants sit in __constant__ memory: every thread of a warp reads the
-// same one in each round, which the constant cache broadcasts. The
-// message schedule is a ring of 16 words in registers (w[t & 15]), the 80
-// rounds are unrolled so every ring index is a constant, and the block
-// loop runs over B, an argument. Words load as 8-byte big-endian reads
-// (rows are 8-byte aligned: the wrapper checks).
+// Design: two threads a lane, in two warps of a 32-lane block, on native
+// uint64_t words. The TPU kernel held a word as a (hi, lo) pair of uint32
+// vectors; here a 64-bit rotation is two funnel shifts and a three-input
+// XOR one LOP3 a half. The first version ran one thread a lane in
+// 128-thread blocks: a 4,096-lane chunk was 32 blocks, one warp on each
+// scheduler of 32 SMs, each thread's serial chain of 160 rounds behind
+// strided 8-byte loads (each touching 32 sectors) and its own message
+// schedule; it took 0.0150 ms, and 0.0156 ms at 16,384 lanes
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W). Now:
+//
+//   warp 1, the schedule warp, copies the block's 32 rows into shared
+//          memory with cp.async (16-byte pieces, eight threads on each
+//          row's 128 contiguous bytes of a message block), then computes
+//          W[t] + K[t] one hand-over of 16 rounds at a time, from a ring
+//          of the last 16 words in registers, into a ring of kRing = 4
+//          hand-over buffers;
+//   warp 0, the round warp, runs the 80 rounds of each message block,
+//          reading W[t] + K[t] from shared memory (one load a round, 32
+//          lanes on 32 consecutive words), then reduces the digest mod L.
+//
+// Buffer i is handed over by bar.arrive / bar.sync on named barrier
+// kFullBarrier + i and handed back on kEmptyBarrier + i, so the schedule
+// warp runs up to four hand-overs ahead and neither warp waits on the
+// other in the steady state; a __syncthreads() lockstep a hand-over cost
+// 0.0103 against 0.0099 ms (scripts/kernel_variants.py, NVIDIA H100 80GB
+// HBM3, 700.00 W). Two message blocks are staged at a time: for B <= 2
+// (the main path's challenges) every copy is issued before round 0, and a
+// longer row refills a stage as soon as its words are in registers. One
+// thread a lane doing both (scripts/kernel_alternatives.py, single) ran
+// 0.0132 ms.
+//
+// Launch. 32 lanes a block, so 4,096 lanes are 128 blocks on 128 SMs, not
+// 32; 64 threads and 24 KB of static shared memory a block. Rows n..m-1
+// copy the pad row.
+//
+// Shared memory, 24,576 bytes a block:
+//   stage [2][32 rows][8] uint4: a message block of each row; row r's
+//         16-byte piece p sits at piece p ^ (r & 7), so the eight rows that
+//         a quarter-warp's 16-byte reads cover fall in 32 distinct banks;
+//         8 KB.
+//   wk    [4][16 rounds][32 lanes] uint64: W + K; 16 KB.
 //
 // Reduction mod L. k mod L is unique, so any exact reduction gives the
 // reference's bytes. The digest, read little-endian, is x < 2^512, eight
@@ -28,6 +60,7 @@
 // Cryptography, algorithm 14.42): q = ((x >> 192) * mu) >> 320 with
 // mu = floor(2^512 / L), r = (x - q L) mod 2^320, then at most two
 // subtractions of L. Products are 64 x 64 -> 128-bit (mul and __umul64hi).
+// The round warp runs it after its last round.
 //
 // Bound. Counted from this source, in 32-bit integer instructions a
 // 128-byte block, taking the fewest the card needs: a round is three
@@ -39,21 +72,30 @@
 // block is 80 x 30 + 64 x 20 + 16 = 3,696. An H100 SM issues 64 32-bit
 // integer add, logic or shift instructions a clock (CUDA programming
 // guide, compute capability 9.0), so the card needs lanes x B x 3,696 /
-// (132 x 64 x clock); the reduction (45 wide products) and the loads are
-// left out, so this stays a lower bound. Bytes: 128 a block in, 32 out.
-// A 4,096-lane chunk is 128 warps in 32 blocks of 128 threads, one warp
-// on each scheduler of 32 SMs, so each thread's serial chain of rounds
-// sets the time, far above the bound.
+// (132 x 64 x clock): 0.00181 ms at 4,096 lanes x 2 blocks; the reduction
+// and the loads are left out, so this stays a lower bound. Bytes: 128 a
+// block in, 32 out. A lane's 160 rounds are one serial chain, and at 4,096
+// lanes each SM holds one round warp, so the chain and the launch, not the
+// SM's issue rate, set the time.
 //
 // The launcher returns cudaGetLastError() and never synchronizes.
 
 #include <cstdint>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kLanes = kWarp;                // lanes per block
+constexpr int kThreads = 2 * kWarp;          // the round warp, then the schedule warp
 constexpr int kBlockBytes = 128;
+constexpr int kChunk = 16;                   // rounds a hand-over
+constexpr int kChunks = 80 / kChunk;         // hand-overs a 128-byte block
+constexpr int kStages = 2;                   // message blocks staged at a time
+constexpr int kRing = 4;                     // W + K buffers between the two warps
+constexpr int kFullBarrier = 1;              // named barriers kFullBarrier + buffer
+constexpr int kEmptyBarrier = kFullBarrier + kRing;
 
 __constant__ uint64_t kRound[80] = {
     0x428a2f98d728ae22ull, 0x7137449123ef65cdull, 0xb5c0fbcfec4d3b2full, 0xe9b5dba58189dbbcull,
@@ -101,32 +143,108 @@ __device__ __forceinline__ uint64_t bswap64(uint64_t x) {
   return (uint64_t(bswap32(static_cast<uint32_t>(x))) << 32) | bswap32(static_cast<uint32_t>(x >> 32));
 }
 
-// The big-endian word at p (8-byte aligned).
-__device__ __forceinline__ uint64_t load_be64(const uint8_t* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  return (uint64_t(bswap32(v.x)) << 32) | bswap32(v.y);
+// The big-endian word of bytes (lo, hi) as they lie in memory.
+__device__ __forceinline__ uint64_t be64(uint32_t lo, uint32_t hi) {
+  return (uint64_t(bswap32(lo)) << 32) | bswap32(hi);
 }
 
-__device__ __forceinline__ void compress(uint64_t st[8], const uint8_t* __restrict__ blk) {
-  uint64_t w[16];
+__device__ __forceinline__ uint64_t big_sigma0(uint64_t a) {
+  return rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39);
+}
+__device__ __forceinline__ uint64_t big_sigma1(uint64_t e) {
+  return rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41);
+}
+__device__ __forceinline__ uint64_t small_sigma0(uint64_t w) {
+  return rotr(w, 1) ^ rotr(w, 8) ^ (w >> 7);
+}
+__device__ __forceinline__ uint64_t small_sigma1(uint64_t w) {
+  return rotr(w, 19) ^ rotr(w, 61) ^ (w >> 6);
+}
+
+struct Shared {
+  // Message blocks of the block's 32 rows, row r's 16-byte chunk p at
+  // chunk p ^ (r & 7) of its 128 bytes: eight rows' reads of one chunk
+  // fall in 32 distinct banks.
+  uint4 stage[kStages][kLanes][kBlockBytes / 16];
+  uint64_t wk[kRing][kChunk][kLanes];  // W[t] + K[t], [hand-over % kRing][round][lane]
+};
+
+// Named barriers of the two warps (64 threads): the producer arrives, the
+// consumer waits, and the memory written before the arrival is visible
+// after the wait.
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(kThreads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(kThreads) : "memory");
+}
+
+// The schedule warp copies message block `blk` of its rows into stage
+// `blk % kStages`: 256 16-byte chunks, 8 a thread, eight threads a row, so
+// every 128-byte row segment is read whole. Rows past n are not read.
+__device__ __forceinline__ void stage_block(Shared& sh, const uint8_t* __restrict__ blocks,
+                                            int nblocks, int row0, int n, int blk, int t) {
+  if (blk < nblocks) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) w[i] = load_be64(blk + 8 * i);
-  uint64_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint64_t e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll
-  for (int t = 0; t < 80; ++t) {
-    if (t >= 16) {  // w[t & 15] holds w[t - 16]
-      const uint64_t w15 = w[(t - 15) & 15];
-      const uint64_t w2 = w[(t - 2) & 15];
-      const uint64_t s0 = rotr(w15, 1) ^ rotr(w15, 8) ^ (w15 >> 7);
-      const uint64_t s1 = rotr(w2, 19) ^ rotr(w2, 61) ^ (w2 >> 6);
-      w[t & 15] += s0 + s1 + w[(t - 7) & 15];
+    for (int i = 0; i < kLanes * kBlockBytes / 16 / kWarp; ++i) {
+      const int idx = i * kWarp + t;
+      const int r = idx / 8, p = idx % 8;
+      if (row0 + r < n) {
+        const uint8_t* src =
+            blocks + (size_t(row0 + r) * nblocks + blk) * kBlockBytes + 16 * p;
+        __pipeline_memcpy_async(&sh.stage[blk % kStages][r][p ^ (r & 7)], src, 16);
+      }
     }
-    const uint64_t t1 = h + (rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41)) + ((e & f) ^ (~e & g)) +
-                        kRound[t] + w[t & 15];
-    const uint64_t t2 = (rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39)) + ((a & b) ^ (a & c) ^ (b & c));
-    h = g;
-    g = f;
+  }
+  __pipeline_commit();  // an empty group past the last block keeps the count
+}
+
+// Hand-over g of the schedule: W[t] + K[t] for t = 16 (g % 5) + i, i < 16,
+// of message block g / 5, into wk[i * stride]. w is the thread's ring of
+// the last 16 words (w[t & 15] holds W[t - 16] until it is replaced).
+__device__ __forceinline__ void schedule(Shared& sh, const uint8_t* __restrict__ blocks,
+                                         int nblocks, int row0, int n, int g, int t,
+                                         uint64_t w[16], uint64_t* wk, int stride) {
+  const int blk = g / kChunks, j = g % kChunks;
+  if (j == 0) {
+    __pipeline_wait_prior(kStages - 1);  // block blk's copies are done
+    __syncwarp();
+    const uint4* row = sh.stage[blk % kStages][t];
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const uint4 v = row[p ^ (t & 7)];
+      w[2 * p] = be64(v.x, v.y);
+      w[2 * p + 1] = be64(v.z, v.w);
+    }
+    __syncwarp();  // every row read before the stage is refilled
+    stage_block(sh, blocks, nblocks, row0, n, blk + kStages, t);
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) wk[i * stride] = w[i] + kRound[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      w[i] += small_sigma0(w[(i + 1) & 15]) + small_sigma1(w[(i + 14) & 15]) + w[(i + 9) & 15];
+      wk[i * stride] = w[i] + kRound[kChunk * j + i];
+    }
+  }
+}
+
+// Hand-over g of the rounds: 16 rounds on s (a..h) with W + K read from
+// wk[i * stride]; the state st takes the feed-forward after a block's
+// last hand-over.
+__device__ __forceinline__ void rounds(const uint64_t* wk, int stride, int g, uint64_t s[8],
+                                       uint64_t st[8]) {
+  if (g % kChunks == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = st[i];
+  }
+  uint64_t a = s[0], b = s[1], c = s[2], d = s[3], e = s[4], f = s[5], gg = s[6], h = s[7];
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    const uint64_t t1 = h + big_sigma1(e) + ((e & f) ^ (~e & gg)) + wk[i * stride];
+    const uint64_t t2 = big_sigma0(a) + ((a & b) ^ (a & c) ^ (b & c));
+    h = gg;
+    gg = f;
     f = e;
     e = d + t1;
     d = c;
@@ -134,14 +252,11 @@ __device__ __forceinline__ void compress(uint64_t st[8], const uint8_t* __restri
     b = a;
     a = t1 + t2;
   }
-  st[0] += a;
-  st[1] += b;
-  st[2] += c;
-  st[3] += d;
-  st[4] += e;
-  st[5] += f;
-  st[6] += g;
-  st[7] += h;
+  s[0] = a, s[1] = b, s[2] = c, s[3] = d, s[4] = e, s[5] = f, s[6] = gg, s[7] = h;
+  if (g % kChunks == kChunks - 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st[i] += s[i];
+  }
 }
 
 // r[0 .. NA + NB) = a * b, schoolbook with 128-bit partial products. Each
@@ -212,24 +327,48 @@ __device__ __forceinline__ void reduce_mod_l(const uint64_t x[8], uint64_t out[4
   for (int i = 0; i < 4; ++i) out[i] = r[i];
 }
 
-// Lanes past n (and below m) copy the pad row; the others hash their row
-// and reduce the digest mod L.
+// Block = 32 lanes: warp 0 runs the rounds, warp 1 stages the rows and
+// computes the message schedule up to kRing hand-overs (16 rounds each)
+// ahead; buffer i is handed over by named barrier kFullBarrier + i and
+// handed back by kEmptyBarrier + i. Lanes past n (and below m) copy the
+// pad row; the others hash their row and reduce the digest mod L.
 __global__ void __launch_bounds__(kThreads) sha512_challenge_kernel(
     const uint8_t* __restrict__ blocks, int nblocks, int n, const uint8_t* __restrict__ pad_row,
     uint8_t* __restrict__ out, int m) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  __shared__ Shared sh;
+  const int t = threadIdx.x & (kWarp - 1);
+  const int row0 = blockIdx.x * kLanes;
+  const int hand_overs = kChunks * nblocks;
+  if (threadIdx.x >= kWarp) {
+    uint64_t w[16];
+#pragma unroll
+    for (int blk = 0; blk < kStages; ++blk) stage_block(sh, blocks, nblocks, row0, n, blk, t);
+#pragma unroll 1
+    for (int g = 0; g < hand_overs; ++g) {
+      const int i = g % kRing;
+      if (g >= kRing) bar_sync(kEmptyBarrier + i);
+      schedule(sh, blocks, nblocks, row0, n, g, t, w, &sh.wk[i][0][t], kLanes);
+      bar_arrive(kFullBarrier + i);
+    }
+    return;
+  }
+  uint64_t s[8], st[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[i] = kInit[i];
+#pragma unroll 1
+  for (int g = 0; g < hand_overs; ++g) {
+    const int i = g % kRing;
+    bar_sync(kFullBarrier + i);
+    rounds(&sh.wk[i][0][t], kLanes, g, s, st);
+    if (g + kRing < hand_overs) bar_arrive(kEmptyBarrier + i);
+  }
+  const int lane = row0 + t;
   if (lane >= m) return;
   if (lane >= n) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) out[32 * size_t(lane) + i] = pad_row[i];
     return;
   }
-  uint64_t st[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) st[i] = kInit[i];
-  const uint8_t* row = blocks + size_t(lane) * nblocks * kBlockBytes;
-#pragma unroll 1
-  for (int blk = 0; blk < nblocks; ++blk) compress(st, row + kBlockBytes * blk);
   // Limb j of the little-endian digest value is state word j byte-swapped
   // (stored little-endian, it is the word's big-endian bytes).
   uint64_t x[8];
@@ -242,12 +381,12 @@ __global__ void __launch_bounds__(kThreads) sha512_challenge_kernel(
   for (int i = 0; i < 4; ++i) o[i] = k[i];
 }
 
-inline int grid(int lanes) { return (lanes + kThreads - 1) / kThreads; }
+inline int grid(int lanes) { return (lanes + kLanes - 1) / kLanes; }
 
 }  // namespace
 
-// blocks: (n, nblocks * 128) uint8; out: (m, 32) uint8, m >= n; pad_row:
-// 32 bytes (read only when m > n).
+// blocks: (n, nblocks * 128) uint8, 16-byte aligned; out: (m, 32) uint8,
+// m >= n; pad_row: 32 bytes (read only when m > n).
 extern "C" int sha512_challenge_launch(const void* blocks, int nblocks, int n, const void* pad_row,
                                        void* out, int m, void* stream) {
   if (m <= 0) return 0;
@@ -273,7 +412,7 @@ extern "C" int sha512_challenge_attributes(int* out) {
   out[1] = static_cast<int>(a.localSizeBytes);
   out[2] = static_cast<int>(a.sharedSizeBytes);
   out[3] = kThreads;
-  out[4] = kThreads;
+  out[4] = kLanes;
   out[5] = resident;
   return 0;
 }

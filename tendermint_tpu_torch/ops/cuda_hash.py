@@ -56,8 +56,8 @@ def _check_blocks(blocks: torch.Tensor) -> int:
         raise ValueError("blocks: must be contiguous")
     if blocks.device.type not in ("cpu", "cuda"):
         raise ValueError(f"blocks: unsupported device {blocks.device}")
-    if blocks.device.type == "cuda" and blocks.data_ptr() % 8:
-        raise ValueError("blocks: must be 8-byte aligned")
+    if blocks.device.type == "cuda" and blocks.data_ptr() % 16:
+        raise ValueError("blocks: must be 16-byte aligned")
     return blocks.shape[1] // 128
 
 

@@ -30,17 +30,40 @@ from typing import Dict
 import numpy as np
 import torch
 
+from tendermint_tpu_torch.crypto import ed25519_ref as ref
 from tendermint_tpu_torch.ops import _build, ed25519_batch as plain, field as F
 
 LAUNCHES: Dict[str, int] = {"verify": 0, "verify_tables": 0, "verify_resident": 0}
 
+COMB_ROWS = 32
+
+
+def _comb_niels() -> np.ndarray:
+    """(32, 8, 3, 32) f32: row j holds (e + 1) 256^j B for e < 8 in Niels
+    form (Y+X, Y-X, 2dT; Z = 1), the fixed-base comb the kernels compute
+    [s]B with."""
+    rows = []
+    base = ref.B_POINT
+    for j in range(COMB_ROWS):
+        if j:
+            for _ in range(8):
+                base = ref.pt_double(base)
+        rows.append(plain._build_b_niels_table(8, base))
+    return np.stack(rows)
+
+
+COMB_NIELS = _comb_niels()
+
 # Field constants the kernels load into shared memory, as canonical
 # radix-2^8 byte rows: [1..8]B in Niels form (rows 0..23, entry-major),
-# then d, sqrt(-1), 2d.
+# then d, sqrt(-1), 2d (rows 24..26), then the comb (row 27 + (j * 8 + e)
+# * 3 + component). The first 27 rows are the layout the kernels of
+# earlier versions of csrc/ed25519_verify.cu read.
 CONSTS = np.concatenate(
     [
         plain.B_NIELS.reshape(3 * 8, F.NLIMBS),
         np.array([F.int_to_limbs(c) for c in (F.D, F.SQRT_M1, F.D2)], dtype=np.float32),
+        COMB_NIELS.reshape(COMB_ROWS * 8 * 3, F.NLIMBS),
     ]
 ).astype(np.uint8)
 

@@ -58,14 +58,15 @@ _BUCKETS = [64, 256, 1024, CHUNK]
 # --- constant basepoint table (host precompute, Niels form) -----------------
 
 
-def _build_b_niels_table(width: int = 8) -> np.ndarray:
-    """(width, 3, 32) f32: [1..width]B as (Y+X, Y-X, 2dT), Z=1."""
+def _build_b_niels_table(width: int = 8, base=ref.B_POINT) -> np.ndarray:
+    """(width, 3, 32) f32: [1..width]base (B by default) as (Y+X, Y-X,
+    2dT), Z=1."""
     out = np.zeros((width, 3, F.NLIMBS), dtype=np.float32)
     p = F.P
-    acc = ref.B_POINT
+    acc = base
     for i in range(width):
         if i:
-            acc = ref.pt_add(acc, ref.B_POINT)
+            acc = ref.pt_add(acc, base)
         zinv = pow(acc[2], p - 2, p)
         x, y = acc[0] * zinv % p, acc[1] * zinv % p
         out[i, 0] = F.int_to_limbs((y + x) % p)
