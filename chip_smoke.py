@@ -32,7 +32,13 @@ and, in order:
    ``reduce_mod_l`` at the SHA-512 padding boundaries and on prefixed
    challenges of 1-3 blocks at 1,024, 1,001, 4,095 (padded), 4,096 and
    16,384 lanes, and to its plain version; it is timed at 4,096 and
-   16,384 lanes of the phase-3 shape;
+   16,384 lanes of the phase-3 shape. K5 (``verify_sr``, sr25519) runs
+   the same checks on 1,024 seeded sr25519 lanes whose k challenges were
+   made in the set-up pool, with planted faults (a mutated s, a wrong
+   key, a swapped R, the encodings that DECODE rejects at each step, an
+   odd R, the identity key, a cleared marker bit, s >= L), against its
+   plain version and, on the faulty lanes and a sample of the rest, the
+   host ``sr25519.verify``; it is timed at 4,096 and 16,384 lanes;
 3. verify_batch: 8,192 lanes from 256 signers with 8 planted bad lanes and
    no activated validator set (K1 and K4, two chunks each), and its
    sigs/s;
@@ -44,17 +50,42 @@ and, in order:
    be rejected at that index. K4 hashes the chunks whose sign-bytes have
    one length; 4b. the same steady commit with the store off (K2 over
    three chunks, the tables shipped each commit), its runs alternating
-   with store-on runs, and both p50s.
+   with store-on runs, and both p50s;
+5. the mixed commit: 10,000 validators whose keys alternate ed25519 /
+   sr25519 (the mix of ``bench/workload.py``'s ``mixed_key_factory``),
+   through ``verify_commit`` and its ``MultiBatchVerifier``: the ed25519
+   half on K3 (and K4 where a chunk's messages share one length), the
+   sr25519 half on K5 with its Merlin challenges on the host. One cold
+   commit, the p50 of at least 3 steady ones (as many as fit the phase's
+   time budget at the Merlin rate measured there), the Merlin share of
+   the host time, a host profile, and a copy with one bad sr25519
+   signature, which must be rejected at its index;
+6. faults, after the main path, on batches of 256 ed25519 and 128
+   sr25519 lanes with bad lanes among them. With host fallback off (the
+   default), a transient fault injected at ``ed25519.chunk``,
+   ``ed25519.collect`` and ``sr25519.chunk`` must escape the engine after
+   the health machine recorded it, with no lane answered on the host and
+   the next batch back on the card; a sticky ``CudaError`` 719 must
+   disable the card and both engines must then refuse. With host fallback
+   on, the same transient faults and a permanent one: every verdict must
+   stay right, the host-fallback lanes counted must be the chunk's, and
+   the health machine must come back to healthy after the next success
+   (or stay disabled, with the batch answered on the host); a hand-built
+   ``CudaError`` 700 must classify permanent and 2 transient.
 
 Kernel launch counts are reset just before phase 3 and read just after
-phase 4b. Each phase prints one JSON line; then the kernel table, the
-card's ``nvidia-smi`` name and power limit, and last
+phase 4b (K1-K4), and again just before and after phase 5 (K5, and the
+ed25519 kernels of the mixed commit). After phase 4b and after phase 5
+the health machine must show no host fallback, no transition and the
+healthy state. Each phase prints one JSON line; then the kernel table,
+the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
 import multiprocessing
@@ -84,12 +115,18 @@ BATCH_REPS = 5
 TABLE_BYTES = 8 * 4 * 32  # one key's (8, 4, 32) uint8 table column
 HASH_LENGTHS = (0, 55, 56, 64, 111, 112, 128)  # SHA-512 padding boundaries
 HASH_MSG_LEN_BY_BLOCKS = {1: 40, 2: 120, 3: 250}  # after the 64-byte R || A prefix
+MIXED_VALIDATORS = 10_000
+MIXED_MIN_REPS = 3  # steady mixed commits, at least
+MIXED_MAX_REPS = 9
+MIXED_BUDGET_S = 120.0  # phase 5's wall time the repetitions are sized to
+FAULT_ED_LANES = 256
+FAULT_SR_LANES = 128
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
 # a squaring 55, each product two 32-bit integer multiplies.
-SQS_PER_LANE = {"verify": 1546, "verify_tables": 1291, "verify_resident": 1291}
-MULS_PER_LANE = {"verify": 2107, "verify_tables": 1960, "verify_resident": 1960}
+SQS_PER_LANE = {"verify": 1546, "verify_tables": 1291, "verify_resident": 1291, "verify_sr": 1538}
+MULS_PER_LANE = {"verify": 2107, "verify_tables": 1960, "verify_resident": 1960, "verify_sr": 2103}
 INT32_MULS_PER_FE_SQ = 110
 INT32_MULS_PER_FE_MUL = 200
 INT32_OPS_PER_SM_CLOCK = 64  # CUDA programming guide, compute capability 9.0
@@ -102,18 +139,21 @@ BYTES_PER_LANE = {
     "verify": 4 * 32 + 1,
     "verify_tables": TABLE_BYTES + 1 + 3 * 32 + 1,
     "verify_resident": 4 + TABLE_BYTES + 1 + 3 * 32 + 1,
+    "verify_sr": 4 * 32 + 1,
 }
 REPLACES = {
     "verify": "tendermint_tpu/ops/pallas_verify.py:443",
     "verify_tables": "tendermint_tpu/ops/pallas_verify.py:498",
     "verify_resident": "tendermint_tpu/ops/ed25519_batch.py:341",
     "challenge": "tendermint_tpu/ops/hash512.py:298",
+    "verify_sr": "tendermint_tpu/ops/sr25519_batch.py:122",
 }
 SOURCES = {
     "verify": "tendermint_tpu_torch/csrc/ed25519_verify.cu",
     "verify_tables": "tendermint_tpu_torch/csrc/ed25519_verify.cu",
     "verify_resident": "tendermint_tpu_torch/csrc/ed25519_verify.cu",
     "challenge": "tendermint_tpu_torch/csrc/sha512_challenge.cu",
+    "verify_sr": "tendermint_tpu_torch/csrc/ed25519_verify.cu",
 }
 
 
@@ -199,6 +239,30 @@ def _sign(job):
     return ref.sign(priv, msg)
 
 
+def _sr_keypair(seed: bytes):
+    """An sr25519 seed's expanded secret (scalar, nonce, public key) and
+    its public key."""
+    from tendermint_tpu_torch.crypto import sr25519 as sr
+
+    scalar, nonce = sr.expand_seed(seed)
+    pub = sr.compress(sr.pt_mul(scalar, sr.B_POINT))
+    return (scalar, nonce, pub), pub
+
+
+def _sign_sr(job):
+    from tendermint_tpu_torch.crypto import sr25519 as sr
+
+    expanded, msg, entropy = job
+    return sr.sign(b"", msg, _expanded=expanded, entropy=entropy)
+
+
+def _sr_challenge(job):
+    from tendermint_tpu_torch.ops import sr25519_batch as tsb
+
+    msg, pub, r = job
+    return tsb._challenge_row(msg, pub, r).tobytes()
+
+
 class Signer:
     """Pure-Python key generation and signing spread over a process pool."""
 
@@ -211,6 +275,20 @@ class Signer:
 
     def sign(self, privs, msgs):
         return self.pool.map(_sign, list(zip(privs, msgs)), chunksize=64)
+
+    def sr_keys(self, rng, n):
+        seeds = [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(n)]
+        return self.pool.map(_sr_keypair, seeds, chunksize=64)
+
+    def sr_sign(self, rng, expanded, msgs):
+        """sr25519 signatures, the RNG's entropy of each drawn from ``rng``."""
+        jobs = [(e, m, bytes(rng.integers(0, 256, 32, dtype=np.uint8)))
+                for e, m in zip(expanded, msgs)]
+        return self.pool.map(_sign_sr, jobs, chunksize=64)
+
+    def sr_challenges(self, msgs, pks, rs):
+        """The Merlin challenge rows k of sr25519 lanes, as 32 bytes each."""
+        return self.pool.map(_sr_challenge, list(zip(msgs, pks, rs)), chunksize=64)
 
 
 def fault_lanes(rng, signer):
@@ -248,6 +326,82 @@ def fault_lanes(rng, signer):
         else:  # off-curve R (y = 2)
             sigs[i] = bytes([2] + [0] * 31) + sigs[i][32:]
     return pks, msgs, sigs, faulty
+
+
+# The faults planted in sr25519 lanes, in the order plant_sr_faults cycles
+# through them.
+SR_FAULT_KINDS = (
+    "mutated_s", "wrong_key", "swapped_r", "non_square_a", "odd_r", "t_negative_a",
+    "y_zero_a", "identity_a", "marker_cleared", "s_not_below_l",
+)
+
+
+def sr_edge_encodings():
+    """Encodings below p and even that ristretto255 DECODE rejects, one
+    for each step that can reject: {"non_square_a", "t_negative_a",
+    "y_zero_a": 32 bytes}. p - 1 gives y = 0; the others are the first
+    of a fixed hash sequence that fails at that step."""
+    from tendermint_tpu_torch.crypto import ristretto as rist
+
+    p = rist.P
+    found = {"y_zero_a": (p - 1).to_bytes(32, "little")}
+    i = 0
+    while len(found) < 3:
+        s = int.from_bytes(hashlib.sha256(b"sr-edge-%d" % i).digest(), "little")
+        s = (s & ((1 << 255) - 1)) & ~1
+        i += 1
+        if s >= p:
+            continue
+        ss = s * s % p
+        u1, u2 = (1 - ss) % p, (1 + ss) % p
+        v = (-(rist.D * u1 * u1) - u2 * u2) % p
+        square, inv = rist.invsqrt(v * u2 * u2 % p)
+        if not square:
+            found.setdefault("non_square_a", s.to_bytes(32, "little"))
+            continue
+        x = rist._abs(2 * s * inv * u2)
+        y = u1 * (inv * inv * u2 * v) % p
+        if rist._is_negative(x * y) and y:
+            found.setdefault("t_negative_a", s.to_bytes(32, "little"))
+    return found
+
+
+def plant_sr_faults(pks, msgs, sigs, lanes):
+    """Plant SR_FAULT_KINDS, cycled, into sr25519 lanes ``lanes`` (in
+    place; lane i - 1 must be a valid lane of another signer). Returns
+    {lane: kind}. Every kind is rejected but "identity_a": the identity
+    key with R = [s]B verifies for any message."""
+    from tendermint_tpu_torch.crypto import ristretto as rist
+
+    edges = sr_edge_encodings()
+
+    def marked(s: int) -> bytes:
+        return (s | 1 << 255).to_bytes(32, "little")
+
+    s0 = 12345
+    kinds = {}
+    for j, i in enumerate(lanes):
+        kind = SR_FAULT_KINDS[j % len(SR_FAULT_KINDS)]
+        s = int.from_bytes(sigs[i][32:], "little") & ((1 << 255) - 1)
+        if kind == "mutated_s":
+            sigs[i] = sigs[i][:32] + marked((s + 1) % rist.L)
+        elif kind == "wrong_key":
+            pks[i] = pks[i - 1]
+        elif kind == "swapped_r":
+            sigs[i] = sigs[i - 1][:32] + sigs[i][32:]
+        elif kind == "odd_r":
+            sigs[i] = bytes([sigs[i][0] ^ 1]) + sigs[i][1:]
+        elif kind == "identity_a":
+            pks[i] = bytes(32)
+            sigs[i] = rist.compress(rist.pt_mul(s0, rist.B_POINT)) + marked(s0)
+        elif kind == "marker_cleared":
+            sigs[i] = sigs[i][:32] + s.to_bytes(32, "little")
+        elif kind == "s_not_below_l":
+            sigs[i] = sigs[i][:32] + marked(s + rist.L)
+        else:
+            pks[i] = edges[kind]
+        kinds[i] = kind
+    return kinds
 
 
 def batch_lanes(rng, signer):
@@ -305,6 +459,71 @@ def commit_workload(rng, signer):
     bad = commits[-1].signatures[BAD_COMMIT_INDEX]
     bad.signature = bad.signature[:40] + bytes([bad.signature[40] ^ 1]) + bad.signature[41:]
     return vset, block_id, commits
+
+
+def sr_fault_lanes(rng, signer):
+    """KERNEL_LANES sr25519 lanes from KERNEL_SIGNERS signers; every 8th
+    lane carries one of SR_FAULT_KINDS. The k challenges are made in the
+    pool. Returns pks, msgs, sigs, {faulty lane: kind} and the k rows."""
+    keys = signer.sr_keys(rng, KERNEL_SIGNERS)
+    pks = [keys[i % KERNEL_SIGNERS][1] for i in range(KERNEL_LANES)]
+    msgs = [bytes(rng.integers(0, 256, 100, dtype=np.uint8)) for _ in range(KERNEL_LANES)]
+    sigs = signer.sr_sign(rng, [keys[i % KERNEL_SIGNERS][0] for i in range(KERNEL_LANES)], msgs)
+    kinds = plant_sr_faults(pks, msgs, sigs, range(3, KERNEL_LANES, 8))
+    ks = signer.sr_challenges(msgs, pks, [sig[:32] for sig in sigs])
+    return pks, msgs, sigs, kinds, ks
+
+
+def mixed_commit_workload(rng, signer):
+    """A MIXED_VALIDATORS-validator set whose keys alternate ed25519 /
+    sr25519 in the order they are made (bench/workload.py's
+    mixed_key_factory), one commit signed by all, and a copy of it with a
+    bad signature at the first sr25519 validator from BAD_COMMIT_INDEX on.
+    Returns the set, the block id, the commit, the bad copy and its bad
+    index."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.types.block import (
+        BLOCK_ID_FLAG_COMMIT,
+        BlockID,
+        Commit,
+        CommitSig,
+        PartSetHeader,
+    )
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    ed = signer.keys(rng, MIXED_VALIDATORS // 2)
+    sr = signer.sr_keys(rng, MIXED_VALIDATORS - MIXED_VALIDATORS // 2)
+    secret_of = {}  # address -> ed25519 private key or sr25519 expanded secret
+    vals = []
+    for i in range(MIXED_VALIDATORS):
+        secret, raw = ed[i // 2] if i % 2 == 0 else sr[i // 2]
+        pub = Ed25519PubKey(raw) if i % 2 == 0 else Sr25519PubKey(raw)
+        secret_of[pub.address()] = secret
+        vals.append(Validator(pub, 10))
+    vset = ValidatorSet(vals)
+    block_id = BlockID(hashlib.sha256(b"mixed-block").digest(),
+                       PartSetHeader(1, hashlib.sha256(b"mixed-parts").digest()))
+    commit = Commit(height=1, round=0, block_id=block_id)
+    ns = 1_700_000_000_000_000_000
+    commit.signatures = [
+        CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, Timestamp.from_unix_ns(ns + i), b"")
+        for i, v in enumerate(vset.validators)
+    ]
+    is_sr = [v.pub_key.type == "sr25519" for v in vset.validators]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(MIXED_VALIDATORS)]
+    for want_sr, sign in ((False, signer.sign), (True, lambda e, m: signer.sr_sign(rng, e, m))):
+        idx = [i for i in range(MIXED_VALIDATORS) if is_sr[i] == want_sr]
+        sigs = sign([secret_of[vset.validators[i].address] for i in idx], [msgs[i] for i in idx])
+        for i, sig in zip(idx, sigs):
+            commit.signatures[i].signature = sig
+    bad_index = next(i for i in range(BAD_COMMIT_INDEX, MIXED_VALIDATORS) if is_sr[i])
+    bad = copy.deepcopy(commit)
+    sig = bad.signatures[bad_index].signature
+    bad.signatures[bad_index].signature = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+    return vset, block_id, commit, bad, bad_index
 
 
 # --- phase 2 -------------------------------------------------------------------
@@ -456,9 +675,31 @@ def launch_resident(store, idx_dev, ok, r, s, k):
                                (store, idx_dev, ok, r, s, k), r.shape[0], r.device, store.shape[3])
 
 
-def phase_kernels(lanes, dev, challenge=True):
-    """K1-K3 (and K4 with ``challenge``) against their plain versions and
-    the host oracle, timed; returns the ``kernels`` rows by name."""
+def sr_case(sr_lanes):
+    """K5's entry of phase_kernels' cases: its inputs from the pool's k
+    rows (checked equal to the engine's prep on the first 64 lanes), and
+    the host sr25519.verify on the faulty lanes and every 16th."""
+    from tendermint_tpu_torch.crypto import sr25519 as sr
+    from tendermint_tpu_torch.ops import cuda_verify, sr25519_batch as tsb
+
+    pks, msgs, sigs, kinds, ks = sr_lanes
+    pk, r, s, host_ok, has_fields = tsb._host_checks(pks, sigs)
+    k = np.stack([np.frombuffer(row, dtype=np.uint8) for row in ks])
+    k[~has_fields] = 0
+    inputs = dict(pk=pk, r=r, s=s, k=k)
+    prep, prep_ok = tsb.prepare_batch_sr(pks[:64], msgs[:64], sigs[:64], pad_to=64)
+    check(all(np.array_equal(inputs[key][:64], prep[key]) for key in prep)
+          and np.array_equal(host_ok[:64], prep_ok),
+          "verify_sr: the pool's inputs differ from prepare_batch_sr's")
+    checked = sorted(kinds) + list(range(0, KERNEL_LANES, 16))
+    want = {i: sr.verify(pks[i], msgs[i], sigs[i]) for i in checked}
+    return (cuda_verify.verify_sr, tsb.verify_kernel_sr, ("pk", "r", "s", "k"), inputs, host_ok, want)
+
+
+def phase_kernels(lanes, dev, challenge=True, sr_lanes=None):
+    """K1-K3 (and K4 with ``challenge``, K5 with ``sr_lanes``) against
+    their plain versions and the host oracle, timed; returns the
+    ``kernels`` rows by name."""
     import torch
 
     from tendermint_tpu_torch.crypto import ed25519_ref as ref
@@ -480,18 +721,21 @@ def phase_kernels(lanes, dev, challenge=True):
     inp_r = [dict(inp_t, store=st, idx=ix) for st, ix in stores]
     k3_keys = ("store", "idx", "ok", "r", "s", "k")
     cases = {
-        "verify": (cuda_verify.verify, eb.verify_kernel, ("pk", "r", "s", "k"), inp, host_ok),
+        "verify": (cuda_verify.verify, eb.verify_kernel, ("pk", "r", "s", "k"), inp, host_ok, want),
         "verify_tables": (
             cuda_verify.verify_tables, eb.verify_kernel_tables,
-            ("tab", "ok", "r", "s", "k"), inp_t, host_ok_t,
+            ("tab", "ok", "r", "s", "k"), inp_t, host_ok_t, want,
         ),
         "verify_resident": (
             cuda_verify.verify_resident, eb.verify_kernel_resident, k3_keys, inp_r[0], host_ok_t,
+            want,
         ),
     }
+    if sr_lanes is not None:
+        cases["verify_sr"] = sr_case(sr_lanes)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    attrs = cuda_verify.kernel_attributes()
+    attrs = cuda_verify.kernel_attributes(tuple(cases))
     # Lane sets beyond the 1,024: ragged counts (a block and a chunk cut
     # short), the main path's 4,096-lane chunk, and a 16,384-lane launch
     # that can hold more warps on each SM.
@@ -503,7 +747,8 @@ def phase_kernels(lanes, dev, challenge=True):
         WIDE_TIMING_LANES: rotated_lanes(WIDE_TIMING_LANES),
     }
     rows, all_subsets = {}, {}
-    for name, (kernel, plain, keys, inputs, ok) in cases.items():
+    for name, (kernel, plain, keys, inputs, ok, want) in cases.items():
+        checked = sorted(want)
         args = kernel_args(inputs, keys, dev)
         got = kernel(*args).cpu().numpy()
         ref_out = plain(*args).cpu().numpy()
@@ -844,13 +1089,235 @@ def phase_commit(workload, dev):
     check(resident.stats()["resident_keys"] == 0, "precompute.reset() left the store")
 
 
+# --- health ---------------------------------------------------------------------
+
+
+def check_healthy(where: str) -> dict:
+    """The health machine after a stretch of the main path: no host
+    fallback in either engine, no transition, healthy. Returns the
+    snapshot."""
+    from tendermint_tpu_torch.ops import device_policy
+
+    snap = device_policy.shared.snapshot()
+    check(snap["state"] == "healthy" and not snap["transitions"] and snap["fallback_batches"] == 0
+          and not any(snap["fallback_lanes"].values()),
+          f"host fallback or a health transition on the main path ({where}): {snap}")
+    return snap
+
+
+# --- phase 5 -------------------------------------------------------------------
+
+
+def phase_mixed_commit(workload, dev):
+    """The mixed ed25519 + sr25519 commit; returns the launch counts of the
+    phase (which starts with every count at 0)."""
+    from tendermint_tpu_torch.ops import precompute, resident, sr25519_batch as tsb
+    from tendermint_tpu_torch.ops import ed25519_batch as eb
+    from tendermint_tpu_torch.types.validation import InvalidCommitError, verify_commit
+
+    vset, block_id, commit, bad, bad_index = workload
+    is_sr = [v.pub_key.type == "sr25519" for v in vset.validators]
+    n_sr = sum(is_sr)
+    n_ed = MIXED_VALIDATORS - n_sr
+    ed_lens = [len(commit.vote_sign_bytes(CHAIN_ID, i)) for i in range(MIXED_VALIDATORS) if not is_sr[i]]
+    ed_chunk_lengths = [sorted(set(ed_lens[lo:lo + eb.CHUNK])) for lo in range(0, n_ed, eb.CHUNK)]
+    hashed = sum(len(c) == 1 for c in ed_chunk_lengths)
+    want = {"verify_resident": len(chunk_sizes(n_ed)), "verify_sr": len(chunk_sizes(n_sr)),
+            **({"challenge": hashed} if hashed else {})}
+    merlin = [0.0]
+    challenge_row = tsb._challenge_row
+
+    def timed_challenge_row(*args):
+        t = time.perf_counter()
+        try:
+            return challenge_row(*args)
+        finally:
+            merlin[0] += time.perf_counter() - t
+
+    def run(c):
+        """One verify_commit of ``c`` with the verdict cache emptied:
+        (seconds, Merlin seconds)."""
+        precompute.results.clear()
+        before = launches()
+        merlin[0] = 0.0
+        t = time.perf_counter()
+        verify_commit(CHAIN_ID, vset, block_id, c.height, c, device=dev)
+        secs = time.perf_counter() - t
+        d = delta(before)
+        check(d == want, f"mixed commit launches {d}, expected {want}")
+        return secs, merlin[0]
+
+    t_phase = time.perf_counter()
+    tsb._challenge_row = timed_challenge_row
+    try:
+        resident.reset()
+        builds = precompute.tables.builds
+        cold_s, cold_merlin = run(commit)
+        cold_builds = precompute.tables.builds - builds
+        check(cold_builds == n_ed, f"mixed cold commit built {cold_builds} tables, expected {n_ed}")
+        steady = [run(commit)]
+        # As many steady commits as fit the phase's budget at this host's
+        # rate, leaving room for the profiled run (about two commits under
+        # cProfile) and the bad commit.
+        left = MIXED_BUDGET_S - (time.perf_counter() - t_phase)
+        reps = max(MIXED_MIN_REPS, min(MIXED_MAX_REPS, int(left / steady[0][0]) - 3))
+        steady += [run(commit) for _ in range(reps - 1)]
+        check(precompute.tables.builds - builds == n_ed, "table builds in the mixed steady state")
+    finally:
+        tsb._challenge_row = challenge_row
+    precompute.results.clear()
+    profile = host_profile(lambda: verify_commit(CHAIN_ID, vset, block_id, commit.height, commit,
+                                                 device=dev))
+    try:
+        verify_commit(CHAIN_ID, vset, block_id, bad.height, bad, device=dev)
+    except InvalidCommitError as exc:
+        check(f"(#{bad_index})" in str(exc), f"bad mixed commit rejected wrongly: {exc}")
+    else:
+        raise SmokeFailure("mixed commit with a bad sr25519 signature was accepted")
+    counts = launches()
+    secs = [r[0] for r in steady]
+    shares = [r[1] / r[0] for r in steady]
+    emit({"phase": "mixed_commit", "validators": MIXED_VALIDATORS, "ed25519_lanes": n_ed,
+          "sr25519_lanes": n_sr, "cold_ms": cold_s * 1e3, "cold_merlin_ms": cold_merlin * 1e3,
+          "table_builds_cold": cold_builds, "steady_ms": [x * 1e3 for x in secs],
+          "steady_p50_ms": statistics.median(secs) * 1e3,
+          "steady_merlin_ms": [r[1] * 1e3 for r in steady],
+          "merlin_share_of_steady": shares, "merlin_share_p50": statistics.median(shares),
+          "merlin_ms_per_sr25519_lane_p50": statistics.median(r[1] for r in steady) * 1e3 / n_sr,
+          "engine_split_launches_per_commit": want,
+          "ed25519_sign_bytes_lengths_by_chunk": ed_chunk_lengths,
+          "bad_signature_index": bad_index, "launches": counts, "store": resident.stats(),
+          "phase_s": time.perf_counter() - t_phase, "host_profile": profile})
+    precompute.reset()
+    return counts
+
+
+# --- phase 6 -------------------------------------------------------------------
+
+
+def phase_faults(ed_lanes, sr_lanes, dev):
+    """Injected faults on small batches of both engines (see the module
+    note); leaves the health machine reset."""
+    import warnings
+
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref, sr25519 as sr
+    from tendermint_tpu_torch.ops import _build, device_policy, fault_injection, precompute
+    from tendermint_tpu_torch.ops import verify_batch
+    from tendermint_tpu_torch.ops.sr25519_batch import verify_batch_sr
+
+    health = device_policy.shared
+    ed = [x[:FAULT_ED_LANES] for x in ed_lanes[:3]]
+    srl = [x[:FAULT_SR_LANES] for x in sr_lanes[:3]]
+    wants = {"ed25519": [ref.verify_zip215(*lane) for lane in zip(*ed)],
+             "sr25519": [sr.verify(*lane) for lane in zip(*srl)]}
+    check(not all(wants["ed25519"]) and not all(wants["sr25519"]), "fault phase: no bad lane")
+
+    def run_ed():
+        precompute.results.clear()  # the device, not the verdict cache, answers
+        return verify_batch(*ed, device=dev)
+
+    runs = {"ed25519": run_ed, "sr25519": lambda: verify_batch_sr(*srl, device=dev)}
+
+    def injected(engine, **plan):
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            with fault_injection.inject(**plan) as p:
+                t = time.perf_counter()
+                got = runs[engine]()
+                secs = time.perf_counter() - t
+        return got, p, secs, len(warned)
+
+    def raised(engine, **plan):
+        """The error ``engine``'s batch raised under ``plan``, or None."""
+        with fault_injection.inject(**plan) as p:
+            try:
+                runs[engine]()
+            except Exception as exc:  # the phase checks what escaped
+                return exc, p
+        return None, p
+
+    precompute.reset()
+    strict = {}
+    check(not health.host_fallback, "host fallback is on by default")
+    for site in ("ed25519.chunk", "ed25519.collect", "sr25519.chunk"):
+        engine = site.split(".")[0]
+        health.reset()
+        exc, plan = raised(engine, site=site, fail_calls=(1,))
+        snap = health.snapshot()
+        check(isinstance(exc, fault_injection.DeviceFault) and plan.faults_raised == 1
+              and snap["state"] == "degraded" and snap["failures"]["transient"] == 1
+              and snap["fallback_batches"] == 0,
+              f"{site}: without host fallback the fault must be recorded and raised: {exc!r} {snap}")
+        check(runs[engine]() == wants[engine] and health.state == "healthy",
+              f"{site}: the next batch did not use the card again")
+        strict[site] = {"raised": type(exc).__name__, "fallback_lanes": 0}
+    health.reset()
+    exc, _ = raised("sr25519", site="sr25519.chunk", fail_calls=(1,),
+                    error_factory=lambda: _build.CudaError("sr25519_verify_launch", 719))
+    check(isinstance(exc, _build.CudaError) and health.state == "disabled",
+          f"sticky CudaError 719: {exc!r}, state {health.state}")
+    refused = [type(raised(e, fail_from=1, fail_count=10**6)[0]).__name__ for e in ("ed25519", "sr25519")]
+    check(refused == ["DeviceRefused"] * 2 and not any(health.snapshot()["fallback_lanes"].values()),
+          f"disabled card without host fallback: {refused} {health.snapshot()}")
+    strict["sticky_719"] = {"raised": type(exc).__name__, "then": refused}
+
+    health.host_fallback = True
+    try:
+        cases = fallback_cases(health, wants, runs, injected)
+    finally:
+        health.host_fallback = False
+    typed = {code: device_policy.classify_failure(_build.CudaError("sr25519_verify_launch", code))
+             for code in (700, 2)}
+    check(typed == {700: "permanent", 2: "transient"}, f"CudaError classes {typed}")
+    health.reset()
+    emit({"phase": "faults", "ed25519_lanes": FAULT_ED_LANES, "sr25519_lanes": FAULT_SR_LANES,
+          "bad_lanes": {e: w.count(False) for e, w in wants.items()}, "without_host_fallback": strict,
+          "with_host_fallback": cases, "cuda_error_classes": {str(k): v for k, v in typed.items()}})
+
+
+def fallback_cases(health, wants, runs, injected) -> dict:
+    """Phase 6 with host fallback on: transient faults at the three
+    sites, then a permanent one."""
+    cases = {}
+    for site in ("ed25519.chunk", "ed25519.collect", "sr25519.chunk"):
+        engine = site.split(".")[0]
+        n = len(wants[engine])
+        health.reset()
+        got, plan, secs, warned = injected(engine, site=site, fail_calls=(1,))
+        snap = health.snapshot()
+        check(got == wants[engine], f"{site}: verdicts wrong under a transient fault")
+        check(plan.faults_raised == 1 and warned >= 1 and snap["state"] == "degraded"
+              and snap["failures"]["transient"] == 1 and snap["fallback_lanes"][engine] == n,
+              f"{site}: transient fault not absorbed as expected: {snap}")
+        check(runs[engine]() == wants[engine], f"{site}: verdicts wrong after the fault")
+        after = health.snapshot()
+        check(after["state"] == "healthy" and after["fallback_lanes"][engine] == n
+              and after["transitions"] == [("healthy", "degraded"), ("degraded", "healthy")],
+              f"{site}: no recovery after the next success: {after}")
+        cases[site] = {"lanes": n, "fallback_lanes": n, "fallback_s": secs,
+                       "transitions": after["transitions"]}
+    health.reset()
+    got, plan, secs, _ = injected("sr25519", site="sr25519.chunk", fail_calls=(1,), permanent=True)
+    check(got == wants["sr25519"] and health.state == "disabled",
+          f"permanent fault: verdicts or state wrong ({health.state})")
+    # Disabled: the other engine answers on the host without a device try.
+    got_ed, plan_ed, _, _ = injected("ed25519", fail_from=1, fail_count=10**6)
+    snap = health.snapshot()
+    check(got_ed == wants["ed25519"] and plan_ed.calls == 0
+          and snap["fallback_lanes"] == {"ed25519": FAULT_ED_LANES, "sr25519": FAULT_SR_LANES},
+          f"disabled card: {snap}")
+    cases["permanent"] = {"state": snap["state"], "fallback_lanes": snap["fallback_lanes"],
+                          "sr25519_fallback_s": secs}
+    return cases
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 2
-    from tendermint_tpu_torch.ops import _build, cuda_hash, cuda_verify
+    from tendermint_tpu_torch.ops import _build, cuda_hash, cuda_verify, device_policy
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -860,8 +1327,11 @@ def main() -> int:
         kernel_lanes = fault_lanes(rng, signer)
         batch = batch_lanes(rng, signer)
         commit = commit_workload(rng, signer)
+        sr_lanes = sr_fault_lanes(rng, signer)
+        mixed = mixed_commit_workload(rng, signer)
     emit({"phase": "setup", "seconds": time.perf_counter() - t0, "workers": workers,
-          "signatures": KERNEL_LANES + BATCH_LANES + len(COMMIT_HEIGHTS) * COMMIT_VALIDATORS})
+          "signatures": 2 * KERNEL_LANES + BATCH_LANES + len(COMMIT_HEIGHTS) * COMMIT_VALIDATORS
+          + MIXED_VALIDATORS})
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi("name,power.limit")
@@ -873,15 +1343,25 @@ def main() -> int:
     emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s})
 
-    rows = phase_kernels(kernel_lanes, dev)
+    rows = phase_kernels(kernel_lanes, dev, sr_lanes=sr_lanes)
+    device_policy.shared.reset()
     cuda_verify.reset_launches()  # the main path starts here
     cuda_hash.reset_launches()
     phase_verify_batch(batch, dev)
     phase_commit(commit, dev)
     counts = launches()
+    health = {"phases_3_to_4b": check_healthy("phases 3-4b")}
+    cuda_verify.reset_launches()  # the mixed commit's path starts here
+    cuda_hash.reset_launches()
+    mixed_counts = phase_mixed_commit(mixed, dev)
+    health["phase_5"] = check_healthy("phase 5")
+    emit({"phase": "health", **health})
+    phase_faults(kernel_lanes, sr_lanes, dev)
     for name, row in rows.items():
-        check(counts[name] > 0, f"kernel {name} never launched on the main path")
-        row["launches"] = counts[name]
+        n = mixed_counts[name] if name == "verify_sr" else counts[name]
+        check(n > 0, f"kernel {name} never launched on the main path")
+        row["launches"] = n
+        row["launches_mixed_commit"] = mixed_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

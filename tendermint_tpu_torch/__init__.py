@@ -3,11 +3,16 @@
 The package mirrors the module names of :mod:`tendermint_tpu` so each
 file has an obvious counterpart there, but it imports nothing from it
 (nor ``jax``): what it needs of the reference's jax-free modules is
-copied. The device work runs in two hand-written CUDA kernels
-(``csrc/ed25519_verify.cu``) behind ``ops/cuda_verify.py``; every kernel
-has a plain PyTorch version that runs for CPU tensors.
+copied. The device work runs in five hand-written CUDA kernels
+(``csrc/ed25519_verify.cu``, ``csrc/sha512_challenge.cu``) behind
+``ops/cuda_verify.py`` and ``ops/cuda_hash.py``; every kernel has a plain
+PyTorch version that runs for CPU tensors. Both signature engines
+(ed25519, sr25519) share one device health machine
+(``ops/device_policy.py``).
 
-Entry points (``ops.verify_batch``, ``crypto.batch.Ed25519BatchVerifier``,
+Entry points (``ops.verify_batch``, ``ops.sr25519_batch.verify_batch_sr``,
+``crypto.batch.Ed25519BatchVerifier`` and ``MultiBatchVerifier``,
+``crypto.sr25519.Sr25519BatchVerifier``,
 ``types.validation.verify_commit``) take ``device=``. Without it they use
 :data:`DEFAULT_DEVICE`, which is ``"cuda"``: where CUDA is absent they
 raise rather than run on the CPU. Tests set ``DEFAULT_DEVICE = "cpu"``.

@@ -1,10 +1,13 @@
 """Batch-verifier dispatch (crypto/batch/batch.go:11-33).
 
-The ed25519 batch verifier routes to the CUDA engine
+Only key types with batch support (ed25519, sr25519) get a batch
+verifier. The ed25519 one routes to the CUDA engine
 (:func:`tendermint_tpu_torch.ops.verify_batch`) at or above
-:data:`DEVICE_THRESHOLD` signatures and to the host oracle below it.
-Counterpart of ``tendermint_tpu/crypto/batch.py`` without the verifyd
-remote, the scheduler and sr25519.
+:data:`DEVICE_THRESHOLD` signatures and to the host oracle below it; the
+sr25519 one (``crypto/sr25519.py``) to ``ops/sr25519_batch.py`` or its
+host check. :class:`MultiBatchVerifier` splits a mixed validator set's
+commit by key type. Counterpart of ``tendermint_tpu/crypto/batch.py``
+without the verifyd remote and the scheduler.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 from tendermint_tpu_torch import resolve_device
-from tendermint_tpu_torch.crypto.keys import ED25519_KEY_TYPE, PubKey
+from tendermint_tpu_torch.crypto.keys import ED25519_KEY_TYPE, SR25519_KEY_TYPE, PubKey
 
 # Host/device crossover: below this many signatures a device launch
 # costs more than it saves, so batches stay on the host (the analog of
@@ -83,5 +86,52 @@ class Ed25519BatchVerifier:
 
 
 def supports_batch_verifier(pub_key: Optional[PubKey]) -> bool:
-    """crypto/batch/batch.go:26-33, for the key types the port has."""
-    return pub_key is not None and pub_key.type == ED25519_KEY_TYPE
+    """crypto/batch/batch.go:26-33: ed25519 and sr25519 batch."""
+    return pub_key is not None and pub_key.type in (ED25519_KEY_TYPE, SR25519_KEY_TYPE)
+
+
+def create_batch_verifier(pub_key: PubKey, device=None):
+    """crypto/batch/batch.go:11-22: the batch verifier of a key's type."""
+    if pub_key.type == ED25519_KEY_TYPE:
+        return Ed25519BatchVerifier(device=device)
+    if pub_key.type == SR25519_KEY_TYPE:
+        from tendermint_tpu_torch.crypto.sr25519 import Sr25519BatchVerifier
+
+        return Sr25519BatchVerifier(device=device)
+    raise ValueError(f"key type {pub_key.type} does not support batching")
+
+
+class MultiBatchVerifier:
+    """Per-key-type sub-batches for a mixed validator set.
+
+    A commit signed by ed25519 and sr25519 validators (BASELINE config 5)
+    splits into one sub-verifier per key type, each on its own kernel,
+    and the verdicts merge back in the order entries were added. A key
+    type without batch support raises on ``add``, which the caller
+    answers with single verification (reference crypto/batch/batch.go
+    dispatches on one key type; this is the mixed-set generalisation the
+    JAX package makes).
+    """
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._subs: dict = {}
+        self._order: List[Tuple[str, int]] = []  # (key type, index in its sub-batch)
+
+    def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
+        kt = pub_key.type
+        sub = self._subs.get(kt)
+        if sub is None:
+            sub = self._subs[kt] = create_batch_verifier(pub_key, self.device)
+        sub.add(pub_key, msg, sig)
+        self._order.append((kt, len(sub) - 1))
+
+    def __len__(self) -> int:
+        return len(self._order)
+
+    def verify(self) -> Tuple[bool, List[bool]]:
+        if not self._order:
+            return False, []  # the empty contract of every batch verifier
+        results = {kt: sub.verify()[1] for kt, sub in self._subs.items()}
+        merged = [bool(results[kt][i]) for kt, i in self._order]
+        return all(merged), merged

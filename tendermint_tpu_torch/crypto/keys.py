@@ -1,10 +1,11 @@
-"""Ed25519 keys and addresses.
+"""Ed25519 and sr25519 keys and addresses.
 
-The ed25519 part of ``tendermint_tpu/crypto/keys.py`` (reference
-crypto/crypto.go:38-76): ``PubKey`` (address, bytes, verify),
-``PrivKey`` (sign, pub_key) and 20-byte addresses, SHA256(pubkey)[:20]
-(crypto/crypto.go:27 AddressHash). Verification follows ZIP-215 through
-the host oracle; signing follows RFC 8032.
+The ed25519 and sr25519 part of ``tendermint_tpu/crypto/keys.py``
+(reference crypto/crypto.go:38-76): ``PubKey`` (address, bytes, verify),
+private keys (sign, pub_key) and 20-byte addresses, SHA256(pubkey)[:20]
+(crypto/crypto.go:27 AddressHash). Ed25519 verification follows ZIP-215
+through the host oracle and signing RFC 8032; the sr25519 keys live in
+:mod:`tendermint_tpu_torch.crypto.sr25519`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from tendermint_tpu_torch.crypto import ed25519_ref
 ADDRESS_LEN = 20
 
 ED25519_KEY_TYPE = "ed25519"
+SR25519_KEY_TYPE = "sr25519"
 
 ED25519_PUBKEY_SIZE = 32
 ED25519_PRIVKEY_SIZE = 64
@@ -105,3 +107,4 @@ class Ed25519PrivKey:
     @property
     def type(self) -> str:
         return ED25519_KEY_TYPE
+

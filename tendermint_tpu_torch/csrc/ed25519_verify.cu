@@ -1,4 +1,5 @@
-// Batched Ed25519 ZIP-215 verification on Hopper (sm_90a): three kernels.
+// Batched Ed25519 ZIP-215 and sr25519 verification on Hopper (sm_90a): four
+// kernels.
 //
 // What each entry point replaces:
 //   ed25519_verify_kernel          <- tendermint_tpu/ops/pallas_verify.py
@@ -18,7 +19,13 @@
 //                                     column idx[lane] of the resident
 //                                     (8, 4, 32, K) store, the gather folded
 //                                     into K2's table loads.
-// All compute, per lane, [8]([s]B - R - [k]A) == identity with liberal
+//   sr25519_verify_kernel (K5)     <- tendermint_tpu/ops/sr25519_batch.py
+//                                     verify_kernel_sr (an XLA graph):
+//                                     K1's body with ristretto255 DECODE in
+//                                     place of ed25519 decompression and the
+//                                     identity-coset test in place of the
+//                                     cofactored finish (see K5 below).
+// K1-K3 compute, per lane, [8]([s]B - R - [k]A) == identity with liberal
 // decompression (y >= p accepted, x == 0 with sign 1 rejected), exactly as
 // tendermint_tpu_torch/ops/ed25519_batch.verify_kernel{,_tables,_resident}
 // do; the host ANDs in s < L. s and k must be < 2^253 for the signed recode.
@@ -193,6 +200,28 @@
 // the table needs A before the Straus loop. K2 and K3 need R only at the
 // finish: the R warp decompresses the block's 32 R points, one a thread,
 // into shared memory while the quads run their loop.
+//
+// K5, sr25519. Per lane [s]B - [k]A - R lies in the ristretto identity coset
+// (X == 0 or Y == 0), with A and R decoded by RFC 9496 4.3.1 DECODE, exactly
+// as tendermint_tpu_torch/ops/sr25519_batch.verify_kernel_sr; the engine ANDs
+// in its host checks (the marker bit, s < L, A and R canonical and even).
+// ristretto255 is a quotient of this curve, so K5 is K1 with two steps
+// replaced (verify_body<true>): step X1 decodes with ristretto_decode, which
+// needs only d and sqrt(-1) of the constants, and the finish drops F2 and
+// tests X == 0 or Y == 0 (projective, so no inversion) in F3. K1's lane
+// table holds (t + 1)(-A), which is what the schnorr equation needs, and
+// the B warps' comb gives [s]B as in K1. An encoding is read as its value
+// mod p (bit 255 folded in as 19), as the plain version reads it; the host
+// rejects every encoding >= p anyway. s is masked to 255 bits and checked
+// < L on the host and k < L, so the signed recode is exact. Bound, counted
+// as for K1: a DECODE is 257 S + 23 M (pow22523 and six squarings, twelve
+// multiplies; the multiply by sqrt(-1) some lanes take is left out), so K5
+// needs 1,538 S + 2,103 M a lane, at 4,096 lanes at least 0.144 ms of the
+// card's integer multiply rate; its bytes are K1's 129 a lane. Measured
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.415 ms at 4,096 lanes
+// (35% of the bound, K1 0.410 in the same run), 1.311 ms at 16,384; 128
+// registers and 216 B of stack, the decode's live values spilling where
+// K1's decompression takes 56 B.
 //
 // Each launcher returns cudaGetLastError() and never synchronizes.
 
@@ -539,6 +568,50 @@ __device__ __forceinline__ bool ge_decompress(const uint8_t b[32], const fe& d, 
   return valid;
 }
 
+__device__ __forceinline__ bool fe_is_negative(const fe& a) {
+  int32_t t[NL];
+  fe_canon(a, t);
+  return (t[0] & 1) != 0;
+}
+
+// |a|: the non-negative (even) one of a and -a.
+__device__ __forceinline__ fe fe_abs(const fe& a) { return fe_sel(fe_is_negative(a), fe_neg(a), a); }
+
+// RFC 9496 4.3.1 DECODE of a ristretto255 encoding, as
+// ops/sr25519_batch.ristretto_decompress: the square-root ratio through
+// pow22523 of w^7 with the -1 and -sqrt(-1) fix-ups, then x = |2 s den_x|,
+// y = u1 den_y, t = x y. Valid when the ratio was a square, t is
+// non-negative and y != 0; an invalid lane gets the identity and false.
+// Bit 255 of the encoding is folded in as 19 (the value mod p).
+__device__ __forceinline__ bool ristretto_decode(const uint8_t b[32], const fe& d, const fe& sqrtm1,
+                                                 ge* out) {
+  const fe one = fe_const(1);
+  const fe s = fe_add(fe_frombytes(b), fe_const(19 * (b[31] >> 7)));
+  const fe ss = fe_sq(s);
+  const fe u1 = fe_sub(one, ss);
+  const fe u2 = fe_add(one, ss);
+  const fe u2s = fe_sq(u2);
+  const fe v = fe_sub(fe_neg(fe_mul(fe_sq(u1), d)), u2s);     // -d u1^2 - u2^2
+  const fe w = fe_mul(v, u2s);
+  const fe w3 = fe_mul(fe_sq(w), w);
+  const fe w7 = fe_mul(fe_sq(w3), w);
+  fe r = fe_mul(w3, fe_pow22523(w7));
+  const fe check = fe_mul(w, fe_sq(r));
+  const bool correct = fe_is_zero(fe_sub(check, one));
+  const bool flipped = fe_is_zero(fe_add(check, one));       // check == -1
+  const bool flipped_i = fe_is_zero(fe_add(check, sqrtm1));  // check == -sqrt(-1)
+  if (flipped || flipped_i) r = fe_mul(r, sqrtm1);
+  r = fe_abs(r);
+  const fe den_x = fe_mul(r, u2);
+  const fe den_y = fe_mul(fe_mul(r, den_x), v);
+  const fe x = fe_abs(fe_mul(fe_add(s, s), den_x));
+  const fe y = fe_mul(u1, den_y);
+  const fe t = fe_mul(x, y);
+  const bool valid = (correct || flipped) && !fe_is_negative(t) && !fe_is_zero(y);
+  *out = valid ? ge{x, y, one, t} : ge{fe_const(0), one, one, fe_const(0)};
+  return valid;
+}
+
 // Signed radix-16 recode of a little-endian scalar < 2^253: z = x + 0x88..88
 // with the carry-out dropped, digit w (most significant first) = nibble - 8.
 // Digits w = 2m and 2m + 1 share byte dig[m * kLanes] (the lane's column of
@@ -722,11 +795,18 @@ __device__ __forceinline__ fe straus(const Shared& sh, int tid, bool mixed) {
 
 // After the block's barrier: add the B warps' parts of [s]B (slot c of
 // their cached forms, Z != 1), subtract R (rq = slot c of cached R, whose
-// Z is 1), multiply by the cofactor, test for the identity.
+// Z is 1), multiply by the cofactor, test for the identity. K5 (kSr) skips
+// the cofactor and tests for the ristretto identity coset, X == 0 or Y == 0.
+template <bool kSr = false>
 __device__ __forceinline__ bool finish(const Shared& sh, fe v, const fe& rq, int c, int ln) {
 #pragma unroll 1
   for (int b = 0; b < kBWarps; ++b) v = q_add(v, sh.sb[b][c][ln], c, false, false);  // F0
   v = q_add(v, rq, c, true, true);                           // F1
+  if (kSr) {
+    const fe x = shfl(v, 0);                                 // F3 of K5
+    const fe y = shfl(v, 1);
+    return fe_is_zero(x) || fe_is_zero(y);
+  }
 #pragma unroll 1
   for (int j = 0; j < 3; ++j) v = q_double(v, c);            // F2
   const fe x = shfl(v, 0);                                   // F3
@@ -820,7 +900,10 @@ __device__ __forceinline__ Shared& shared() {
   return *reinterpret_cast<Shared*>(smem);
 }
 
-__global__ void __launch_bounds__(kThreadsK1, kMinBlocks) ed25519_verify_kernel(
+// K1 and K5 share this body; K5 (kSr) decodes A and R by ristretto255
+// DECODE and finishes with the identity-coset test.
+template <bool kSr>
+__device__ __forceinline__ void verify_body(
     const uint8_t* __restrict__ pk, const uint8_t* __restrict__ r,
     const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
     const uint8_t* __restrict__ consts, uint8_t* __restrict__ out, int n) {
@@ -840,7 +923,8 @@ __global__ void __launch_bounds__(kThreadsK1, kMinBlocks) ed25519_verify_kernel(
     uint8_t row[32];
     load_row(((c & 1) ? r : pk) + 32 * lane, row);
     ge p;
-    const bool ok = ge_decompress(row, sh.k[kConstD], sh.k[kConstSqrtM1], &p);
+    const bool ok = kSr ? ristretto_decode(row, sh.k[kConstD], sh.k[kConstSqrtM1], &p)
+                        : ge_decompress(row, sh.k[kConstD], sh.k[kConstSqrtM1], &p);
     const bool even = (c & 1) == 0;
     const fe ypx = fe_add(p.Y, p.X);
     const fe ymx = fe_sub(p.Y, p.X);
@@ -872,8 +956,22 @@ __global__ void __launch_bounds__(kThreadsK1, kMinBlocks) ed25519_verify_kernel(
   }
   __syncthreads();
   if (tid >= kQuadThreads) return;
-  const bool pass = finish(sh, v, rq, c, ln) && a_ok && r_ok;
+  const bool pass = finish<kSr>(sh, v, rq, c, ln) && a_ok && r_ok;
   if (c == 0 && lane_id < n) out[lane_id] = pass ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kThreadsK1, kMinBlocks) ed25519_verify_kernel(
+    const uint8_t* __restrict__ pk, const uint8_t* __restrict__ r,
+    const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
+    const uint8_t* __restrict__ consts, uint8_t* __restrict__ out, int n) {
+  verify_body<false>(pk, r, s, k, consts, out, n);
+}
+
+__global__ void __launch_bounds__(kThreadsK1, kMinBlocks) sr25519_verify_kernel(
+    const uint8_t* __restrict__ pk, const uint8_t* __restrict__ r,
+    const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
+    const uint8_t* __restrict__ consts, uint8_t* __restrict__ out, int n) {
+  verify_body<true>(pk, r, s, k, consts, out, n);
 }
 
 // K2 and K3 share this body; they differ only in where lane `lane`'s table
@@ -995,6 +1093,21 @@ extern "C" int ed25519_verify_tables_launch(const void* tab, const void* a_ok, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5: the same arguments as K1.
+extern "C" int sr25519_verify_launch(const void* pk, const void* r, const void* s,
+                                     const void* k, const void* consts, void* out, int n,
+                                     void* stream) {
+  if (n <= 0) return 0;
+  const cudaError_t err = allow_shared(sr25519_verify_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sr25519_verify_kernel<<<blocks(n), kThreadsK1, sizeof(Shared),
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(pk), static_cast<const uint8_t*>(r),
+      static_cast<const uint8_t*>(s), static_cast<const uint8_t*>(k),
+      static_cast<const uint8_t*>(consts), static_cast<uint8_t*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K3: the store is (8, 4, 32, store_cols) uint8 and idx (n,) int32 column
 // indices into it, each in [0, store_cols) (the wrapper checks).
 extern "C" int ed25519_verify_resident_launch(const void* store, const void* idx, const void* a_ok,
@@ -1036,7 +1149,7 @@ int attributes(Kernel kernel, int threads, int* out) {
 
 }  // namespace
 
-// Launch facts of kernel `which` (0: K1, 1: K2, 2: K3) on the current
+// Launch facts of kernel `which` (0: K1, 1: K2, 2: K3, 3: K5) on the current
 // device: out = {registers a thread, local (stack) bytes a thread, shared
 // bytes a block (static and dynamic), threads a block, lanes a block,
 // blocks resident on an SM}.
@@ -1045,6 +1158,7 @@ extern "C" int ed25519_kernel_attributes(int which, int* out) {
     case 0: return attributes(ed25519_verify_kernel, kThreadsK1, out);
     case 1: return attributes(ed25519_verify_tables_kernel, kThreadsK2, out);
     case 2: return attributes(ed25519_verify_resident_kernel, kThreadsK2, out);
+    case 3: return attributes(sr25519_verify_kernel, kThreadsK1, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -5,7 +5,12 @@ its own shared library with a plain C interface (all sources at once,
 one ``nvcc`` process each), which is then loaded with ``ctypes``. A
 library is named after a digest of its source and the flags, so an
 edited source rebuilds; the result is renamed into place atomically.
-A failed build raises with nvcc's output.
+A failed build raises :class:`KernelBuildError` with nvcc's output.
+
+:class:`CudaError` is what a wrapper raises when a launcher returns a
+CUDA error code: it carries the ``code`` and whether the error is
+``permanent`` for the process (see :data:`STICKY_CODES`), which the
+health machine of ``ops/device_policy.py`` reads.
 
 The build directory is ``build/kernels`` beside the package (listed in
 ``.gitignore``), or ``$TENDERMINT_TPU_TORCH_BUILD_DIR``. ``nvcc`` is
@@ -29,6 +34,28 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# cudaError_t codes after which the CUDA context of the process is unusable:
+# every later CUDA call fails, so retrying is useless (illegal address,
+# launch timeout, device-side assert, hardware stack error, illegal
+# instruction, misaligned address, invalid PC, launch failure).
+STICKY_CODES = frozenset({700, 702, 710, 714, 715, 716, 718, 719})
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel source did not build (or nvcc is missing): a fault of the
+    tree, never answered by a host fallback."""
+
+
+class CudaError(RuntimeError):
+    """A launcher returned cudaError_t ``code``; ``permanent`` when the
+    code is sticky (:data:`STICKY_CODES`)."""
+
+    def __init__(self, what: str, code: int):
+        super().__init__(f"{what} failed: CUDA error {code}")
+        self.code = code
+        self.permanent = code in STICKY_CODES
+
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
 build_log: Dict[str, str] = {}  # source name -> nvcc/ptxas output of its build
@@ -50,7 +77,7 @@ def _nvcc() -> str:
             return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        raise KernelBuildError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     return found
 
 
@@ -88,7 +115,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 continue
             os.replace(tmp, out)
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise KernelBuildError("\n".join(failed))
         for src in todo:
             _libs[src[:-3]] = ctypes.CDLL(_lib_path(src))
         return dict(_libs)

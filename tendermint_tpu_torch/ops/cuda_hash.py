@@ -66,7 +66,7 @@ def _run(name: str, key: str, args, device: torch.device) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _launcher(name)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+        raise _build.CudaError(name, rc)
     LAUNCHES[key] += 1
 
 
@@ -104,5 +104,5 @@ def challenge_attributes() -> Dict[str, int]:
     buf = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
     rc = _launcher("sha512_challenge_attributes")(buf)
     if rc != 0:
-        raise RuntimeError(f"sha512_challenge_attributes failed: CUDA error {rc}")
+        raise _build.CudaError("sha512_challenge_attributes", rc)
     return dict(zip(ATTRIBUTE_KEYS, buf))

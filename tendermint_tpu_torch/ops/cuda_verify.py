@@ -1,7 +1,8 @@
-"""Wrappers of the three Ed25519 verification kernels.
+"""Wrappers of the three Ed25519 verification kernels and the sr25519 one.
 
-Counterpart of ``tendermint_tpu/ops/pallas_verify.py`` and of the
-resident graph of ``tendermint_tpu/ops/ed25519_batch.py``. The kernels
+Counterpart of ``tendermint_tpu/ops/pallas_verify.py``, of the resident
+graph of ``tendermint_tpu/ops/ed25519_batch.py`` and of the sr25519 graph
+of ``tendermint_tpu/ops/sr25519_batch.py``. The kernels
 live in ``csrc/ed25519_verify.cu`` (its header note gives the design and
 the bound) and are built by :mod:`._build`:
 
@@ -14,10 +15,13 @@ the bound) and are built by :mod:`._build`:
 - :func:`verify_resident` (K3, replaces
   ``ed25519_batch.verify_kernel_resident``): K2 with lane i's table read
   from column ``idx[i]`` of the resident (8, 4, 32, K) store.
+- :func:`verify_sr` (K5, replaces ``sr25519_batch.verify_kernel_sr``):
+  (N, 32) uint8 A, R, s, k -> (N,) bool; K1's body with ristretto255
+  DECODE for A and R and the identity-coset test for the finish.
 
 For CUDA tensors a wrapper launches its kernel on the current stream,
 or raises; for CPU tensors it runs the plain PyTorch version in
-:mod:`.ed25519_batch`. ``LAUNCHES`` counts kernel launches only.
+:mod:`.ed25519_batch` (:mod:`.sr25519_batch` for K5). ``LAUNCHES`` counts kernel launches only.
 :func:`kernel_attributes` reports each kernel's registers, stack, shared
 memory and occupancy on the current CUDA device.
 """
@@ -32,8 +36,11 @@ import torch
 
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
 from tendermint_tpu_torch.ops import _build, ed25519_batch as plain, field as F
+from tendermint_tpu_torch.ops import sr25519_batch as plain_sr
 
-LAUNCHES: Dict[str, int] = {"verify": 0, "verify_tables": 0, "verify_resident": 0}
+LAUNCHES: Dict[str, int] = {"verify": 0, "verify_tables": 0, "verify_resident": 0, "verify_sr": 0}
+# The kernels of kernel_attributes, in the order of the C function's index.
+KERNELS = ("verify", "verify_tables", "verify_resident", "verify_sr")
 
 COMB_ROWS = 32
 
@@ -72,6 +79,7 @@ _ARGTYPES = {
     "ed25519_verify_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
     "ed25519_verify_tables_launch": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
     "ed25519_verify_resident_launch": [_P] * 8 + [ctypes.c_int, ctypes.c_int, _P],
+    "sr25519_verify_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
     "ed25519_kernel_attributes": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
 # What ed25519_kernel_attributes writes, in order.
@@ -116,7 +124,7 @@ def _launch(name: str, key: str, args, n: int, device: torch.device, *ints: int)
                 *[a.data_ptr() for a in args], consts.data_ptr(), out.data_ptr(), n, *ints, stream
             )
         if rc != 0:
-            raise RuntimeError(f"{name} failed: CUDA error {rc}")
+            raise _build.CudaError(name, rc)
         LAUNCHES[key] += 1
     return out.view(torch.bool)
 
@@ -131,6 +139,20 @@ def verify(pk: torch.Tensor, r: torch.Tensor, s: torch.Tensor, k: torch.Tensor) 
     if pk.device.type != "cuda":
         raise ValueError(f"verify: unsupported device {pk.device}")
     return _launch("ed25519_verify_launch", "verify", (pk, r, s, k), n, pk.device)
+
+
+def verify_sr(pk: torch.Tensor, r: torch.Tensor, s: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """K5: (N, 32) uint8 A, R, s, k -> (N,) bool, the sr25519 verdicts
+    (not ANDed with the engine's host checks). An encoding is read as
+    its value mod p."""
+    n = pk.shape[0]
+    for name, t in (("pk", pk), ("r", r), ("s", s), ("k", k)):
+        _check(name, t, (n, 32), pk.device)
+    if pk.device.type == "cpu":
+        return plain_sr.verify_kernel_sr(pk, r, s, k)
+    if pk.device.type != "cuda":
+        raise ValueError(f"verify_sr: unsupported device {pk.device}")
+    return _launch("sr25519_verify_launch", "verify_sr", (pk, r, s, k), n, pk.device)
 
 
 def verify_tables(
@@ -191,18 +213,18 @@ def verify_resident(
     )
 
 
-def kernel_attributes() -> Dict[str, Dict[str, int]]:
-    """{kernel: {key: value}} for K1 ("verify"), K2 ("verify_tables") and
-    K3 ("verify_resident") on the current CUDA device:
-    ``cudaFuncGetAttributes`` (registers a
+def kernel_attributes(kernels=KERNELS) -> Dict[str, Dict[str, int]]:
+    """{kernel: {key: value}} for K1 ("verify"), K2 ("verify_tables"),
+    K3 ("verify_resident") and K5 ("verify_sr"), or those of ``kernels``,
+    on the current CUDA device: ``cudaFuncGetAttributes`` (registers a
     thread, local bytes a thread, static shared bytes a block), the launch
     shape, and ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
     fn = _launcher("ed25519_kernel_attributes")
     out = {}
-    for which, name in enumerate(("verify", "verify_tables", "verify_resident")):
+    for name in kernels:
         buf = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
-        rc = fn(which, buf)
+        rc = fn(KERNELS.index(name), buf)
         if rc != 0:
-            raise RuntimeError(f"ed25519_kernel_attributes({name}) failed: CUDA error {rc}")
+            raise _build.CudaError(f"ed25519_kernel_attributes({name})", rc)
         out[name] = dict(zip(ATTRIBUTE_KEYS, buf))
     return out

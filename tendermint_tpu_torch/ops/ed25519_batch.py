@@ -24,12 +24,24 @@ double-buffered (chunk i's kernel is enqueued, then chunk i+1's host prep
 runs). Host prep is the s < L check and the challenge k = SHA-512(R‖A‖M)
 mod L, which a chunk of equal-length messages hashes on the device
 (ops/hash512.py, K4) and keeps there; the device gets raw (N, 32) uint8
-rows. The verdicts are ANDed with the host checks. A device error
-propagates: there is no host fallback in this module.
+rows. The verdicts are ANDed with the host checks.
+
+Device failures go to the health machine both engines share
+(``ops/device_policy.py``), which classifies and counts them. Then they
+propagate, and a batch the machine does not admit (cooling down or
+disabled) raises ``device_policy.DeviceRefused``, unless the caller set
+``device_policy.shared.host_fallback``: then a chunk whose host prep,
+launch or read-back fails is answered by the host oracle, refused
+batches are answered on the host whole, and their lanes are counted in
+``device_policy.shared.snapshot()["fallback_lanes"]``. Three errors are
+never handed to the machine and always propagate: a kernel that does not
+build (``_build.KernelBuildError``), and an error of the resident store's
+``acquire`` or of its upload.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,7 +55,16 @@ from tendermint_tpu_torch.crypto.hashing import (
     sha512_batch_mod_l,
     sha512_batch_prefixed,
 )
-from tendermint_tpu_torch.ops import curve, field as F, hash512, precompute, resident
+from tendermint_tpu_torch.ops import (
+    _build,
+    curve,
+    device_policy,
+    fault_injection,
+    field as F,
+    hash512,
+    precompute,
+    resident,
+)
 
 _L_BYTES_BE = np.frombuffer(L.to_bytes(32, "big"), dtype=np.uint8)
 
@@ -467,6 +488,7 @@ def _run_chunk(inputs: dict, device: torch.device) -> torch.Tensor:
     on ``device`` without waiting for them."""
     from tendermint_tpu_torch.ops import cuda_verify
 
+    fault_injection.fire("ed25519.chunk")
     args = [F.upload(inputs[key], device) for key in ("pk", "r", "s", "k")]
     return cuda_verify.verify(*args)
 
@@ -475,6 +497,7 @@ def _run_chunk_tables(inputs: dict, device: torch.device) -> torch.Tensor:
     """Launch one padded cache-hit chunk (K2)."""
     from tendermint_tpu_torch.ops import cuda_verify
 
+    fault_injection.fire("ed25519.chunk")
     args = [F.upload(inputs[key], device) for key in ("tab", "ok", "r", "s", "k")]
     return cuda_verify.verify_tables(*args)
 
@@ -484,6 +507,7 @@ def _run_chunk_resident(inputs: dict, device: torch.device) -> torch.Tensor:
     and the R, s, k rows ship; the store is on the device already."""
     from tendermint_tpu_torch.ops import cuda_verify
 
+    fault_injection.fire("ed25519.chunk")
     args = [F.upload(inputs[key], device) for key in ("ok", "r", "s", "k")]
     return cuda_verify.verify_resident(inputs["store"], torch.from_numpy(inputs["idx"]), *args)
 
@@ -530,28 +554,47 @@ def verify_batch(
     return [bool(v) for v in verdicts]
 
 
+def _host_verify_rows(pubkeys, msgs, sigs, rows) -> np.ndarray:
+    """The host oracle's verdicts on lanes ``rows``."""
+    return np.fromiter(
+        (ref.verify_zip215(pubkeys[i], msgs[i], sigs[i]) for i in rows), dtype=bool, count=len(rows)
+    )
+
+
 def _verify_uncached(
     pubkeys: Sequence[bytes],
     msgs: Sequence[bytes],
     sigs: Sequence[bytes],
     device: torch.device,
 ) -> np.ndarray:
-    """Device verification of lanes the result cache could not answer."""
+    """Device verification of lanes the result cache could not answer,
+    under the shared health machine (module note)."""
+    health = device_policy.shared
     n = len(pubkeys)
-    # Lanes whose key has a cached (or eligible, host-built) table take a
-    # table kernel; ill-formed lanes stay on the legacy path, whose prep
-    # handles bad lengths.
-    entries, has_table = precompute.tables.gather(pubkeys)
-    if entries is not None:
-        has_table &= np.fromiter(
-            (len(pk) == 32 and len(sg) == 64 for pk, sg in zip(pubkeys, sigs)),
-            dtype=bool,
-            count=n,
-        )
-    # Of those, lanes whose key lives in the device-resident store ship
-    # only their store column.
-    res_mask = np.zeros(n, dtype=bool)
-    res = resident.acquire(pubkeys, has_table, device)
+    attempt = health.begin_attempt("ed25519")
+    if attempt is None:
+        # Cooling down or disabled: an instant answer on the host, where
+        # the caller allows one.
+        health.refuse("ed25519", n)
+        return _host_verify_rows(pubkeys, msgs, sigs, range(n))
+    try:
+        # Lanes whose key has a cached (or eligible, host-built) table
+        # take a table kernel; ill-formed lanes stay on the legacy path,
+        # whose prep handles bad lengths.
+        entries, has_table = precompute.tables.gather(pubkeys)
+        if entries is not None:
+            has_table &= np.fromiter(
+                (len(pk) == 32 and len(sg) == 64 for pk, sg in zip(pubkeys, sigs)),
+                dtype=bool,
+                count=n,
+            )
+        # Of those, lanes whose key lives in the device-resident store
+        # ship only their store column.
+        res_mask = np.zeros(n, dtype=bool)
+        res = resident.acquire(pubkeys, has_table, device)
+    except BaseException:
+        health.release_probe(attempt)
+        raise
     if res is not None:
         res_mask, res_idx, res_ok, res_store = res
     jobs = [("resident", rows) for rows in _chunk_rows(np.nonzero(res_mask)[0])]
@@ -579,19 +622,71 @@ def _verify_uncached(
             )
         return prepare_batch(pks, ms, sgs, pad_to, device)
 
+    def failed(what: str, lanes: int, exc: Exception) -> None:
+        nonlocal attempt
+        health.record_failure(exc, attempt)
+        attempt = None
+        if not health.host_fallback:
+            raise exc
+        warnings.warn(
+            f"ed25519 chunk of {lanes} lanes: {what} failed ({exc!r}); host fallback "
+            f"for the chunk (device state={health.state})"
+        )
+
+    def prep_or_none(job) -> Optional[Tuple[dict, np.ndarray]]:
+        try:
+            return prep(job)
+        except _build.KernelBuildError:
+            health.release_probe(attempt)
+            raise
+        except Exception as exc:
+            failed("prepare", len(job[1]), exc)
+            return None
+
     runners = {"resident": _run_chunk_resident, "tables": _run_chunk_tables, "legacy": _run_chunk}
     results = np.ones(n, dtype=bool)
     host_ok_all = np.ones(n, dtype=bool)
-    outs = []
+    outs: List[Optional[torch.Tensor]] = [None] * len(jobs)
     # Double-buffered dispatch: enqueue job j's kernel, then run job
-    # j+1's host prep while the device works on job j.
-    prepped = prep(jobs[0]) if jobs else None
+    # j+1's host prep while the device works on job j. A failed chunk is
+    # left without an output and answered on the host at collect.
+    prepped = prep_or_none(jobs[0]) if jobs else None
     for j, (kind, rows) in enumerate(jobs):
-        inputs, host_ok = prepped
-        host_ok_all[rows] = host_ok[: len(rows)]
-        outs.append(runners[kind](inputs, device))
-        if j + 1 < len(jobs):
-            prepped = prep(jobs[j + 1])
+        if prepped is not None:
+            inputs, host_ok = prepped
+            host_ok_all[rows] = host_ok[: len(rows)]
+            if attempt is None:
+                attempt = health.begin_attempt("ed25519")
+            if attempt is not None:
+                try:
+                    outs[j] = runners[kind](inputs, device)
+                except _build.KernelBuildError:
+                    health.release_probe(attempt)
+                    raise
+                except Exception as exc:
+                    failed("launch", len(rows), exc)
+        prepped = prep_or_none(jobs[j + 1]) if j + 1 < len(jobs) else None
+    fallback_lanes = 0
+    device_chunks_ok = 0
     for (_, rows), out in zip(jobs, outs):
-        results[rows] = out[: len(rows)].cpu().numpy()
+        ok = None
+        if out is not None:
+            try:
+                fault_injection.fire("ed25519.collect")
+                ok = out[: len(rows)].cpu().numpy()
+                device_chunks_ok += 1
+            except Exception as exc:
+                failed("collect", len(rows), exc)
+        if ok is None:
+            fallback_lanes += len(rows)
+            results[rows] = _host_verify_rows(pubkeys, msgs, sigs, rows)
+            host_ok_all[rows] = True  # the oracle's verdicts are final
+        else:
+            results[rows] = ok
+    if fallback_lanes:
+        health.count_fallback("ed25519", fallback_lanes)
+    if attempt is not None and device_chunks_ok:
+        # No failure took the attempt and device work came back: clear
+        # DEGRADED, or complete a half-open probe.
+        health.record_success(attempt)
     return np.logical_and(results, host_ok_all)

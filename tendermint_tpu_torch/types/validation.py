@@ -5,8 +5,10 @@ ignore/count predicates per entry point, tally-then-verify, batch
 dispatch above a threshold with single-verify fallback, and
 first-bad-signature attribution on batch failure
 (validation.go:244-251). The batch goes to
-:class:`~tendermint_tpu_torch.crypto.batch.Ed25519BatchVerifier`, so one
-commit is verified by the CUDA kernels in a few chunked launches.
+:class:`~tendermint_tpu_torch.crypto.batch.MultiBatchVerifier`, one
+sub-batch per key type (ed25519, sr25519), so one commit is verified by
+the CUDA kernels in a few chunked launches; a key type without batch
+support sends the commit to single verification.
 """
 
 from __future__ import annotations
@@ -93,13 +95,19 @@ def _verify_commit_batch(
     count_all_signatures: bool,
     device,
 ) -> None:
-    """validation.go:151-258, signatures looked up by index."""
+    """validation.go:151-258, signatures looked up by index.
+
+    As in the JAX package, a mixed ed25519 + sr25519 commit sub-batches
+    per key type instead of failing the reference's single-type
+    verifier."""
     tallied = 0
     batch_sig_idxs = []
     # Make this set's keys eligible for the precompute cache: the next
     # commit from the same validators skips its table builds.
     crypto_batch.note_validator_set(vals)
-    bv = crypto_batch.Ed25519BatchVerifier(device=device)
+    # A mixed set sub-batches per key type (BASELINE config 5); a key
+    # without batch support raises on add -> single verification.
+    bv = crypto_batch.MultiBatchVerifier(device=device)
     for idx, commit_sig in enumerate(commit.signatures):
         if ignore_sig(commit_sig):
             continue

@@ -192,3 +192,44 @@ def test_kernel_attributes_name_every_field_and_raise_on_error(monkeypatch):
     monkeypatch.setattr(cuda_hash, "_launcher", lambda name: (lambda buf: 98))
     with pytest.raises(RuntimeError, match="CUDA error 98"):
         cuda_hash.challenge_attributes()
+
+
+def test_the_sr25519_and_health_modules_are_among_those_checked():
+    """The modules of the sr25519 engine and the health machine stand
+    alone too: the import checks above walk them."""
+    mods = _port_modules()
+    for mod in ("crypto.merlin", "crypto.ristretto", "crypto.sr25519", "ops.sr25519_batch",
+                "ops.device_policy", "ops.fault_injection"):
+        assert f"tendermint_tpu_torch.{mod}" in mods
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert os.path.join("tendermint_tpu_torch", "ops", "sr25519_batch.py") in files
+
+
+def test_sr25519_entry_points_raise_without_cuda(no_cuda):
+    from tendermint_tpu_torch.crypto import sr25519 as tsr
+    from tendermint_tpu_torch.ops import sr25519_batch as tsb
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        tsb.verify_batch_sr([b"\x00" * 32], [b""], [b"\x00" * 64])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tsr.Sr25519BatchVerifier()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tbatch.MultiBatchVerifier()
+    assert tsb.verify_batch_sr([b"\x00" * 32], [b""], [b"\x00" * 64], device="cpu") == [False]
+
+
+def test_k5_wrapper_raises_a_typed_error_instead_of_falling_back(monkeypatch):
+    fake = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_verify.verify_sr(fake, fake, fake, fake)
+    monkeypatch.setattr(cuda_verify, "_launcher", lambda name: (lambda *args: 700))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(cuda_stream=0)
+    )
+    rows = torch.zeros((4, 32), dtype=torch.uint8)
+    before = cuda_verify.LAUNCHES["verify_sr"]
+    with pytest.raises(cuda_verify._build.CudaError, match="CUDA error 700") as info:
+        cuda_verify._launch("sr25519_verify_launch", "verify_sr", (rows,) * 4, 4, torch.device("cpu"))
+    assert info.value.code == 700 and info.value.permanent
+    assert cuda_verify.LAUNCHES["verify_sr"] == before

@@ -7,7 +7,8 @@ warp roles, shared-memory layouts, digit and comb orders and hand-overs)
 runs here, at a handful of blocks, where there is no card. The launchers
 are cut off; a small harness calls each kernel. Every verdict must equal
 the plain PyTorch version's and the host oracle's, and every challenge
-hashlib's mod L (tolerance 0). The emulation says nothing about speed.
+hashlib's mod L (tolerance 0); K5's verdicts the sr25519 plain version's
+and host oracle's. The emulation says nothing about speed.
 Without g++ the tests skip.
 """
 
@@ -23,8 +24,11 @@ torch.set_num_threads(1)
 
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
 from tendermint_tpu_torch.crypto.hashing import reduce_mod_l, sha512_batch
+from tendermint_tpu_torch.crypto import sr25519 as tsr
 from tendermint_tpu_torch.ops import cuda_verify, ed25519_batch as teb, hash512, precompute
+from tendermint_tpu_torch.ops import sr25519_batch as tsb
 from tests.test_torch_resident import _parity_lanes
+from tests.test_torch_sr25519_batch import fault_lanes as sr_fault_lanes
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(TESTS), "tendermint_tpu_torch", "csrc")
@@ -67,6 +71,11 @@ int main(int argc, char** argv) {
     emu_launch(grid, kThreadsK2, [&] {
       ed25519_verify_tables_kernel(tab.data(), ok.data(), r.data(), s.data(), k.data(),
                                    consts.data(), out.data(), n);
+    });
+  } else if (which == 3) {
+    auto pk = rd(d + "/pk");
+    emu_launch(grid, kThreadsK1, [&] {
+      sr25519_verify_kernel(pk.data(), r.data(), s.data(), k.data(), consts.data(), out.data(), n);
     });
   } else {
     auto st = rd(d + "/store"), ok = rd(d + "/ok"), idx = rd(d + "/idx");
@@ -251,3 +260,24 @@ def test_verify_kernels_match_plain_and_oracle(emulated, lanes, tmp_path, kernel
     np.testing.assert_array_equal(got.astype(bool), plain)
     np.testing.assert_array_equal(got.astype(bool) & ok, want)
     assert want.any() and not want.all()
+
+
+# --- K5 -----------------------------------------------------------------------
+
+
+def test_sr25519_kernel_matches_plain_and_oracle(emulated, tmp_path):
+    """Two blocks, the second ragged, with every planted fault; lane 0's
+    key is re-encoded as its value - 19 + 2^255 (the same value mod p),
+    which the kernel and the plain version must both decode as the key."""
+    pks, msgs, sigs, kinds = sr_fault_lanes(n=40, seed=6)
+    n = len(pks)
+    inp, host_ok = tsb.prepare_batch_sr(pks, msgs, sigs, pad_to=n)
+    v = int.from_bytes(inp["pk"][0].tobytes(), "little")
+    inp["pk"][0] = np.frombuffer((v - 19 + 2**255).to_bytes(32, "little"), dtype=np.uint8)
+    rows = {key: inp[key] for key in ("pk", "r", "s", "k")}
+    got = _run_verify(emulated["verify"], tmp_path, 3, n, rows).astype(bool)
+    plain = tsb.verify_kernel_sr(*_t(*rows.values())).numpy()
+    np.testing.assert_array_equal(got, plain)
+    want = np.array([tsr.verify(p, m, s) for p, m, s in zip(pks, msgs, sigs)])
+    np.testing.assert_array_equal(got & host_ok, want)
+    assert got[0] and want.any() and not want.all() and len(set(kinds.values())) == 10
