@@ -121,6 +121,23 @@ MIXED_MAX_REPS = 9
 MIXED_BUDGET_S = 120.0  # phase 5's wall time the repetitions are sized to
 FAULT_ED_LANES = 256
 FAULT_SR_LANES = 128
+# Phase 7, bench/sections.py run_blocksync's shape: a 32-block window
+# under 500 validators of equal power.
+SYNC_BLOCKS = 32
+SYNC_VALIDATORS = 500
+SYNC_REPS = 5
+SYNC_BAD_BLOCK, SYNC_BAD_INDEX = 9, 200  # a bad signature among the first 334 signers
+SYNC_SHORT_BLOCK = 20  # a block short of +2/3
+MIXED_SYNC_BLOCKS = 2
+MIXED_SYNC_VALIDATORS = 64
+# Phase 8, bench/sections.py run_light_client's shape: 16 headers under
+# 1,000 validators, walked with verify_adjacent.
+LIGHT_HEADERS = 16
+LIGHT_VALIDATORS = 1000
+LIGHT_REPS = 5
+LIGHT_TRUSTING_PERIOD_S = 86400.0
+LIGHT_MAX_CLOCK_DRIFT_S = 10.0
+LIGHT_BAD_HEADER, LIGHT_BAD_INDEX = 5, 100
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -524,6 +541,36 @@ def mixed_commit_workload(rng, signer):
     sig = bad.signatures[bad_index].signature
     bad.signatures[bad_index].signature = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
     return vset, block_id, commit, bad, bad_index
+
+
+def chain_workload(rng, signer, n_heights, n_vals, mixed=False):
+    """A signed-header chain of ``n_heights`` under ``n_vals`` validators
+    (``types/carry.py``'s twin of bench/workload.py's build_header_chain),
+    signed in the pool. With ``mixed`` the keys alternate ed25519 /
+    sr25519 as they are made (bench/workload.py's mixed_key_factory)."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
+    from tendermint_tpu_torch.types import carry
+
+    if mixed:
+        ed = signer.keys(rng, n_vals - n_vals // 2)
+        sr = signer.sr_keys(rng, n_vals // 2)
+        keys = [(ed[i // 2][0], Ed25519PubKey(ed[i // 2][1])) if i % 2 == 0
+                else (sr[i // 2][0], Sr25519PubKey(sr[i // 2][1])) for i in range(n_vals)]
+    else:
+        keys = [(priv, Ed25519PubKey(pub)) for priv, pub in signer.keys(rng, n_vals)]
+
+    def sign_many(secrets, msgs):
+        """ed25519 secrets are private-key bytes, sr25519 ones expanded tuples."""
+        sigs = [None] * len(msgs)
+        for is_ed, sign in ((True, signer.sign), (False, lambda e, m: signer.sr_sign(rng, e, m))):
+            idx = [i for i, sec in enumerate(secrets) if isinstance(sec, bytes) == is_ed]
+            if idx:
+                for i, sig in zip(idx, sign([secrets[i] for i in idx], [msgs[i] for i in idx])):
+                    sigs[i] = sig
+        return sigs
+
+    return carry.build_header_chain(n_heights, keys, sign_many, chain_id=CHAIN_ID)
 
 
 # --- phase 2 -------------------------------------------------------------------
@@ -1192,6 +1239,234 @@ def phase_mixed_commit(workload, dev):
     return counts
 
 
+# --- phase 7 -------------------------------------------------------------------
+
+
+def sync_tasks(chain, vset, commits=None):
+    from tendermint_tpu_torch.parallel.pipeline import CommitTask
+
+    commits = commits or [sh.commit for sh in chain]
+    return [CommitTask(CHAIN_ID, vset, c.block_id, c.height, c) for c in commits]
+
+
+def lanes_and_chunks(tasks):
+    """The lanes a window verifies (each block stops past +2/3, every
+    signature here a commit one) and their sign-bytes lengths by chunk."""
+    from tendermint_tpu_torch.ops import ed25519_batch as eb
+
+    lens = []
+    for t in tasks:
+        needed, tallied = t.vals.total_voting_power() * 2 // 3, 0
+        for i, v in enumerate(t.vals.validators):
+            lens.append(len(t.commit.vote_sign_bytes(CHAIN_ID, i)))
+            tallied += v.voting_power
+            if tallied > needed:
+                break
+    return len(lens), [sorted(set(lens[lo:lo + eb.CHUNK])) for lo in range(0, len(lens), eb.CHUNK)]
+
+
+def phase_blocksync(sync, mixed_sync, dev):
+    """BASELINE config 4: a 32-block window through
+    ``verify_commits_pipelined``, every verdict checked; then a small
+    mixed ed25519 + sr25519 window. Returns the phase's launch counts
+    (which start at 0)."""
+    from tendermint_tpu_torch.ops import hash512, precompute, resident
+    from tendermint_tpu_torch.parallel.pipeline import verify_commits_pipelined
+    from tendermint_tpu_torch.types.block import CommitSig
+    from tendermint_tpu_torch.types.validation import InvalidCommitError, NotEnoughVotingPowerError
+
+    chain, vset, _ = sync
+    tasks = sync_tasks(chain, vset)
+    n_lanes, chunk_lengths = lanes_and_chunks(tasks)
+    check(n_lanes == SYNC_BLOCKS * (SYNC_VALIDATORS * 2 // 3 + 1),
+          f"blocksync window of {n_lanes} lanes")
+    hashed = sum(len(c) == 1 for c in chunk_lengths)
+    chunks = len(chunk_sizes(n_lanes))
+    want_launches = {"verify_resident": chunks, **({"challenge": hashed} if hashed else {})}
+
+    def run(window):
+        precompute.results.clear()  # new blocks: no verdict is cached
+        before = launches()
+        mixed = hash512.stats()["declined_mixed_lengths"]
+        t = time.perf_counter()
+        verdicts = verify_commits_pipelined(window, device=dev)
+        secs = time.perf_counter() - t
+        d = delta(before)
+        check(d == want_launches, f"blocksync launches {d}, expected {want_launches}")
+        check(hash512.stats()["declined_mixed_lengths"] - mixed == chunks - hashed,
+              "blocksync chunks of mixed sign-bytes lengths not sent to host hashing")
+        return secs, verdicts
+
+    precompute.reset()
+    builds = precompute.tables.builds
+    cold_s, verdicts = run(tasks)
+    check(all(v.ok for v in verdicts), f"blocksync window rejected: {verdicts}")
+    # A table for each validator that signs before its block's stop.
+    cold_builds = precompute.tables.builds - builds
+    check(cold_builds == n_lanes // SYNC_BLOCKS, f"blocksync warm-up built {cold_builds} tables")
+    reps = []
+    for _ in range(SYNC_REPS):
+        secs, verdicts = run(tasks)
+        check(all(v.ok for v in verdicts), "blocksync window rejected")
+        reps.append(secs)
+    check(precompute.tables.builds - builds == cold_builds, "table builds in the steady window")
+    profile = host_profile(lambda: run(tasks))
+
+    # Every verdict: a bad signature among a block's first 334 signers,
+    # and a block with a third of its validators absent.
+    commits = [sh.commit for sh in chain]
+    commits[SYNC_BAD_BLOCK] = copy.deepcopy(commits[SYNC_BAD_BLOCK])
+    cs = commits[SYNC_BAD_BLOCK].signatures[SYNC_BAD_INDEX]
+    cs.signature = cs.signature[:40] + bytes([cs.signature[40] ^ 1]) + cs.signature[41:]
+    commits[SYNC_SHORT_BLOCK] = copy.deepcopy(commits[SYNC_SHORT_BLOCK])
+    short = commits[SYNC_SHORT_BLOCK].signatures
+    n_absent = SYNC_VALIDATORS - SYNC_VALIDATORS * 2 // 3
+    for i in range(SYNC_VALIDATORS - n_absent, SYNC_VALIDATORS):
+        short[i] = CommitSig.absent()
+    precompute.results.clear()
+    verdicts = verify_commits_pipelined(sync_tasks(chain, vset, commits), device=dev)
+    for b, v in enumerate(verdicts):
+        if b == SYNC_BAD_BLOCK:
+            check(not v.ok and isinstance(v.error, InvalidCommitError)
+                  and f"(#{SYNC_BAD_INDEX})" in str(v.error), f"bad block verdict {v}")
+        elif b == SYNC_SHORT_BLOCK:
+            check(not v.ok and isinstance(v.error, NotEnoughVotingPowerError), f"short block verdict {v}")
+        else:
+            check(v.ok, f"block {b} rejected: {v.error!r}")
+    rejections = {"bad": str(verdicts[SYNC_BAD_BLOCK].error)[:40],
+                  "short": str(verdicts[SYNC_SHORT_BLOCK].error)}
+
+    # The mixed window: sr25519 lanes go to K5, ed25519 ones to K3. The
+    # JAX package's pipeline rejects this valid window.
+    mchain, mvset, _ = mixed_sync
+    mtasks = sync_tasks(mchain, mvset)
+    precompute.results.clear()
+    before = launches()
+    t = time.perf_counter()
+    mverdicts = verify_commits_pipelined(mtasks, device=dev)
+    mixed_s = time.perf_counter() - t
+    mixed_launches = delta(before)
+    check(all(v.ok for v in mverdicts), f"mixed blocksync window rejected: {mverdicts}")
+    check(mixed_launches.get("verify_sr", 0) >= 1 and mixed_launches.get("verify_resident", 0) >= 1,
+          f"mixed blocksync window launches {mixed_launches}")
+    sr_idx = [i for i, v in enumerate(mvset.validators) if v.pub_key.type == "sr25519"]
+    mcommits = [sh.commit for sh in mchain]
+    mcommits[1] = copy.deepcopy(mcommits[1])
+    cs = mcommits[1].signatures[sr_idx[3]]
+    cs.signature = cs.signature[:40] + bytes([cs.signature[40] ^ 1]) + cs.signature[41:]
+    precompute.results.clear()
+    bad_mixed = verify_commits_pipelined(sync_tasks(mchain, mvset, mcommits), device=dev)
+    check(bad_mixed[0].ok and not bad_mixed[1].ok and f"(#{sr_idx[3]})" in str(bad_mixed[1].error),
+          f"mixed window with a bad sr25519 signature: {bad_mixed}")
+    counts = launches()
+    emit({"phase": "blocksync", "blocks": SYNC_BLOCKS, "validators": SYNC_VALIDATORS,
+          "lanes_per_call": n_lanes, "chunks_per_call": chunk_sizes(n_lanes),
+          "sign_bytes_lengths_by_chunk": chunk_lengths, "launches_per_call": want_launches,
+          "cold_ms": cold_s * 1e3, "table_builds_cold": cold_builds,
+          "seconds": reps, "blocksync_blocks_per_s_v500": SYNC_BLOCKS / statistics.median(reps),
+          "window_p50_ms": statistics.median(reps) * 1e3,
+          "bad_block": SYNC_BAD_BLOCK, "bad_index": SYNC_BAD_INDEX, "short_block": SYNC_SHORT_BLOCK,
+          "rejections": rejections, "mixed_window": {
+              "blocks": MIXED_SYNC_BLOCKS, "validators": MIXED_SYNC_VALIDATORS, "ms": mixed_s * 1e3,
+              "launches": mixed_launches, "bad_sr25519_index": sr_idx[3]},
+          "launches": counts, "store": resident.stats(), "host_profile": profile})
+    precompute.reset()
+    return counts
+
+
+# --- phase 8 -------------------------------------------------------------------
+
+
+def phase_light(light, dev):
+    """BASELINE config 3: walks of ``verify_adjacent`` over a 16-header
+    chain, one non-adjacent ``verify`` from the first header to the last,
+    and the outcomes of a tampered signature, an expired trusted header
+    and a broken validators-hash link. Returns the phase's launch counts
+    (which start at 0)."""
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.light import verifier
+    from tendermint_tpu_torch.ops import precompute, resident
+
+    chain, vset, _ = light
+    now = Timestamp.from_unix_ns(chain[-1].header.time.to_unix_ns() + 2 * 10**9)
+    period, drift = LIGHT_TRUSTING_PERIOD_S, LIGHT_MAX_CLOCK_DRIFT_S
+    step_lanes = LIGHT_VALIDATORS * 2 // 3 + 1
+    per_walk = {"verify_resident": (LIGHT_HEADERS - 1) * len(chunk_sizes(step_lanes))}
+
+    def walk():
+        precompute.results.clear()  # each header is new: no verdict is cached
+        before = launches()
+        t = time.perf_counter()
+        for i in range(1, len(chain)):
+            verifier.verify_adjacent(chain[i - 1], chain[i], vset, period, now, drift, device=dev)
+        secs = time.perf_counter() - t
+        d = delta(before)
+        check(d == per_walk, f"light walk launches {d}, expected {per_walk}")
+        return secs
+
+    precompute.reset()
+    builds = precompute.tables.builds
+    cold_s = walk()
+    cold_builds = precompute.tables.builds - builds
+    check(cold_builds == step_lanes, f"light warm-up built {cold_builds} tables")
+    reps = [walk() for _ in range(LIGHT_REPS)]
+    check(precompute.tables.builds - builds == step_lanes, "table builds in the steady walks")
+    profile = host_profile(walk)
+    # Header 1 to header 16: the trusting pass (1/3 of the trusted set,
+    # looked up by address) and the +2/3 pass of the new set.
+    precompute.results.clear()
+    before = launches()
+    t = time.perf_counter()
+    verifier.verify(chain[0], vset, chain[-1], vset, period, now, drift, device=dev)
+    skip_s = time.perf_counter() - t
+    skip_launches = delta(before)
+    # The +2/3 pass finds the trusting pass's lanes in the verdict cache;
+    # the rest have one sign-bytes length, so K4 hashes them.
+    check(skip_launches == {"verify_resident": 2, "challenge": 1},
+          f"non-adjacent verify launches {skip_launches}")
+
+    def outcome(fn, *args, **kwargs):
+        precompute.results.clear()
+        try:
+            fn(*args, **kwargs, device=dev)
+        except (verifier.InvalidHeaderError, verifier.HeaderExpiredError) as exc:
+            return type(exc).__name__, str(exc)
+        return "ok", ""
+
+    bad = copy.deepcopy(chain[LIGHT_BAD_HEADER])
+    cs = bad.commit.signatures[LIGHT_BAD_INDEX]
+    cs.signature = cs.signature[:40] + bytes([cs.signature[40] ^ 1]) + cs.signature[41:]
+    unlinked = copy.deepcopy(chain[2])
+    unlinked.header.next_validators_hash = hashlib.sha256(b"another set").digest()
+    outcomes = {
+        "tampered_signature": outcome(verifier.verify_adjacent, chain[LIGHT_BAD_HEADER - 1], bad,
+                                      vset, period, now, drift),
+        "expired": outcome(verifier.verify_adjacent, chain[0], chain[1], vset, 1.0, now, drift),
+        "broken_next_validators_link": outcome(verifier.verify_adjacent, unlinked, chain[3], vset,
+                                               period, now, drift),
+    }
+    check(outcomes["tampered_signature"][0] == "InvalidHeaderError"
+          and f"(#{LIGHT_BAD_INDEX})" in outcomes["tampered_signature"][1],
+          f"tampered header: {outcomes['tampered_signature']}")
+    check(outcomes["expired"][0] == "HeaderExpiredError", f"expired header: {outcomes['expired']}")
+    check(outcomes["broken_next_validators_link"] == (
+        "InvalidHeaderError", "expected old header's next validators to match those from new header"),
+        f"broken link: {outcomes['broken_next_validators_link']}")
+    counts = launches()
+    walk_p50 = statistics.median(reps)
+    emit({"phase": "light_client", "headers": LIGHT_HEADERS, "validators": LIGHT_VALIDATORS,
+          "lanes_per_step": step_lanes, "chunks_per_step": chunk_sizes(step_lanes),
+          "launches_per_walk": per_walk, "cold_walk_ms": cold_s * 1e3,
+          "table_builds_cold": cold_builds, "walk_ms": [r * 1e3 for r in reps],
+          "walk_p50_ms": walk_p50 * 1e3, "step_p50_ms": walk_p50 * 1e3 / (LIGHT_HEADERS - 1),
+          "light_client_headers_per_s_v1000": (LIGHT_HEADERS - 1) / walk_p50,
+          "non_adjacent_1_to_16_ms": skip_s * 1e3, "non_adjacent_launches": skip_launches,
+          "outcomes": {k: v[0] for k, v in outcomes.items()}, "launches": counts,
+          "store": resident.stats(), "host_profile": profile})
+    precompute.reset()
+    return counts
+
+
 # --- phase 6 -------------------------------------------------------------------
 
 
@@ -1329,9 +1604,13 @@ def main() -> int:
         commit = commit_workload(rng, signer)
         sr_lanes = sr_fault_lanes(rng, signer)
         mixed = mixed_commit_workload(rng, signer)
+        sync = chain_workload(rng, signer, SYNC_BLOCKS, SYNC_VALIDATORS)
+        mixed_sync = chain_workload(rng, signer, MIXED_SYNC_BLOCKS, MIXED_SYNC_VALIDATORS, mixed=True)
+        light = chain_workload(rng, signer, LIGHT_HEADERS, LIGHT_VALIDATORS)
     emit({"phase": "setup", "seconds": time.perf_counter() - t0, "workers": workers,
           "signatures": 2 * KERNEL_LANES + BATCH_LANES + len(COMMIT_HEIGHTS) * COMMIT_VALIDATORS
-          + MIXED_VALIDATORS})
+          + MIXED_VALIDATORS + SYNC_BLOCKS * SYNC_VALIDATORS
+          + MIXED_SYNC_BLOCKS * MIXED_SYNC_VALIDATORS + LIGHT_HEADERS * LIGHT_VALIDATORS})
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi("name,power.limit")
@@ -1355,6 +1634,14 @@ def main() -> int:
     cuda_hash.reset_launches()
     mixed_counts = phase_mixed_commit(mixed, dev)
     health["phase_5"] = check_healthy("phase 5")
+    cuda_verify.reset_launches()  # the blocksync path starts here
+    cuda_hash.reset_launches()
+    sync_counts = phase_blocksync(sync, mixed_sync, dev)
+    health["phase_7"] = check_healthy("phase 7")
+    cuda_verify.reset_launches()  # the light client's path starts here
+    cuda_hash.reset_launches()
+    light_counts = phase_light(light, dev)
+    health["phase_8"] = check_healthy("phase 8")
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
     for name, row in rows.items():
@@ -1362,6 +1649,8 @@ def main() -> int:
         check(n > 0, f"kernel {name} never launched on the main path")
         row["launches"] = n
         row["launches_mixed_commit"] = mixed_counts[name]
+        row["launches_blocksync"] = sync_counts[name]
+        row["launches_light_client"] = light_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

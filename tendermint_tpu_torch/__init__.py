@@ -13,7 +13,9 @@ PyTorch version that runs for CPU tensors. Both signature engines
 Entry points (``ops.verify_batch``, ``ops.sr25519_batch.verify_batch_sr``,
 ``crypto.batch.Ed25519BatchVerifier`` and ``MultiBatchVerifier``,
 ``crypto.sr25519.Sr25519BatchVerifier``,
-``types.validation.verify_commit``) take ``device=``. Without it they use
+``types.validation.verify_commit`` and its light variants,
+``parallel.pipeline.verify_commits_pipelined``, and the
+``light.verifier`` entry points) take ``device=``. Without it they use
 :data:`DEFAULT_DEVICE`, which is ``"cuda"``: where CUDA is absent they
 raise rather than run on the CPU. Tests set ``DEFAULT_DEVICE = "cpu"``.
 """

@@ -3,9 +3,10 @@
 The ed25519 and sr25519 part of ``tendermint_tpu/crypto/keys.py``
 (reference crypto/crypto.go:38-76): ``PubKey`` (address, bytes, verify),
 private keys (sign, pub_key) and 20-byte addresses, SHA256(pubkey)[:20]
-(crypto/crypto.go:27 AddressHash). Ed25519 verification follows ZIP-215
-through the host oracle and signing RFC 8032; the sr25519 keys live in
-:mod:`tendermint_tpu_torch.crypto.sr25519`.
+(crypto/crypto.go:27 AddressHash), and the proto encoding of a public
+key that the validator-set hash reads. Ed25519 verification follows
+ZIP-215 through the host oracle and signing RFC 8032; the sr25519 keys
+live in :mod:`tendermint_tpu_torch.crypto.sr25519`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import hashlib
 from abc import ABC, abstractmethod
 
 from tendermint_tpu_torch.crypto import ed25519_ref
+from tendermint_tpu_torch.encoding.proto import encode_bytes_field
 
 ADDRESS_LEN = 20
 
@@ -108,3 +110,14 @@ class Ed25519PrivKey:
     def type(self) -> str:
         return ED25519_KEY_TYPE
 
+
+
+def pubkey_to_proto(pub: PubKey) -> bytes:
+    """tendermint.crypto.PublicKey: oneof {ed25519=1, secp256k1=2, sr25519=3}
+    (crypto/encoding/codec.go). The port has no secp256k1 key, so field 2
+    is never written."""
+    if pub.type == ED25519_KEY_TYPE:
+        return encode_bytes_field(1, pub.bytes())
+    if pub.type == SR25519_KEY_TYPE:
+        return encode_bytes_field(3, pub.bytes())
+    raise ValueError(f"unknown key type {pub.type}")

@@ -36,6 +36,9 @@ class Timestamp(NamedTuple):
     def from_unix_ns(cls, ns: int) -> "Timestamp":
         return cls(ns // 1_000_000_000, ns % 1_000_000_000)
 
+    def to_unix_ns(self) -> int:
+        return self.seconds * 1_000_000_000 + self.nanos
+
 
 def encode_canonical_part_set_header(total: int, hash_: bytes) -> bytes:
     return encode_varint_field(1, total) + encode_bytes_field(2, hash_)

@@ -1,2 +1,3 @@
-"""Commit types and commit verification; counterpart of
-:mod:`tendermint_tpu.types`, reduced to what ``verify_commit`` reads."""
+"""Commit and header types and commit verification; counterpart of
+:mod:`tendermint_tpu.types`, reduced to what ``verify_commit``, the
+blocksync pipeline and the light-client verifier read."""

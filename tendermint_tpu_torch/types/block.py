@@ -1,8 +1,13 @@
-"""Commit types: PartSetHeader, BlockID, CommitSig, Commit.
+"""Block types: Consensus, PartSetHeader, BlockID, CommitSig, Commit and
+Header.
 
 The part of ``tendermint_tpu/types/block.py`` (types/block.go) that
-commit verification reads: the block-ID flags, the commit signatures
-and ``Commit.vote_sign_bytes``.
+commit verification and the light client read: the block-ID flags, the
+commit signatures and ``Commit.vote_sign_bytes``, the ``validate_basic``
+checks, the proto encodings the hashes read, and ``Header.hash``. Wire
+encoding is gogoproto-compatible (ascending fields, proto3 zero
+omission, non-nullable embedded messages always written), so hashes are
+byte-exact with the reference.
 """
 
 from __future__ import annotations
@@ -10,11 +15,22 @@ from __future__ import annotations
 from dataclasses import dataclass, field as dc_field
 from typing import List
 
+from tendermint_tpu_torch.crypto import merkle
+from tendermint_tpu_torch.crypto.keys import ADDRESS_LEN
 from tendermint_tpu_torch.encoding.canonical import (
     SIGNED_MSG_TYPE_PRECOMMIT,
     Timestamp,
     vote_sign_bytes,
 )
+from tendermint_tpu_torch.encoding.proto import (
+    encode_bytes_field,
+    encode_message_field,
+    encode_varint_field,
+)
+
+HASH_SIZE = 32
+MAX_CHAIN_ID_LEN = 50
+MAX_SIGNATURE_SIZE = 64  # ed25519/sr25519
 
 # Go's time.Time{} (January 1, year 1 UTC) in Unix seconds.
 GO_ZERO_TIME = Timestamp(-62135596800, 0)
@@ -24,21 +40,80 @@ BLOCK_ID_FLAG_ABSENT = 1
 BLOCK_ID_FLAG_COMMIT = 2
 BLOCK_ID_FLAG_NIL = 3
 
+BLOCK_PROTOCOL = 11  # version/version.go BlockProtocol
+
+
+def is_zero_time(ts: Timestamp) -> bool:
+    return ts == GO_ZERO_TIME or ts == Timestamp(0, 0)
+
+
+def validate_hash(h: bytes) -> None:
+    """types/validation.go ValidateHash: empty or exactly 32 bytes."""
+    if h and len(h) != HASH_SIZE:
+        raise ValueError(f"expected hash size {HASH_SIZE}, got {len(h)}")
+
+
+def cdc_encode_bytes(b: bytes) -> bytes:
+    """gogotypes.BytesValue wrapper (types/encoding_helper.go:11)."""
+    return encode_bytes_field(1, b)
+
+
+def cdc_encode_string(s: str) -> bytes:
+    return encode_bytes_field(1, s.encode("utf-8"))
+
+
+def cdc_encode_int64(n: int) -> bytes:
+    return encode_varint_field(1, n)
+
+
+@dataclass(frozen=True)
+class Consensus:
+    """tendermint.version.Consensus {block=1, app=2}."""
+
+    block: int = BLOCK_PROTOCOL
+    app: int = 0
+
+    def to_proto_bytes(self) -> bytes:
+        return encode_varint_field(1, self.block) + encode_varint_field(2, self.app)
+
 
 @dataclass(frozen=True)
 class PartSetHeader:
-    """types/part_set.go PartSetHeader {total, hash}."""
+    """types/part_set.go PartSetHeader {total=1 uint32, hash=2 bytes}."""
 
     total: int = 0
     hash: bytes = b""
 
+    def is_zero(self) -> bool:
+        return self.total == 0 and not self.hash
+
+    def validate_basic(self) -> None:
+        if self.total < 0:
+            raise ValueError("negative Total")
+        validate_hash(self.hash)
+
+    def to_proto_bytes(self) -> bytes:
+        return encode_varint_field(1, self.total) + encode_bytes_field(2, self.hash)
+
 
 @dataclass(frozen=True)
 class BlockID:
-    """types/block.go BlockID {hash, part_set_header}."""
+    """types/block.go BlockID {hash=1, part_set_header=2 non-nullable}."""
 
     hash: bytes = b""
     part_set_header: PartSetHeader = dc_field(default_factory=PartSetHeader)
+
+    def is_nil(self) -> bool:
+        return not self.hash and self.part_set_header.is_zero()
+
+    def validate_basic(self) -> None:
+        validate_hash(self.hash)
+        self.part_set_header.validate_basic()
+
+    def to_proto_bytes(self) -> bytes:
+        return encode_bytes_field(1, self.hash) + encode_message_field(
+            2, self.part_set_header.to_proto_bytes()
+        )
 
 
 NIL_BLOCK_ID = BlockID()
@@ -65,6 +140,35 @@ class CommitSig:
             return NIL_BLOCK_ID
         raise ValueError(f"unknown BlockIDFlag: {self.block_id_flag}")
 
+    def validate_basic(self) -> None:
+        if self.block_id_flag not in (BLOCK_ID_FLAG_ABSENT, BLOCK_ID_FLAG_COMMIT, BLOCK_ID_FLAG_NIL):
+            raise ValueError(f"unknown BlockIDFlag: {self.block_id_flag}")
+        if self.block_id_flag == BLOCK_ID_FLAG_ABSENT:
+            if self.validator_address:
+                raise ValueError("validator address is present for absent CommitSig")
+            if not is_zero_time(self.timestamp):
+                raise ValueError("time is present for absent CommitSig")
+            if self.signature:
+                raise ValueError("signature is present for absent CommitSig")
+        else:
+            if len(self.validator_address) != ADDRESS_LEN:
+                raise ValueError(
+                    f"expected ValidatorAddress size {ADDRESS_LEN}, got "
+                    f"{len(self.validator_address)}"
+                )
+            if not self.signature:
+                raise ValueError("signature is missing")
+            if len(self.signature) > MAX_SIGNATURE_SIZE:
+                raise ValueError("signature is too big")
+
+    def to_proto_bytes(self) -> bytes:
+        return (
+            encode_varint_field(1, self.block_id_flag)
+            + encode_bytes_field(2, self.validator_address)
+            + encode_message_field(3, self.timestamp.encode())
+            + encode_bytes_field(4, self.signature)
+        )
+
 
 @dataclass
 class Commit:
@@ -89,3 +193,99 @@ class Commit:
             bid.part_set_header.hash,
             cs.timestamp,
         )
+
+    def validate_basic(self) -> None:
+        if self.height < 0:
+            raise ValueError("negative Height")
+        if self.round < 0:
+            raise ValueError("negative Round")
+        if self.height >= 1:
+            if self.block_id.is_nil():
+                raise ValueError("commit cannot be for nil block")
+            if not self.signatures:
+                raise ValueError("no signatures in commit")
+            for i, cs in enumerate(self.signatures):
+                try:
+                    cs.validate_basic()
+                except ValueError as e:
+                    raise ValueError(f"wrong CommitSig #{i}: {e}") from e
+
+    def to_proto_bytes(self) -> bytes:
+        out = encode_varint_field(1, self.height)
+        out += encode_varint_field(2, self.round)
+        out += encode_message_field(3, self.block_id.to_proto_bytes())
+        for cs in self.signatures:
+            out += encode_message_field(4, cs.to_proto_bytes())
+        return out
+
+
+@dataclass
+class Header:
+    """types/block.go:332-358: the fields, their hash and their checks."""
+
+    version: Consensus = dc_field(default_factory=Consensus)
+    chain_id: str = ""
+    height: int = 0
+    time: Timestamp = GO_ZERO_TIME
+    last_block_id: BlockID = dc_field(default_factory=BlockID)
+    last_commit_hash: bytes = b""
+    data_hash: bytes = b""
+    validators_hash: bytes = b""
+    next_validators_hash: bytes = b""
+    consensus_hash: bytes = b""
+    app_hash: bytes = b""
+    last_results_hash: bytes = b""
+    evidence_hash: bytes = b""
+    proposer_address: bytes = b""
+
+    def hash(self) -> bytes:
+        """Merkle tree over the 14 encoded fields (types/block.go:447-490);
+        empty while the header has no validators hash."""
+        if not self.validators_hash:
+            return b""
+        return merkle.hash_from_byte_slices(
+            [
+                self.version.to_proto_bytes(),
+                cdc_encode_string(self.chain_id),
+                cdc_encode_int64(self.height),
+                self.time.encode(),
+                self.last_block_id.to_proto_bytes(),
+                cdc_encode_bytes(self.last_commit_hash),
+                cdc_encode_bytes(self.data_hash),
+                cdc_encode_bytes(self.validators_hash),
+                cdc_encode_bytes(self.next_validators_hash),
+                cdc_encode_bytes(self.consensus_hash),
+                cdc_encode_bytes(self.app_hash),
+                cdc_encode_bytes(self.last_results_hash),
+                cdc_encode_bytes(self.evidence_hash),
+                cdc_encode_bytes(self.proposer_address),
+            ]
+        )
+
+    def validate_basic(self) -> None:
+        if self.version.block != BLOCK_PROTOCOL:
+            raise ValueError(
+                f"block protocol is incorrect: got {self.version.block}, want {BLOCK_PROTOCOL}"
+            )
+        if len(self.chain_id) > MAX_CHAIN_ID_LEN:
+            raise ValueError("chainID is too long")
+        if self.height < 0:
+            raise ValueError("negative Height")
+        if self.height == 0:
+            raise ValueError("zero Height")
+        self.last_block_id.validate_basic()
+        for name in (
+            "last_commit_hash",
+            "data_hash",
+            "evidence_hash",
+            "validators_hash",
+            "next_validators_hash",
+            "consensus_hash",
+            "last_results_hash",
+        ):
+            try:
+                validate_hash(getattr(self, name))
+            except ValueError as e:
+                raise ValueError(f"wrong {name}: {e}") from e
+        if len(self.proposer_address) != ADDRESS_LEN:
+            raise ValueError("invalid ProposerAddress length")

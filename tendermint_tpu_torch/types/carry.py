@@ -1,0 +1,154 @@
+"""Carry chain state into the port's types, and build a header chain.
+
+The port imports nothing of the JAX package, so state made there (a
+validator set, commits, signed headers) comes across by duck typing:
+each function here reads the reference's attribute names
+(``validators``, ``pub_key.type``, ``pub_key.bytes()``, ``signatures``,
+``block_id.part_set_header`` ...) of any object and builds the port's
+type. Tests build one chain with the JAX package's types, carry it over,
+and feed the same chain to both packages.
+
+:func:`build_header_chain` is the port-side twin of the benchmark's
+fixture (``bench/workload.py`` ``build_header_chain``): a signed-header
+chain under one validator set, the shape of
+light/client_benchmark_test.go's fixture.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Callable, List, Optional, Sequence, Tuple
+
+from tendermint_tpu_torch.crypto.keys import ED25519_KEY_TYPE, SR25519_KEY_TYPE, Ed25519PubKey, PubKey
+from tendermint_tpu_torch.encoding.canonical import Timestamp
+from tendermint_tpu_torch.types.block import (
+    BLOCK_ID_FLAG_COMMIT,
+    BlockID,
+    Commit,
+    CommitSig,
+    Consensus,
+    Header,
+    PartSetHeader,
+)
+from tendermint_tpu_torch.types.light import SignedHeader
+from tendermint_tpu_torch.types.validator import Validator
+from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+CHAIN_ID = "test-chain"  # the chain id of the reference's test helpers
+BASE_NS = 1_700_000_000_000_000_000  # the fixture's genesis time
+
+
+def pub_key(obj) -> PubKey:
+    """A public key of type ``obj.type`` with bytes ``obj.bytes()``."""
+    if obj.type == ED25519_KEY_TYPE:
+        return Ed25519PubKey(obj.bytes())
+    if obj.type == SR25519_KEY_TYPE:
+        from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
+
+        return Sr25519PubKey(obj.bytes())
+    raise ValueError(f"unknown key type {obj.type}")
+
+
+def timestamp(obj) -> Timestamp:
+    return Timestamp(obj.seconds, obj.nanos)
+
+
+def block_id(obj) -> BlockID:
+    psh = obj.part_set_header
+    return BlockID(bytes(obj.hash), PartSetHeader(psh.total, bytes(psh.hash)))
+
+
+def validator_set(obj) -> ValidatorSet:
+    return ValidatorSet(
+        [Validator(pub_key(v.pub_key), v.voting_power, bytes(v.address)) for v in obj.validators]
+    )
+
+
+def commit(obj) -> Commit:
+    return Commit(
+        height=obj.height,
+        round=obj.round,
+        block_id=block_id(obj.block_id),
+        signatures=[
+            CommitSig(cs.block_id_flag, bytes(cs.validator_address), timestamp(cs.timestamp),
+                      bytes(cs.signature))
+            for cs in obj.signatures
+        ],
+    )
+
+
+def header(obj) -> Header:
+    return Header(
+        version=Consensus(obj.version.block, obj.version.app),
+        chain_id=obj.chain_id,
+        height=obj.height,
+        time=timestamp(obj.time),
+        last_block_id=block_id(obj.last_block_id),
+        **{name: bytes(getattr(obj, name)) for name in (
+            "last_commit_hash", "data_hash", "validators_hash", "next_validators_hash",
+            "consensus_hash", "app_hash", "last_results_hash", "evidence_hash",
+            "proposer_address",
+        )},
+    )
+
+
+def signed_header(obj) -> SignedHeader:
+    return SignedHeader(
+        header=None if obj.header is None else header(obj.header),
+        commit=None if obj.commit is None else commit(obj.commit),
+    )
+
+
+def build_header_chain(
+    n_heights: int,
+    keys: Sequence[Tuple[object, PubKey]],
+    sign_many: Optional[Callable[[List[object], List[bytes]], List[bytes]]] = None,
+    chain_id: str = CHAIN_ID,
+    power: int = 10,
+) -> Tuple[List[SignedHeader], ValidatorSet, str]:
+    """``n_heights`` signed headers under one set of ``keys``
+    (``(secret, public key)`` pairs, each of power ``power``), every
+    validator signing every height; the fields and times of
+    ``bench/workload.py``'s ``build_header_chain``.
+
+    ``sign_many(secrets, messages)`` signs in bulk (a process pool, for
+    a large chain); by default each secret's ``sign``. Every signature of
+    the chain is made in one call. Returns (chain, set, chain id).
+    """
+    vset = ValidatorSet([Validator(pub, power) for _, pub in keys])
+    secret_of = {pub.address(): secret for secret, pub in keys}
+    secrets = [secret_of[v.address] for v in vset.validators]
+    vals_hash = vset.hash()
+    chain: List[SignedHeader] = []
+    last_bid = BlockID()
+    for h in range(1, n_heights + 1):
+        time_ns = BASE_NS + h * 1_000_000_000
+        hdr = Header(
+            version=Consensus(block=11),
+            chain_id=chain_id,
+            height=h,
+            time=Timestamp.from_unix_ns(time_ns),
+            last_block_id=last_bid,
+            last_commit_hash=hashlib.sha256(b"lc%d" % h).digest(),
+            data_hash=hashlib.sha256(b"d%d" % h).digest(),
+            validators_hash=vals_hash,
+            next_validators_hash=vals_hash,
+            consensus_hash=hashlib.sha256(b"cp").digest(),
+            app_hash=hashlib.sha256(b"app%d" % h).digest(),
+            proposer_address=vset.validators[0].address,
+        )
+        bid = BlockID(hdr.hash(), PartSetHeader(1, hashlib.sha256(b"p%d" % h).digest()))
+        cmt = Commit(height=h, round=0, block_id=bid, signatures=[
+            CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, Timestamp.from_unix_ns(time_ns + i), b"")
+            for i, v in enumerate(vset.validators)
+        ])
+        chain.append(SignedHeader(header=hdr, commit=cmt))
+        last_bid = bid
+    msgs = [sh.commit.vote_sign_bytes(chain_id, i) for sh in chain for i in range(len(vset))]
+    if sign_many is None:
+        sigs = [s.sign(m) for s, m in zip(secrets * n_heights, msgs)]
+    else:
+        sigs = sign_many(secrets * n_heights, msgs)
+    for j, sig in enumerate(sigs):
+        chain[j // len(vset)].commit.signatures[j % len(vset)].signature = sig
+    return chain, vset, chain_id

@@ -4,7 +4,10 @@ Mirrors ``tendermint_tpu/types/validation.py`` (types/validation.go):
 ignore/count predicates per entry point, tally-then-verify, batch
 dispatch above a threshold with single-verify fallback, and
 first-bad-signature attribution on batch failure
-(validation.go:244-251). The batch goes to
+(validation.go:244-251). ``verify_commit`` and ``verify_commit_light``
+look signatures up by index; ``verify_commit_light_trusting``, which
+checks a commit against another height's set, looks them up by address
+and rejects a double vote. The batch goes to
 :class:`~tendermint_tpu_torch.crypto.batch.MultiBatchVerifier`, one
 sub-batch per key type (ed25519, sr25519), so one commit is verified by
 the CUDA kernels in a few chunked launches; a key type without batch
@@ -13,7 +16,7 @@ support sends the commit to single verification.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 from tendermint_tpu_torch import resolve_device
 from tendermint_tpu_torch.crypto import batch as crypto_batch
@@ -27,6 +30,22 @@ from tendermint_tpu_torch.types.block import (
 from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
 BATCH_VERIFY_THRESHOLD = 2  # validation.go:12
+INT64_MAX = 2**63 - 1
+
+
+class Fraction(NamedTuple):
+    """libs/math Fraction: unsigned numerator/denominator."""
+
+    numerator: int
+    denominator: int
+
+
+def _safe_mul(a: int, b: int) -> tuple:
+    """libs/math SafeMul: (result, overflowed) for int64."""
+    r = a * b
+    if r > INT64_MAX or r < -(2**63):
+        return 0, True
+    return r, False
 
 
 class NotEnoughVotingPowerError(Exception):
@@ -64,7 +83,7 @@ def verify_commit(
     ignore = lambda c: c.block_id_flag == BLOCK_ID_FLAG_ABSENT
     count = lambda c: c.block_id_flag == BLOCK_ID_FLAG_COMMIT
     verify = _verify_commit_batch if _should_batch_verify(vals, commit) else _verify_commit_single
-    verify(chain_id, vals, commit, needed, ignore, count, True, dev)
+    verify(chain_id, vals, commit, needed, ignore, count, True, True, dev)
 
 
 def verify_commit_light(
@@ -82,7 +101,50 @@ def verify_commit_light(
     ignore = lambda c: c.block_id_flag != BLOCK_ID_FLAG_COMMIT
     count = lambda c: True
     verify = _verify_commit_batch if _should_batch_verify(vals, commit) else _verify_commit_single
-    verify(chain_id, vals, commit, needed, ignore, count, False, dev)
+    verify(chain_id, vals, commit, needed, ignore, count, False, True, dev)
+
+
+def verify_commit_light_trusting(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    trust_level: Fraction,
+    device=None,
+) -> None:
+    """validation.go:89-135: ``trust_level`` of a different set signed;
+    signatures are looked up by address and a double vote is an error."""
+    dev = resolve_device(device)
+    if vals is None:
+        raise InvalidCommitError("nil validator set")
+    if trust_level.denominator == 0:
+        raise InvalidCommitError("trustLevel has zero Denominator")
+    if commit is None:
+        raise InvalidCommitError("nil commit")
+    total_mul, overflow = _safe_mul(vals.total_voting_power(), trust_level.numerator)
+    if overflow:
+        raise InvalidCommitError("int64 overflow while calculating voting power needed")
+    needed = total_mul // trust_level.denominator
+    ignore = lambda c: c.block_id_flag != BLOCK_ID_FLAG_COMMIT
+    count = lambda c: True
+    verify = _verify_commit_batch if _should_batch_verify(vals, commit) else _verify_commit_single
+    verify(chain_id, vals, commit, needed, ignore, count, False, False, dev)
+
+
+def _lookup(vals: ValidatorSet, commit_sig: CommitSig, idx: int, look_up_by_index: bool, seen: dict):
+    """The validator of signature ``idx``: by index, or by address
+    (None for a validator not in ``vals``; a second signature of one
+    validator raises), validation.go:188-200."""
+    if look_up_by_index:
+        return vals.validators[idx]
+    val_idx, val = vals.get_by_address(commit_sig.validator_address)
+    if val is None:
+        return None
+    if val_idx in seen:
+        raise InvalidCommitError(
+            f"double vote from validator {val_idx} ({seen[val_idx]} and {idx})"
+        )
+    seen[val_idx] = idx
+    return val
 
 
 def _verify_commit_batch(
@@ -93,14 +155,16 @@ def _verify_commit_batch(
     ignore_sig: Callable[[CommitSig], bool],
     count_sig: Callable[[CommitSig], bool],
     count_all_signatures: bool,
+    look_up_by_index: bool,
     device,
 ) -> None:
-    """validation.go:151-258, signatures looked up by index.
+    """validation.go:151-258.
 
     As in the JAX package, a mixed ed25519 + sr25519 commit sub-batches
     per key type instead of failing the reference's single-type
     verifier."""
     tallied = 0
+    seen = {}
     batch_sig_idxs = []
     # Make this set's keys eligible for the precompute cache: the next
     # commit from the same validators skips its table builds.
@@ -111,13 +175,15 @@ def _verify_commit_batch(
     for idx, commit_sig in enumerate(commit.signatures):
         if ignore_sig(commit_sig):
             continue
-        val = vals.validators[idx]
+        val = _lookup(vals, commit_sig, idx, look_up_by_index, seen)
+        if val is None:
+            continue
         try:
             bv.add(val.pub_key, commit.vote_sign_bytes(chain_id, idx), commit_sig.signature)
         except ValueError:
             return _verify_commit_single(
                 chain_id, vals, commit, voting_power_needed, ignore_sig,
-                count_sig, count_all_signatures, device,
+                count_sig, count_all_signatures, look_up_by_index, device,
             )
         batch_sig_idxs.append(idx)
         if count_sig(commit_sig):
@@ -147,14 +213,18 @@ def _verify_commit_single(
     ignore_sig: Callable[[CommitSig], bool],
     count_sig: Callable[[CommitSig], bool],
     count_all_signatures: bool,
+    look_up_by_index: bool,
     device,
 ) -> None:
     """validation.go:262-330: one host verification per signature."""
     tallied = 0
+    seen = {}
     for idx, commit_sig in enumerate(commit.signatures):
         if ignore_sig(commit_sig):
             continue
-        val = vals.validators[idx]
+        val = _lookup(vals, commit_sig, idx, look_up_by_index, seen)
+        if val is None:
+            continue
         vote_sign_bytes = commit.vote_sign_bytes(chain_id, idx)
         if not val.pub_key.verify_signature(vote_sign_bytes, commit_sig.signature):
             raise InvalidCommitError(

@@ -1,5 +1,5 @@
 """ValidatorSet: the subset of ``tendermint_tpu/types/validator_set.py``
-that commit verification uses.
+that commit verification and the light client use.
 
 Validators are kept in the canonical order (voting power descending,
 address ascending; types/validator.go:745-760), so a commit's signature
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+from tendermint_tpu_torch.crypto import merkle
 from tendermint_tpu_torch.types.validator import Validator
 
 INT64_MAX = 2**63 - 1
@@ -38,6 +39,17 @@ class ValidatorSet:
 
     def total_voting_power(self) -> int:
         return self._total_voting_power
+
+    def hash(self) -> bytes:
+        """Merkle root of SimpleValidator leaves (validator_set.go:344-350)."""
+        return merkle.hash_from_byte_slices([v.bytes() for v in self.validators])
+
+    def validate_basic(self) -> None:
+        if not self.validators:
+            raise ValueError("validator set is nil or empty")
+        for v in self.validators:
+            v.validate_basic()
+        self.get_proposer().validate_basic()
 
     def get_by_address(self, address: bytes) -> Tuple[int, Optional[Validator]]:
         for i, v in enumerate(self.validators):

@@ -482,3 +482,50 @@ def test_reset_keeps_the_host_fallback_setting():
     assert h.host_fallback and h.state == HEALTHY and h.transitions == []
     with pytest.raises(device_policy.DeviceRefused):
         DeviceHealth().refuse("sr25519", 3)
+
+
+def _observer_fails_gather(monkeypatch, pks):
+    """A table cache of two columns over an activated set of ``pks``, and
+    an observer (as the resident store is one) that raises on the
+    eviction the third table build causes inside ``tables.gather``."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    def observer(kind, payload):
+        if kind == "evict":
+            raise RuntimeError("observer failed on evict")
+
+    monkeypatch.setattr(tpc, "_observers", [observer])
+    monkeypatch.setattr(tpc, "tables", tpc.PrecomputeCache(cap=2))
+    tpc.tables.activate_validator_set(ValidatorSet([Validator(Ed25519PubKey(pk), 10) for pk in pks]))
+
+
+def test_a_table_gather_error_propagates_and_releases_the_probe(monkeypatch, ed_lanes):
+    """Deliberate divergence: the reference swallows an error of
+    ``precompute.tables.gather`` and sends every lane to the legacy
+    kernel (``tendermint_tpu/ops/ed25519_batch.py:1121-1124``); the port
+    re-raises it out of ``verify_batch``, counts no device failure and
+    answers nothing on the host. A probe slot the batch held is given
+    back (``_verify_uncached``'s ``release_probe``)."""
+    _observer_fails_gather(monkeypatch, ed_lanes[0])
+    clk = FakeClock()
+    h = DeviceHealth(retry_budget=1, cooldown_base=1.0, clock=clk)
+    monkeypatch.setattr(device_policy, "shared", h)
+    with pytest.raises(RuntimeError, match="observer failed on evict"):
+        _ed(ed_lanes)
+    snap = h.snapshot()
+    assert snap["state"] == HEALTHY and snap["failures"] == {TRANSIENT: 0, PERMANENT: 0}
+    assert snap["fallback_lanes"] == {"ed25519": 0, "sr25519": 0}
+    # As the half-open probe: the error still escapes, and the slot is
+    # free for the next caller.
+    h.record_failure(RuntimeError("boom"), h.begin_attempt())
+    clk.advance(1.5)
+    assert h.snapshot()["probe_inflight"] is False
+    _observer_fails_gather(monkeypatch, ed_lanes[0])  # a fresh cache: the builds again
+    with pytest.raises(RuntimeError, match="observer failed on evict"):
+        _ed(ed_lanes)
+    assert h.snapshot()["probe_inflight"] is False and h.state == COOLDOWN
+    probe = h.begin_attempt()
+    assert probe is not None and probe.probe
+    assert h.snapshot()["fallback_lanes"] == {"ed25519": 0, "sr25519": 0}

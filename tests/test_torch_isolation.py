@@ -233,3 +233,24 @@ def test_k5_wrapper_raises_a_typed_error_instead_of_falling_back(monkeypatch):
         cuda_verify._launch("sr25519_verify_launch", "verify_sr", (rows,) * 4, 4, torch.device("cpu"))
     assert info.value.code == 700 and info.value.permanent
     assert cuda_verify.LAUNCHES["verify_sr"] == before
+
+
+def test_the_light_and_blocksync_modules_are_checked_and_default_to_cuda(no_cuda):
+    """The modules of the light client and the blocksync pipeline stand
+    alone too, and their entry points raise without CUDA."""
+    from tendermint_tpu_torch.light import verifier as tver
+    from tendermint_tpu_torch.parallel import pipeline as tpipe
+    from tendermint_tpu_torch.types.validation import Fraction
+
+    mods = _port_modules()
+    for mod in ("crypto.merkle", "light.verifier", "parallel.pipeline", "types.light",
+                "types.carry"):
+        assert f"tendermint_tpu_torch.{mod}" in mods
+    with pytest.raises(RuntimeError, match="cuda"):
+        tval.verify_commit_light_trusting("c", None, None, Fraction(1, 3))
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpipe.verify_commits_pipelined([])
+    for entry, n_args in ((tver.verify_adjacent, 6), (tver.verify_non_adjacent, 7)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry(*[None] * n_args)
+    assert tpipe.verify_commits_pipelined([], device="cpu") == []
