@@ -60,6 +60,29 @@ and, in order:
    time budget at the Merlin rate measured there), the Merlin share of
    the host time, a host profile, and a copy with one bad sr25519
    signature, which must be rejected at its index;
+7. blocksync: a 32-block window under 500 validators through
+   ``verify_commits_pipelined`` (K3), every verdict checked, then a small
+   mixed window (K5);
+8. the light client: ``verify_adjacent`` walks over 16 headers under
+   1,000 validators, one non-adjacent ``verify``, and a tampered, an
+   expired and an unlinked header;
+9. vote ingest through ``VotePreverifier``, the shared scheduler (its
+   defaults) and a ``VoteSet``: after verifying height 2's commit (so the
+   node holds the 10,000-validator set's tables), 9a delivers height 3's
+   10,000 precommits from 4 peer threads, each in its own seeded order
+   and held back while the pre-verifier's queue is over half full, with
+   3 bad signatures that must be forwarded untagged and rejected; 9b a
+   150-validator round with vote extensions, each step's arrivals spread
+   over 100 ms. Each part's warm-up must launch a kernel, every valid
+   vote must come tagged and reach its ``VoteSet`` (+2/3 for the block),
+   and no flush may fail or fall back; it prints time to +2/3 and to
+   all, verifier lanes/s, per-vote latency p50/p99, flushes, coalesced
+   and cache-answered lanes, the host and device tiers, and launches;
+10. the light client's bisection round: ``evaluate_candidates`` from
+   header 1 of phase 8's chain to headers 16, 8, 4, 2 and a copy of 8
+   with a bad signature, one ``submit_many`` and one flush; each outcome
+   must equal the sequential verifier's; a cold round and the p50 of 5,
+   beside the p50 of 5 sequential walks over the same candidates;
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -74,10 +97,10 @@ and, in order:
    ``CudaError`` 700 must classify permanent and 2 transient.
 
 Kernel launch counts are reset just before phase 3 and read just after
-phase 4b (K1-K4), and again just before and after phase 5 (K5, and the
-ed25519 kernels of the mixed commit). After phase 4b and after phase 5
-the health machine must show no host fallback, no transition and the
-healthy state. Each phase prints one JSON line; then the kernel table,
+phase 4b (K1-K4), and again around each of phases 5 (K5, and the
+ed25519 kernels of the mixed commit), 7, 8, 9 and 10. After each of
+these the health machine must show no host fallback, no transition and
+the healthy state. Each phase prints one JSON line; then the kernel table,
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA it exits with code 2 and prints no result.
@@ -93,6 +116,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -138,6 +162,23 @@ LIGHT_REPS = 5
 LIGHT_TRUSTING_PERIOD_S = 86400.0
 LIGHT_MAX_CLOCK_DRIFT_S = 10.0
 LIGHT_BAD_HEADER, LIGHT_BAD_INDEX = 5, 100
+# Phase 9, vote ingest. 9a: the precommits of phase 4's 10,000 validators
+# for height 3 (the signatures of its third commit), each delivered by
+# VOTE_PEERS peer threads in their own seeded order, three of them bad.
+# 9b: one round of BASELINE config 2's size, 150 validators with vote
+# extensions on, the arrivals of each step spread over ROUND_SPREAD_S.
+VOTE_PEERS = 4
+VOTE_EXTRA_BAD = 17  # beside BAD_COMMIT_INDEX and COMMIT_VALIDATORS - VOTE_EXTRA_BAD
+VOTE_WAIT_S = 300.0  # the longest a part may take before it fails
+ROUND_VALIDATORS = 150
+ROUND_HEIGHT = 7
+ROUND_SPREAD_S = 0.1
+# Phase 10: phase 8's chain, one evaluate_candidates round from header 1
+# to headers 16, 8, 4 and 2 and a copy of header 8 with one bad signature
+# in the trusting pass.
+LIGHT_ROUND_CANDIDATES = (16, 8, 4, 2)
+LIGHT_ROUND_BAD_INDEX = 200
+LIGHT_ROUND_REPS = 5
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -571,6 +612,49 @@ def chain_workload(rng, signer, n_heights, n_vals, mixed=False):
         return sigs
 
     return carry.build_header_chain(n_heights, keys, sign_many, chain_id=CHAIN_ID)
+
+
+def round_workload(rng, signer):
+    """BASELINE config 2's round: ROUND_VALIDATORS validators, a prevote
+    and a non-nil precommit with a signed vote extension from each, for
+    one block at ROUND_HEIGHT. Returns the set, the block id, the
+    prevotes and the precommits (the port's votes, in validator order)."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.encoding.canonical import (
+        SIGNED_MSG_TYPE_PRECOMMIT,
+        SIGNED_MSG_TYPE_PREVOTE,
+        Timestamp,
+    )
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader, Vote
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    keys = signer.keys(rng, ROUND_VALIDATORS)
+    vset = ValidatorSet([Validator(Ed25519PubKey(pub), 10) for _, pub in keys])
+    priv_by_addr = {Ed25519PubKey(pub).address(): priv for priv, pub in keys}
+    privs = [priv_by_addr[v.address] for v in vset.validators]
+    block_id = BlockID(hashlib.sha256(b"round-block").digest(),
+                       PartSetHeader(1, hashlib.sha256(b"round-parts").digest()))
+    ns = 1_700_000_000_000_000_000 + ROUND_HEIGHT * 10**9
+    votes = {}
+    for t, msg_type in enumerate((SIGNED_MSG_TYPE_PREVOTE, SIGNED_MSG_TYPE_PRECOMMIT)):
+        votes[msg_type] = [
+            Vote(type=msg_type, height=ROUND_HEIGHT, round=0, block_id=block_id,
+                 timestamp=Timestamp.from_unix_ns(ns + t * 10**8 + i), validator_address=v.address,
+                 validator_index=i,
+                 extension=b"oracle-price/%d" % i if msg_type == SIGNED_MSG_TYPE_PRECOMMIT else b"")
+            for i, v in enumerate(vset.validators)
+        ]
+    prevotes, precommits = votes[SIGNED_MSG_TYPE_PREVOTE], votes[SIGNED_MSG_TYPE_PRECOMMIT]
+    msgs = ([v.sign_bytes(CHAIN_ID) for v in prevotes] + [v.sign_bytes(CHAIN_ID) for v in precommits]
+            + [v.extension_sign_bytes(CHAIN_ID) for v in precommits])
+    sigs = signer.sign(privs * 3, msgs)
+    n = ROUND_VALIDATORS
+    for i in range(n):
+        prevotes[i].signature = sigs[i]
+        precommits[i].signature = sigs[n + i]
+        precommits[i].extension_signature = sigs[2 * n + i]
+    return vset, block_id, prevotes, precommits
 
 
 # --- phase 2 -------------------------------------------------------------------
@@ -1467,6 +1551,384 @@ def phase_light(light, dev):
     return counts
 
 
+# --- phase 9 -------------------------------------------------------------------
+
+
+class ConsensusStandIn:
+    """The slice of ``ConsensusState`` that ``VotePreverifier`` reads
+    (``consensus/reactor.py`` ``ConsensusView``): the round state's height
+    and validators, the chain id, and ``add_vote_from_peer``, which adds
+    the vote to the ``VoteSet`` of its type. Records, per delivery, the
+    time from submit to forward, whether the vote came tagged, and what
+    the vote set made of it."""
+
+    def __init__(self, height, vset, vote_sets, bad, want_block):
+        from types import SimpleNamespace
+
+        self.rs = SimpleNamespace(height=height, validators=vset)
+        self.state = SimpleNamespace(chain_id=CHAIN_ID)
+        self.vote_sets = vote_sets  # signed message type -> VoteSet
+        self.bad = bad  # (type, validator index) of the bad votes
+        self.want_block = want_block  # the block every vote set must reach +2/3 for
+        self.lock = threading.Lock()
+        self.sent = {}  # id(vote) -> perf_counter at submit  # guarded-by: lock
+        self.latencies = []
+        self.forwarded = self.added = self.duplicates = 0
+        self.untagged_valid = 0
+        self.bad_outcomes = []  # (index, tagged, error type, message)
+        self.errors = []  # anything else the vote sets raised
+        self.t_quorum = {}  # type -> perf_counter when +2/3 was reached
+        self.t_all = {}  # type -> perf_counter when every valid vote was in
+
+    def submitting(self, vote) -> None:
+        with self.lock:
+            self.sent[id(vote)] = time.perf_counter()
+
+    def add_vote_from_peer(self, vote, peer_id) -> None:
+        from tendermint_tpu_torch.types.block import VoteError
+
+        t = time.perf_counter()
+        tagged = vote._pre_verified is not None
+        vs = self.vote_sets[vote.type]
+        err = None
+        try:
+            added = vs.add_vote(vote)
+        except VoteError as exc:
+            added, err = None, exc
+        except Exception as exc:  # recorded and failed by the phase
+            added, err = None, exc
+        with self.lock:
+            self.latencies.append(t - self.sent.pop(id(vote)))
+            self.forwarded += 1
+            key = (vote.type, vote.validator_index)
+            if key in self.bad:
+                self.bad_outcomes.append((vote.validator_index, tagged, type(err).__name__, str(err)))
+                return
+            if err is not None:
+                self.errors.append(repr(err))
+                return
+            self.untagged_valid += not tagged
+            if added:
+                self.added += 1
+                if vote.type not in self.t_quorum and vs.has_two_thirds_majority():
+                    self.t_quorum[vote.type] = t
+                valid = vs.size() - sum(1 for ty, _ in self.bad if ty == vote.type)
+                if vs.sum == valid * vs.val_set.validators[0].voting_power:
+                    self.t_all[vote.type] = t
+            else:
+                self.duplicates += 1
+
+    def wait_forwarded(self, n, timeout) -> bool:
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            with self.lock:
+                if self.forwarded >= n:
+                    return True
+            time.sleep(0.002)
+        return False
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def ingest_counters():
+    """The counters a vote-ingest run is read by: the shared scheduler's,
+    the verdict cache's, the tiers' and the kernels'."""
+    from tendermint_tpu_torch.crypto import batch as crypto_batch
+    from tendermint_tpu_torch.ops import precompute
+
+    sched = crypto_batch.get_shared_scheduler().stats()
+    return {"sched": sched, "cache": precompute.results.stats(), "tiers": dict(crypto_batch.tier_lanes),
+            "tier_s": dict(crypto_batch.tier_seconds), "launches": launches()}
+
+
+def ingest_delta(before):
+    after = ingest_counters()
+    sched = {k: after["sched"][k] - before["sched"][k] for k in after["sched"] if k != "flush_reasons"}
+    sched["flush_reasons"] = {k: v - before["sched"]["flush_reasons"][k]
+                              for k, v in after["sched"]["flush_reasons"].items()}
+    return {
+        "sched": sched,
+        "cache": {k: after["cache"][k] - before["cache"][k] for k in ("hits", "misses")},
+        "tiers": {k: after["tiers"][k] - before["tiers"][k] for k in after["tiers"]},
+        "tier_s": {k: after["tier_s"][k] - before["tier_s"][k] for k in after["tier_s"]},
+        "launches": {k: v - before["launches"][k] for k, v in after["launches"].items()
+                     if v != before["launches"][k]},
+    }
+
+
+def start_preverifier(cs):
+    """A started, warm pre-verifier over ``cs``; checks that its warm-up
+    kept no error and launched a kernel. Returns it and the warm-up's
+    launches."""
+    from tendermint_tpu_torch.consensus.reactor import VotePreverifier
+
+    before = launches()
+    pv = VotePreverifier(cs)
+    pv.start()
+    warm = pv.wait_warmup(timeout=pv.WARMUP_TIMEOUT + 10)
+    check(pv.warmup_error is None and warm, f"vote pre-verifier warm-up: {pv.warmup_error!r}")
+    warm_launches = delta(before)
+    check(sum(warm_launches.values()) > 0, "the warm-up's flush launched no kernel")
+    return pv, warm_launches
+
+
+def ingest_summary(cs, counts, wall):
+    sched = counts["sched"]
+    lat = cs.latencies
+    return {
+        "deliveries": cs.forwarded, "added": cs.added, "duplicates": cs.duplicates,
+        "latency_p50_ms": percentile(lat, 0.5) * 1e3, "latency_p99_ms": percentile(lat, 0.99) * 1e3,
+        "latency_max_ms": max(lat) * 1e3, "flushes": sched["flushes"],
+        "lanes_submitted": sched["entries_verified"], "coalesced_lanes": sched["entries_coalesced"],
+        "mean_lanes_per_flush": sched["entries_verified"] / max(1, sched["flushes"]),
+        "flush_reasons": sched["flush_reasons"], "flush_errors": sched["flush_errors"],
+        "fallback_flushes": sched["fallback_flushes"],
+        "verdict_cache_answered": counts["cache"]["hits"], "verifier_lanes": counts["cache"]["misses"],
+        "host_tier_lanes": counts["tiers"]["host"], "host_tier_cached": counts["tiers"]["host_cached"],
+        "device_tier_lanes": counts["tiers"]["device"], "host_tier_s": counts["tier_s"]["host"],
+        "device_tier_s": counts["tier_s"]["device"], "launches": counts["launches"],
+        "wall_s": wall,
+    }
+
+
+def check_ingest(part, cs, pv, counts, n_valid_deliveries):
+    sched = counts["sched"]
+    check(not cs.errors, f"{part}: vote set errors {cs.errors[:3]}")
+    check(cs.untagged_valid == 0, f"{part}: {cs.untagged_valid} valid votes forwarded untagged")
+    check(pv.passthrough == len(cs.bad_outcomes),
+          f"{part}: passthrough {pv.passthrough}, bad deliveries {len(cs.bad_outcomes)}")
+    check(pv.batched == n_valid_deliveries, f"{part}: batched {pv.batched} of {n_valid_deliveries}")
+    check(sched["flush_errors"] == 0 and sched["fallback_flushes"] == 0,
+          f"{part}: flush errors {sched['flush_errors']}, fallback flushes {sched['fallback_flushes']}")
+    for vs in cs.vote_sets.values():
+        maj, ok = vs.two_thirds_majority()
+        check(ok and maj == cs.want_block, f"{part}: no +2/3 for the block")
+        valid = [i for i in range(vs.size()) if (vs.signed_msg_type, i) not in cs.bad]
+        check(all(vs.get_by_index(i) is not None for i in valid), f"{part}: a valid vote is missing")
+
+
+def phase_votes(commit_wl, round_wl, dev):
+    """Vote ingest through ``VotePreverifier`` and the shared scheduler
+    into a ``VoteSet``: 9a, the 10,000-validator flood; 9b, one round of
+    150 validators with extensions. Returns the launch counts of both
+    parts (warm-ups included; they start at 0)."""
+    from tendermint_tpu_torch.encoding.canonical import (
+        SIGNED_MSG_TYPE_PRECOMMIT,
+        SIGNED_MSG_TYPE_PREVOTE,
+    )
+    from tendermint_tpu_torch.ops import cuda_hash, cuda_verify, precompute, resident
+    from tendermint_tpu_torch.types.block import Vote
+    from tendermint_tpu_torch.types.validation import verify_commit
+    from tendermint_tpu_torch.types.vote_set import VoteSet
+
+    vset, block_id, commits = commit_wl
+    # A node that verified height 2's commit holds its set's tables.
+    precompute.reset()
+    t = time.perf_counter()
+    verify_commit(CHAIN_ID, vset, block_id, commits[1].height, commits[1], device=dev)
+    hold_s = time.perf_counter() - t
+    check(resident.stats()["resident_keys"] == COMMIT_VALIDATORS, "phase 9: the store does not hold the set")
+    precompute.results.clear()
+    cuda_verify.reset_launches()  # the vote-ingest path starts here
+    cuda_hash.reset_launches()
+
+    # 9a: the flood.
+    commit = commits[2]
+    height = commit.height
+    bad = {BAD_COMMIT_INDEX, VOTE_EXTRA_BAD, COMMIT_VALIDATORS - VOTE_EXTRA_BAD}
+    sigs = [cs.signature for cs in commit.signatures]
+    for i in bad - {BAD_COMMIT_INDEX}:  # commits[2] is already bad at BAD_COMMIT_INDEX
+        sigs[i] = sigs[i][:40] + bytes([sigs[i][40] ^ 1]) + sigs[i][41:]
+
+    def vote(i):
+        cs = commit.signatures[i]
+        return Vote(type=SIGNED_MSG_TYPE_PRECOMMIT, height=height, round=0, block_id=block_id,
+                    timestamp=cs.timestamp, validator_address=cs.validator_address, validator_index=i,
+                    signature=sigs[i])
+
+    order_rng = np.random.default_rng(SEED + 9)
+    deliveries = [[vote(int(i)) for i in order_rng.permutation(COMMIT_VALIDATORS)]
+                  for _ in range(VOTE_PEERS)]
+    vs = VoteSet(CHAIN_ID, height, 0, SIGNED_MSG_TYPE_PRECOMMIT, vset)
+    cs = ConsensusStandIn(height, vset, {SIGNED_MSG_TYPE_PRECOMMIT: vs},
+                          {(SIGNED_MSG_TYPE_PRECOMMIT, i) for i in bad}, block_id)
+    pv, warm_launches = start_preverifier(cs)
+    high_water = pv.QUEUE_MAX // 2
+
+    def peer(k):
+        # A peer connection's receive routine: it blocks while the
+        # pre-verifier holds more than half its queue, as a Go reactor's
+        # receive blocks on a full message queue and TCP holds the peer
+        # back, so no valid vote is pushed to the inline path.
+        for v in deliveries[k]:
+            while pv.queue_depth() > high_water:
+                time.sleep(0.0005)
+            cs.submitting(v)
+            pv.submit(v, f"peer{k}")
+
+    before = ingest_counters()
+    t0 = time.perf_counter()
+    peers = [threading.Thread(target=peer, args=(k,), name=f"peer{k}") for k in range(VOTE_PEERS)]
+    for th in peers:
+        th.start()
+    n = VOTE_PEERS * COMMIT_VALIDATORS
+    done = cs.wait_forwarded(n, VOTE_WAIT_S)
+    wall = time.perf_counter() - t0
+    for th in peers:
+        th.join(timeout=10)
+    pv.stop()
+    check(done, f"9a: {cs.forwarded} of {n} deliveries forwarded in {VOTE_WAIT_S} s")
+    counts = ingest_delta(before)
+    check_ingest("9a", cs, pv, counts, VOTE_PEERS * (COMMIT_VALIDATORS - len(bad)))
+    check(sorted({i for i, *_ in cs.bad_outcomes}) == sorted(bad)
+          and len(cs.bad_outcomes) == VOTE_PEERS * len(bad)
+          and all(not tagged and err == "VoteError" and msg == "invalid signature"
+                  for _, tagged, err, msg in cs.bad_outcomes),
+          f"9a: bad votes {cs.bad_outcomes[:4]}")
+    check("verify_resident" in counts["launches"], f"9a: K3 never launched: {counts['launches']}")
+    flood = ingest_summary(cs, counts, wall)
+    flood.update({
+        "validators": COMMIT_VALIDATORS, "peers": VOTE_PEERS, "bad_votes": sorted(bad),
+        "hold_commit_ms": hold_s * 1e3, "warmup_launches": warm_launches,
+        "to_two_thirds_ms": (cs.t_quorum[SIGNED_MSG_TYPE_PRECOMMIT] - t0) * 1e3,
+        "to_all_ms": (cs.t_all[SIGNED_MSG_TYPE_PRECOMMIT] - t0) * 1e3,
+        "lanes_per_s": counts["cache"]["misses"] / (cs.t_all[SIGNED_MSG_TYPE_PRECOMMIT] - t0),
+        "passthrough": pv.passthrough, "batched": pv.batched,
+    })
+    emit({"phase": "votes_flood", **flood})
+
+    # 9b: one round of 150 validators, extensions on.
+    rvset, rblock, prevotes, precommits = round_wl
+    precompute.activate_validator_set(rvset)
+    precompute.tables.gather([v.pub_key.bytes() for v in rvset.validators])  # a node holds these tables
+    precompute.results.clear()
+    sets = {SIGNED_MSG_TYPE_PREVOTE: VoteSet(CHAIN_ID, ROUND_HEIGHT, 0, SIGNED_MSG_TYPE_PREVOTE, rvset),
+            SIGNED_MSG_TYPE_PRECOMMIT: VoteSet.extended(CHAIN_ID, ROUND_HEIGHT, 0,
+                                                        SIGNED_MSG_TYPE_PRECOMMIT, rvset)}
+    rcs = ConsensusStandIn(ROUND_HEIGHT, rvset, sets, set(), rblock)
+    rpv, rwarm_launches = start_preverifier(rcs)
+    arrival_rng = np.random.default_rng(SEED + 10)
+    before = ingest_counters()
+    t0 = time.perf_counter()
+    step_ms = {}
+    for name, votes in (("prevotes", prevotes), ("precommits", precommits)):
+        # one gossip round-trip: the step's votes arrive uniformly over
+        # ROUND_SPREAD_S, in a seeded order
+        at = np.sort(arrival_rng.uniform(0.0, ROUND_SPREAD_S, len(votes)))
+        order = arrival_rng.permutation(len(votes))
+        start = time.perf_counter()
+        for when, i in zip(at, order):
+            wait = start + when - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            v = copy.copy(votes[int(i)])
+            rcs.submitting(v)
+            rpv.submit(v, "peer0")
+        check(rcs.wait_forwarded(len(votes) * (1 + (name == "precommits")), VOTE_WAIT_S),
+              f"9b: {name} not all forwarded")
+        step_ms[name] = (time.perf_counter() - start) * 1e3
+    wall = time.perf_counter() - t0
+    rpv.stop()
+    counts = ingest_delta(before)
+    check_ingest("9b", rcs, rpv, counts, 2 * ROUND_VALIDATORS)
+    rnd = ingest_summary(rcs, counts, wall)
+    rnd.update({"validators": ROUND_VALIDATORS, "spread_ms": ROUND_SPREAD_S * 1e3,
+                "step_ms": step_ms, "warmup_launches": rwarm_launches,
+                "passthrough": rpv.passthrough, "batched": rpv.batched})
+    emit({"phase": "votes_round", **rnd})
+    counts = launches()
+    precompute.reset()
+    return counts
+
+
+# --- phase 10 ------------------------------------------------------------------
+
+
+def phase_light_round(light, dev):
+    """BASELINE config 3 as one bisection round: ``evaluate_candidates``
+    from header 1 to headers 16, 8, 4 and 2 and a copy of header 8 with a
+    bad signature, one ``submit_many`` and one flush on the shared
+    scheduler. Each outcome must equal the sequential
+    ``light.verifier.verify``'s; the sequential walk over the same
+    candidates is timed after the round's counts are read. Returns the
+    round's launch counts (which start at 0)."""
+    from tendermint_tpu_torch.crypto import batch as crypto_batch
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.light import batch as light_batch
+    from tendermint_tpu_torch.light import verifier
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.types.light import LightBlock
+    from tendermint_tpu_torch.types.validation import Fraction
+
+    chain, vset, _ = light
+    now = Timestamp.from_unix_ns(chain[-1].header.time.to_unix_ns() + 2 * 10**9)
+    period, drift, level = LIGHT_TRUSTING_PERIOD_S, LIGHT_MAX_CLOCK_DRIFT_S, Fraction(1, 3)
+    bad = copy.deepcopy(chain[7])
+    cs = bad.commit.signatures[LIGHT_ROUND_BAD_INDEX]
+    cs.signature = cs.signature[:40] + bytes([cs.signature[40] ^ 1]) + cs.signature[41:]
+    names = [f"header_{h}" for h in LIGHT_ROUND_CANDIDATES] + ["header_8_bad_signature"]
+    base = LightBlock(chain[0], vset)
+    cands = [LightBlock(chain[h - 1], vset) for h in LIGHT_ROUND_CANDIDATES] + [LightBlock(bad, vset)]
+    sched = crypto_batch.get_shared_scheduler()
+
+    def shape(outcome):
+        err = outcome.error
+        return outcome.kind, None if err is None else [type(err).__name__, str(err)]
+
+    def one_round():
+        precompute.results.clear()
+        before = ingest_counters()
+        stats0 = light_batch.stats()
+        t = time.perf_counter()
+        out = light_batch.evaluate_candidates(CHAIN_ID, base, cands, period, now, drift, level,
+                                              device=dev)
+        secs = time.perf_counter() - t
+        stats = {k: v - stats0[k] for k, v in light_batch.stats().items()}
+        delta = ingest_delta(before)
+        check(stats["super_batches"] == 1 and stats["sequential"] == 0 and stats["timed_out"] == 0
+              and stats["failed_closed"] == 0 and delta["sched"]["flushes"] == 1,
+              f"light round: {stats}, {delta['sched']['flushes']} flushes")
+        return secs, [shape(o) for o in out], delta, stats
+
+    cold_s, outcomes, cold_counts, stats = one_round()  # the set's tables are built here
+    reps = [one_round() for _ in range(LIGHT_ROUND_REPS)]
+    counts = launches()
+    for _, got, _, _ in reps:
+        check(got == outcomes, "light round outcomes differ between runs")
+    # The sequential verifier's outcome for each candidate, and the time
+    # of the walk over all of them, with the verdict cache emptied
+    # before each walk as it is before each round.
+    walks = []
+    for _ in range(LIGHT_ROUND_REPS):
+        precompute.results.clear()
+        t = time.perf_counter()
+        want = [shape(light_batch._resolve_sequential(CHAIN_ID, base, cand, period, now, drift,
+                                                      level, dev)) for cand in cands]
+        walks.append(time.perf_counter() - t)
+        check(outcomes == want, f"light round {outcomes} != sequential {want}")
+    check([o[0] for o in outcomes] == ["ok"] * len(LIGHT_ROUND_CANDIDATES) + ["error"]
+          and f"(#{LIGHT_ROUND_BAD_INDEX})" in outcomes[-1][1][1], f"light round outcomes {outcomes}")
+    check("verify_resident" in counts, f"light round: K3 never launched: {counts}")
+    steady = reps[-1][2]
+    emit({"phase": "light_round", "headers": LIGHT_HEADERS, "validators": LIGHT_VALIDATORS,
+          "candidates": names, "outcomes": dict(zip(names, outcomes)), "lanes": stats["lanes"],
+          "cold_ms": cold_s * 1e3, "cold_launches": cold_counts["launches"],
+          "round_ms": [r[0] * 1e3 for r in reps],
+          "round_p50_ms": statistics.median(r[0] for r in reps) * 1e3,
+          "sequential_walk_ms": [w * 1e3 for w in walks],
+          "sequential_walk_p50_ms": statistics.median(walks) * 1e3,
+          "flushes": steady["sched"]["flushes"], "coalesced_lanes": steady["sched"]["entries_coalesced"],
+          "verifier_lanes": steady["cache"]["misses"], "verdict_cache_answered": steady["cache"]["hits"],
+          "flush_reasons": steady["sched"]["flush_reasons"],
+          "launches_per_round": steady["launches"], "launches": counts,
+          "sched_flush_errors": sched.stats()["flush_errors"]})
+    precompute.reset()
+    return counts
+
+
 # --- phase 6 -------------------------------------------------------------------
 
 
@@ -1592,6 +2054,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 2
+    from tendermint_tpu_torch.crypto import batch as crypto_batch
     from tendermint_tpu_torch.ops import _build, cuda_hash, cuda_verify, device_policy
 
     rng = np.random.default_rng(SEED)
@@ -1607,10 +2070,12 @@ def main() -> int:
         sync = chain_workload(rng, signer, SYNC_BLOCKS, SYNC_VALIDATORS)
         mixed_sync = chain_workload(rng, signer, MIXED_SYNC_BLOCKS, MIXED_SYNC_VALIDATORS, mixed=True)
         light = chain_workload(rng, signer, LIGHT_HEADERS, LIGHT_VALIDATORS)
+        round_wl = round_workload(rng, signer)
     emit({"phase": "setup", "seconds": time.perf_counter() - t0, "workers": workers,
           "signatures": 2 * KERNEL_LANES + BATCH_LANES + len(COMMIT_HEIGHTS) * COMMIT_VALIDATORS
           + MIXED_VALIDATORS + SYNC_BLOCKS * SYNC_VALIDATORS
-          + MIXED_SYNC_BLOCKS * MIXED_SYNC_VALIDATORS + LIGHT_HEADERS * LIGHT_VALIDATORS})
+          + MIXED_SYNC_BLOCKS * MIXED_SYNC_VALIDATORS + LIGHT_HEADERS * LIGHT_VALIDATORS
+          + 3 * ROUND_VALIDATORS})
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi("name,power.limit")
@@ -1642,6 +2107,13 @@ def main() -> int:
     cuda_hash.reset_launches()
     light_counts = phase_light(light, dev)
     health["phase_8"] = check_healthy("phase 8")
+    vote_counts = phase_votes(commit, round_wl, dev)  # resets the counts after its set-up
+    health["phase_9"] = check_healthy("phase 9")
+    cuda_verify.reset_launches()  # the light client's bisection round starts here
+    cuda_hash.reset_launches()
+    light_round_counts = phase_light_round(light, dev)
+    health["phase_10"] = check_healthy("phase 10")
+    crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
     for name, row in rows.items():
@@ -1651,6 +2123,8 @@ def main() -> int:
         row["launches_mixed_commit"] = mixed_counts[name]
         row["launches_blocksync"] = sync_counts[name]
         row["launches_light_client"] = light_counts[name]
+        row["launches_votes"] = vote_counts[name]
+        row["launches_light_batch"] = light_round_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,16 @@ verifier. The ed25519 one routes to the CUDA engine
 :data:`DEVICE_THRESHOLD` signatures and to the host oracle below it; the
 sr25519 one (``crypto/sr25519.py``) to ``ops/sr25519_batch.py`` or its
 host check. :class:`MultiBatchVerifier` splits a mixed validator set's
-commit by key type. Counterpart of ``tendermint_tpu/crypto/batch.py``
-without the verifyd remote and the scheduler.
+commit by key type. :func:`get_shared_scheduler` is the process-wide
+accumulate-with-deadline scheduler (``crypto/scheduler.py``) in front of
+:func:`tiered_verify_ed25519`. Counterpart of
+``tendermint_tpu/crypto/batch.py`` without the verifyd remote.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import List, Optional, Tuple
 
 from tendermint_tpu_torch import resolve_device
@@ -30,15 +34,62 @@ def host_verify_ed25519(pks, msgs, sigs) -> List[bool]:
     return [verify_zip215(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
 
 
+_tier_mtx = threading.Lock()
+# Lanes by tier of tiered_verify_ed25519: "host" lanes (of which
+# "host_cached" the verdict cache answered) and "device" lanes, handed
+# to verify_batch, which asks the cache itself; and the wall seconds of
+# each tier's calls, summed over the threads that made them.
+tier_lanes = {"host": 0, "host_cached": 0, "device": 0}  # guarded-by: _tier_mtx
+tier_seconds = {"host": 0.0, "device": 0.0}  # guarded-by: _tier_mtx
+
+
+def _count_tier(tier: str, seconds: float, **lanes: int) -> None:
+    with _tier_mtx:
+        tier_seconds[tier] += seconds
+        for k, v in lanes.items():
+            tier_lanes[k] += v
+
+
+def _host_tier(pks, msgs, sigs) -> List[bool]:
+    """The host oracle behind the engine's verdict cache: a lane
+    verified before (on either tier) is not verified again, and what
+    the host verifies is cached for both tiers."""
+    from tendermint_tpu_torch.crypto.ed25519_ref import verify_zip215
+    from tendermint_tpu_torch.ops import precompute
+
+    t0 = time.perf_counter()
+    out = []
+    cached = 0
+    for p, m, s in zip(pks, msgs, sigs):
+        v = precompute.results.get(p, m, s)
+        if v is None:
+            v = verify_zip215(p, m, s)
+            precompute.results.put(p, m, s, v)
+        else:
+            cached += 1
+        out.append(bool(v))
+    _count_tier("host", time.perf_counter() - t0, host=len(pks), host_cached=cached)
+    return out
+
+
 def tiered_verify_ed25519(pks, msgs, sigs, device=None) -> List[bool]:
     """The small-batch policy: below the device threshold a launch costs
-    more than it saves, so those batches stay on the host oracle."""
+    more than it saves, so those batches stay on the host oracle.
+
+    The host tier reads and fills the engine's verdict cache, which the
+    reference's host tier bypasses: a vote that several peers deliver in
+    several small flushes is verified once, as it is on the device
+    tier."""
     dev = resolve_device(device)
     if len(pks) < DEVICE_THRESHOLD:
-        return host_verify_ed25519(pks, msgs, sigs)
+        return _host_tier(pks, msgs, sigs)
     from tendermint_tpu_torch.ops import verify_batch
 
-    return verify_batch(pks, msgs, sigs, device=dev)
+    t0 = time.perf_counter()
+    try:
+        return verify_batch(pks, msgs, sigs, device=dev)
+    finally:
+        _count_tier("device", time.perf_counter() - t0, device=len(pks))
 
 
 def note_validator_set(vals) -> None:
@@ -135,3 +186,59 @@ class MultiBatchVerifier:
         results = {kt: sub.verify()[1] for kt, sub in self._subs.items()}
         merged = [bool(results[kt][i]) for kt, i in self._order]
         return all(merged), merged
+
+
+_shared_scheduler = None
+_shared_scheduler_lock = threading.Lock()
+
+
+def _shared_verify(pks, msgs, sigs) -> List[bool]:
+    """The shared scheduler's flush target: the small-batch policy on the
+    package's device, resolved at flush time."""
+    return tiered_verify_ed25519(pks, msgs, sigs)
+
+
+def _shared_host_fallback(pks, msgs, sigs) -> List[bool]:
+    """The shared scheduler's fallback for a flush whose verify raised.
+
+    The port answers on the host only where the caller allows it
+    (``device_policy.shared.host_fallback``), and counts those lanes in
+    the health machine as the engines count theirs. With fallback off it
+    raises, and the scheduler fails the flush closed (every lane False,
+    ``flush_errors`` counted) as it does for a flush with no fallback;
+    the engine has already recorded the device fault."""
+    from tendermint_tpu_torch.ops import device_policy
+
+    health = device_policy.shared
+    if not health.host_fallback:
+        raise RuntimeError("host fallback is off (device_policy.shared.host_fallback)")
+    oks = host_verify_ed25519(pks, msgs, sigs)
+    health.count_fallback("ed25519", len(pks))
+    return oks
+
+
+def get_shared_scheduler():
+    """Process-wide accumulate-with-deadline scheduler in front of the
+    batch verifier (``crypto/scheduler.py``): the seam for callers that
+    ingest signatures from many concurrent sources (per-peer vote
+    floods, a light client's bisection round) and want device batching
+    without a launch per signature. Started on first use; the reference
+    scheduler's defaults (256 lanes, 2 ms, continuous, depth 2)."""
+    global _shared_scheduler
+    with _shared_scheduler_lock:
+        if _shared_scheduler is None:
+            from tendermint_tpu_torch.crypto.scheduler import VerifyScheduler
+
+            _shared_scheduler = VerifyScheduler(_shared_verify, fallback_fn=_shared_host_fallback)
+            _shared_scheduler.start()
+        return _shared_scheduler
+
+
+def shutdown_shared_scheduler() -> None:
+    """Stop the shared scheduler's threads (pending lanes fail closed);
+    the next :func:`get_shared_scheduler` starts a new one."""
+    global _shared_scheduler
+    with _shared_scheduler_lock:
+        sched, _shared_scheduler = _shared_scheduler, None
+    if sched is not None:
+        sched.stop()

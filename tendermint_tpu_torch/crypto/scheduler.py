@@ -1,0 +1,718 @@
+"""Accumulate-with-deadline batch verification scheduler.
+
+Counterpart of ``tendermint_tpu/crypto/scheduler.py``, whole but for the
+device mesh: the port runs on one card, so the size-flush default is
+:data:`DEFAULT_MAX_BATCH`.
+
+Consensus votes arrive one at a time and need answers well inside a
+vote round-trip, while the device verifier pays off only in batches.
+Concurrent callers submit single (pubkey, msg, sig) verifies and block
+on a future; an accumulator thread flushes the pending set to ONE batch
+verification when either
+
+- the batch reaches ``max_batch`` entries (throughput bound), or
+- the OLDEST pending entry has waited ``max_delay`` (latency bound);
+  the deadline is per entry, so a lone vote is answered within
+  ``max_delay`` even when nothing else arrives.
+
+Per-entry verdicts come from the batch verifier's attribution
+(crypto/crypto.go:58-76), so one bad signature fails only its own
+future. Duplicate (pubkey, msg, sig) submissions inside one flush
+coalesce into one verifier lane.
+
+Continuous batching: by default the accumulator hands selected batches
+to ``pipeline_depth`` dispatch workers and goes straight back to
+accumulating, so lanes that arrive while a kernel is in flight join the
+NEXT dispatch. At most ``pipeline_depth`` batches are outstanding
+(queued + in flight); past that the accumulator holds lanes, which is
+the backpressure. ``continuous=False`` restores the flush-barrier path
+where the accumulator verifies inline. The reference's environment
+knobs for both modes (``TENDERMINT_TPU_CONT_BATCH``, ``_DYN_BATCH``)
+have no port counterpart: the constructor arguments choose.
+
+Deadline-aware dynamic batching (``crypto/adaptive.py``): with
+``dyn_batch=True`` the accumulator resolves ``max_batch``/``max_delay``
+through a :class:`~tendermint_tpu_torch.crypto.adaptive.DynBatchController`
+each iteration. Bare schedulers are static.
+
+Serving extensions:
+
+- per-entry ``priority``: when more work is pending than one batch
+  holds, the dequeue is priority-ordered (lower value first, FIFO within
+  a class);
+- per-entry ``flush_by``: an absolute monotonic deadline that pulls the
+  flush earlier than ``max_delay``;
+- per-entry ``tenant``: a label carried through to ``on_flush``;
+- ``max_pending``: ``submit`` raises ``SchedulerSaturatedError`` past
+  the cap instead of growing the queue without bound;
+- ``flush_reasons`` counters (``size``/``deadline``/``shutdown``), an
+  ``on_flush(reason, batch, seconds)`` callback invoked BEFORE the
+  futures resolve, and an ``on_dispatch(depth, lanes, reason)``
+  callback fired at hand-off time with the outstanding-dispatch depth.
+
+A ``verify_fn`` that raises sends the flush to ``fallback_fn`` when one
+is given; without one, or when it raises too, the flush fails closed
+(every lane False) and no caller hangs. Either way ``flush_errors``
+counts it. A lane that failed closed carries the exception in its
+handle's ``error``, so a caller can tell a fault from a bad signature;
+the reference's handles have no such field.
+
+``submit_many(..., one_flush=True)`` keeps a lane group in one flush
+whatever its size: when a size flush takes part of the group, the rest
+rides along past ``max_batch``. The reference has no such option; the
+port's light-client round uses it, so that the round is one verifier
+call, as the reference's docstring promises, and not
+``ceil(lanes / max_batch)`` of them.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Sequence, Tuple
+
+from tendermint_tpu_torch.crypto.adaptive import DynBatchController
+from tendermint_tpu_torch.libs import tracing
+
+DEFAULT_MAX_BATCH = 256
+DEFAULT_MAX_DELAY = 0.002  # 2ms: well under a vote round-trip
+DEFAULT_PIPELINE_DEPTH = 2  # batches outstanding: one in flight, one next
+
+
+def default_max_batch() -> int:
+    """The size-flush threshold: :data:`DEFAULT_MAX_BATCH`. The
+    reference scales it by the devices of its verify mesh; the port has
+    one card."""
+    return DEFAULT_MAX_BATCH
+
+
+class SchedulerSaturatedError(RuntimeError):
+    """Pending queue is at ``max_pending``; shed load explicitly."""
+
+
+@dataclass
+class _Pending:
+    pubkey: bytes
+    msg: bytes
+    sig: bytes
+    submitted: float
+    done: threading.Event = field(default_factory=threading.Event)
+    ok: bool = False
+    priority: int = 0  # lower flushes first when over-subscribed
+    flush_by: Optional[float] = None  # absolute monotonic wire deadline
+    tag: Optional[object] = None  # submitter identity (e.g. connection)
+    tenant: Optional[str] = None  # namespace label (multi-tenant verifyd)
+    # causality across threads and processes: the submitter's TraceContext;
+    # the dispatch span links under it (first distinct ctx) and every
+    # further distinct ctx gets a sched_trace_link instant — including
+    # a waiter whose lane coalesced into another entry's slot.
+    trace: Optional[tracing.TraceContext] = None
+    # stage-attribution timestamps (monotonic), written by _flush_one:
+    # batch residency = t_dispatch - submitted, device = t_done -
+    # t_dispatch, collect = respond time - t_done (server-side).
+    t_dispatch: float = 0.0
+    t_done: float = 0.0
+    # the verifier's exception when this lane's flush failed closed
+    # (False then means "not verified", not "bad signature")
+    error: Optional[BaseException] = None
+    group: Optional[object] = None  # one_flush group: never split
+
+    def due(self, max_delay: float) -> float:
+        """Absolute monotonic time this entry must be flushed by."""
+        due = self.submitted + max_delay
+        if self.flush_by is not None and self.flush_by < due:
+            due = self.flush_by
+        return due
+
+
+class VerifyScheduler:
+    """Batches concurrent single-signature verifies onto one verifier call.
+
+    ``verify_fn(pks, msgs, sigs) -> List[bool]`` is the flush target —
+    ``ops.verify_batch`` on a device backend, or any host batch verifier.
+
+    ``fallback_fn`` (optional, same signature) is tried when
+    ``verify_fn`` raises — the seam that keeps the scheduler draining
+    under device degradation instead of failing whole flushes closed.
+    Without a fallback, a raising flush still fails closed.
+    """
+
+    def __init__(
+        self,
+        verify_fn: Callable[
+            [Sequence[bytes], Sequence[bytes], Sequence[bytes]], List[bool]
+        ],
+        max_batch: Optional[int] = None,
+        max_delay: float = DEFAULT_MAX_DELAY,
+        fallback_fn: Optional[
+            Callable[
+                [Sequence[bytes], Sequence[bytes], Sequence[bytes]], List[bool]
+            ]
+        ] = None,
+        max_pending: int = 0,
+        on_flush: Optional[
+            Callable[[str, List[_Pending], float], None]
+        ] = None,
+        continuous: Optional[bool] = None,
+        pipeline_depth: int = DEFAULT_PIPELINE_DEPTH,
+        on_dispatch: Optional[Callable[[int, int, str], None]] = None,
+        dyn_batch: Optional[bool] = None,
+        dyn_controller: Optional[DynBatchController] = None,
+    ):
+        self._verify_fn = verify_fn
+        self._fallback_fn = fallback_fn
+        self.max_batch = max_batch  # None: default_max_batch()
+        self.max_delay = max_delay
+        # None = static scheduler (what every in-process caller gets);
+        # True builds the controller. Off, no controller exists at all
+        # and the flush boundaries are those of the static path.
+        self.dyn_batch = False if dyn_batch is None else bool(dyn_batch)
+        self._dyn: Optional[DynBatchController] = (
+            (dyn_controller if dyn_controller is not None else DynBatchController())
+            if self.dyn_batch
+            else None
+        )
+        # 0 = unbounded (the historical in-process behavior); a serving
+        # front-end sets a cap and maps SchedulerSaturatedError to an
+        # explicit wire rejection.
+        self.max_pending = max_pending
+        self._on_flush = on_flush
+        self._on_dispatch = on_dispatch
+        # None = the dispatch-worker pipeline, as False is the barrier
+        self.continuous = True if continuous is None else bool(continuous)
+        self.pipeline_depth = max(1, pipeline_depth)
+        self._pending: List[_Pending] = []  # guarded-by: _mtx
+        self._mtx = threading.Lock()
+        self._wake = threading.Condition(self._mtx)
+        # the dispatch stage: the accumulator appends (reason, batch)
+        # here and workers pop; bounded at pipeline_depth outstanding
+        # (queued + in flight) so a slow device backs pressure up into
+        # the accumulator instead of an unbounded hand-off queue.
+        self._dispatch_q: List[Tuple[str, List[_Pending]]] = []  # guarded-by: _mtx
+        self._dispatch_wake = threading.Condition(self._mtx)
+        self._inflight = 0  # dispatches inside verify_fn  # guarded-by: _mtx
+        self._inflight_lanes = 0  # lanes handed off, unresolved  # guarded-by: _mtx
+        self._stop = False  # guarded-by: _mtx
+        self._thread: Optional[threading.Thread] = None  # guarded-by: _mtx
+        self._workers: List[threading.Thread] = []  # guarded-by: _mtx
+        # observability — flush-side counters are written by every
+        # dispatch worker (plus the accumulator on the barrier path and
+        # stop()), so they all ride _mtx now.
+        self.flushes = 0  # guarded-by: _mtx
+        self.entries_verified = 0  # guarded-by: _mtx
+        self.entries_coalesced = 0  # guarded-by: _mtx
+        self.flush_errors = 0  # guarded-by: _mtx
+        self.fallback_flushes = 0  # guarded-by: _mtx
+        self.submit_rejections = 0  # guarded-by: _mtx
+        self.dispatch_handoffs = 0  # guarded-by: _mtx
+        self.inflight_admissions = 0  # lanes admitted mid-dispatch  # guarded-by: _mtx
+        self.flush_reasons = {"size": 0, "deadline": 0, "shutdown": 0}  # guarded-by: _mtx
+
+    # --- knob resolution -----------------------------------------------------
+
+    @property
+    def max_batch(self) -> int:
+        """The static size-flush threshold: the explicit config, else
+        :func:`default_max_batch`."""
+        if self._max_batch_cfg is not None:
+            return self._max_batch_cfg
+        return default_max_batch()
+
+    @max_batch.setter
+    def max_batch(self, value: Optional[int]) -> None:
+        self._max_batch_cfg = None if value is None else int(value)
+
+    def _limits(self) -> Tuple[int, float]:
+        """The knobs the accumulator actually runs with this iteration:
+        the static config when dyn-batch is off (byte-identical to the
+        historical path), the controller-scaled resolution otherwise."""
+        mb, md = self.max_batch, self.max_delay
+        if self._dyn is not None:
+            return self._dyn.limits(mb, md)
+        return mb, md
+
+    def note_queue_wait(self, seconds: float) -> None:
+        """Feed the adaptive controller a caller-observed queue wait
+        (verifyd's wire_wait stage — the shrink signal). No-op when
+        dyn-batch is off."""
+        if self._dyn is not None:
+            self._dyn.note_queue_wait(seconds)
+
+    def resolved_knobs(self) -> dict:
+        """The config actually under test right now — what stats(),
+        the CLI banner, and every bench fragment record so A/B runs
+        are attributable to real knob values, not the static ones."""
+        mb, md = self._limits()
+        out = {
+            "max_batch": mb,
+            "max_delay": md,
+            "static_max_batch": self.max_batch,
+            "static_max_delay": self.max_delay,
+            "pipeline_depth": self.pipeline_depth,
+            "continuous": self.continuous,
+            "dyn_batch": self.dyn_batch,
+        }
+        if self._dyn is not None:
+            out["dyn"] = self._dyn.snapshot()
+        return out
+
+    # --- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        with self._mtx:
+            if self._thread is not None:
+                return
+            self._stop = False
+            # assign under the lock: a concurrent start() must see it
+            self._thread = threading.Thread(
+                target=self._run, name="verify-scheduler", daemon=True
+            )
+            self._thread.start()
+            if self.continuous:
+                for i in range(self.pipeline_depth):
+                    w = threading.Thread(
+                        target=self._dispatch_run,
+                        name=f"verify-dispatch-{i}",
+                        daemon=True,
+                    )
+                    w.start()
+                    self._workers.append(w)
+
+    def stop(self) -> None:
+        with self._wake:
+            self._stop = True
+            self._wake.notify_all()
+            self._dispatch_wake.notify_all()
+            # snapshot under the lock (a concurrent start() may race us);
+            # join OUTSIDE it — the accumulator needs _mtx to drain.
+            thread, self._thread = self._thread, None
+            workers, self._workers = list(self._workers), []
+        if thread is not None:
+            thread.join(timeout=5)
+        for w in workers:
+            w.join(timeout=5)
+        # fail any stragglers closed rather than hanging their callers:
+        # both the accumulator's pending set and batches stuck in the
+        # hand-off queue (a worker that died mid-join keeps its popped
+        # batch; it resolves those itself when the flush returns).
+        with self._mtx:
+            leftovers, self._pending = self._pending, []
+            for _reason, batch in self._dispatch_q:
+                leftovers.extend(batch)
+            self._dispatch_q = []
+            if leftovers:
+                self.flush_reasons["shutdown"] += 1
+        if leftovers:
+            self._notify_flush("shutdown", leftovers, 0.0)
+        for p in leftovers:
+            p.ok = False
+            p.error = RuntimeError("scheduler stopped before the lane was verified")
+            p.done.set()
+
+    # --- submission ----------------------------------------------------------
+
+    def submit(
+        self,
+        pubkey: bytes,
+        msg: bytes,
+        sig: bytes,
+        *,
+        priority: int = 0,
+        flush_by: Optional[float] = None,
+        tag: Optional[object] = None,
+        tenant: Optional[str] = None,
+        trace: Optional[tracing.TraceContext] = None,
+    ) -> _Pending:
+        """Enqueue one signature; returns a handle for ``wait``. Callers
+        with several signatures submit all first so one flush covers
+        them, instead of paying the deadline once per signature."""
+        if trace is None:
+            trace = tracing.current_context()
+        entry = _Pending(
+            pubkey,
+            msg,
+            sig,
+            time.monotonic(),
+            priority=priority,
+            flush_by=flush_by,
+            tag=tag,
+            tenant=tenant,
+            trace=trace,
+        )
+        with self._wake:
+            if self._stop or self._thread is None:
+                raise RuntimeError("scheduler not running")
+            if self.max_pending and len(self._pending) >= self.max_pending:
+                self.submit_rejections += 1
+                raise SchedulerSaturatedError(
+                    f"verify queue full ({self.max_pending} pending)"
+                )
+            self._pending.append(entry)
+            inflight = self._inflight
+            if inflight:
+                self.inflight_admissions += 1
+            self._wake.notify_all()
+        if inflight:
+            # the continuous-batching proof point: this lane joined the
+            # NEXT dispatch while a kernel was already in flight
+            tracing.instant(
+                "scheduler_admit_inflight", lanes=1, inflight=inflight
+            )
+        return entry
+
+    def submit_many(
+        self,
+        lanes: Sequence[Tuple[bytes, bytes, bytes]],
+        *,
+        priority: int = 0,
+        flush_by: Optional[float] = None,
+        tag: Optional[object] = None,
+        tenant: Optional[str] = None,
+        trace: Optional[tracing.TraceContext] = None,
+        one_flush: bool = False,
+    ) -> List[_Pending]:
+        """Atomically enqueue a whole lane group under ONE lock round and
+        ONE accumulator wake-up. This is the super-batch entry point for
+        callers that assemble many signatures at once (the light client's
+        bisection ladder): all-or-nothing against ``max_pending``, so a
+        half-admitted group can never split across two flushes on the
+        admission boundary. Pair with ``flush_by=time.monotonic()`` to
+        pull the flush immediately; with ``one_flush=True`` the group is
+        also never split at ``max_batch``, so it costs exactly one
+        verifier call."""
+        now = time.monotonic()
+        if trace is None:
+            trace = tracing.current_context()
+        group = object() if one_flush else None
+        entries = [
+            _Pending(pk, msg, sig, now, priority=priority,
+                     flush_by=flush_by, tag=tag, tenant=tenant, trace=trace,
+                     group=group)
+            for pk, msg, sig in lanes
+        ]
+        with self._wake:
+            if self._stop or self._thread is None:
+                raise RuntimeError("scheduler not running")
+            if self.max_pending and (
+                len(self._pending) + len(entries) > self.max_pending
+            ):
+                self.submit_rejections += 1
+                raise SchedulerSaturatedError(
+                    f"verify queue full ({self.max_pending} pending)"
+                )
+            self._pending.extend(entries)
+            inflight = self._inflight
+            if inflight:
+                self.inflight_admissions += len(entries)
+            self._wake.notify_all()
+        if inflight and entries:
+            tracing.instant(
+                "scheduler_admit_inflight",
+                lanes=len(entries),
+                inflight=inflight,
+            )
+        return entries
+
+    def wait_many(
+        self, entries: Sequence[_Pending], timeout: float = 10.0
+    ) -> List[bool]:
+        """Block until every entry's batch flushed; per-entry verdicts,
+        fail-closed on timeout (same contract as ``wait``). The deadline
+        is shared across the group, not per entry."""
+        deadline = time.monotonic() + timeout
+        out: List[bool] = []
+        for e in entries:
+            left = deadline - time.monotonic()
+            if left <= 0 or not e.done.wait(timeout=left):
+                out.append(False)
+            else:
+                out.append(e.ok)
+        return out
+
+    def pending_depth(self) -> int:
+        """Entries accumulated but not yet handed to a flush."""
+        with self._mtx:
+            return len(self._pending)
+
+    def load_depth(self) -> int:
+        """Total unresolved lanes: accumulated + handed off + in flight.
+        The admission-control signal — on the continuous path lanes
+        leave ``pending_depth`` the moment a dispatch slot frees, but
+        they still consume service time until their flush returns."""
+        with self._mtx:
+            return len(self._pending) + self._inflight_lanes
+
+    def dispatch_depth(self) -> int:
+        """Outstanding dispatches (queued + inside verify_fn)."""
+        with self._mtx:
+            return self._inflight + len(self._dispatch_q)
+
+    def stats(self) -> dict:
+        """Locked snapshot of the observability counters. Monitors and
+        tests must read through this, not the raw attributes — every
+        counter is written under ``_mtx`` by the dispatch workers, so an
+        unlocked read races the hand-off path."""
+        with self._mtx:
+            return {
+                "flushes": self.flushes,
+                "entries_verified": self.entries_verified,
+                "entries_coalesced": self.entries_coalesced,
+                "flush_errors": self.flush_errors,
+                "fallback_flushes": self.fallback_flushes,
+                "submit_rejections": self.submit_rejections,
+                "dispatch_handoffs": self.dispatch_handoffs,
+                "inflight_admissions": self.inflight_admissions,
+                "flush_reasons": dict(self.flush_reasons),
+            }
+
+    def wait(self, entry: _Pending, timeout: float = 10.0) -> bool:
+        """Block until the entry's batch flushed; False on timeout (fail
+        closed: an unverified signature is an invalid signature)."""
+        if not entry.done.wait(timeout=timeout):
+            return False
+        return entry.ok
+
+    def verify(
+        self, pubkey: bytes, msg: bytes, sig: bytes, timeout: float = 10.0
+    ) -> bool:
+        """Submit one signature and block until its batch flushes."""
+        return self.wait(self.submit(pubkey, msg, sig), timeout=timeout)
+
+    # --- accumulator ---------------------------------------------------------
+
+    def _notify_flush(
+        self, reason: str, batch: List[_Pending], seconds: float
+    ) -> None:
+        if self._on_flush is None:
+            return
+        try:
+            self._on_flush(reason, batch, seconds)
+        except Exception:
+            pass  # observers never break the drain loop
+
+    def _notify_dispatch(self, depth: int, lanes: int, reason: str) -> None:
+        if self._on_dispatch is None:
+            return
+        try:
+            self._on_dispatch(depth, lanes, reason)
+        except Exception:
+            pass  # observers never break the dispatch loop
+
+    def _run(self) -> None:
+        while True:
+            reason = "size"
+            with self._wake:
+                # resolved once per wake-up: with dyn-batch on the
+                # controller's latest scale applies to the very next
+                # flush decision; off, these ARE the static attributes.
+                limit, delay = self._limits()
+                while not self._stop:
+                    if self.continuous and (
+                        self._inflight + len(self._dispatch_q)
+                        >= self.pipeline_depth
+                    ):
+                        # every dispatch slot is taken: keep accumulating
+                        # (that IS the backpressure); a slot release
+                        # notifies _dispatch_wake and we re-evaluate
+                        self._dispatch_wake.wait(timeout=0.05)
+                        limit, delay = self._limits()
+                        continue
+                    if len(self._pending) >= limit:
+                        reason = "size"
+                        break
+                    if self._pending:
+                        # earliest obligation across max_delay AND any
+                        # per-entry wire deadline (flush_by)
+                        due = min(p.due(delay) for p in self._pending)
+                        wait = due - time.monotonic()
+                        if wait <= 0:
+                            reason = "deadline"
+                            break
+                        self._wake.wait(timeout=wait)
+                    else:
+                        self._wake.wait(timeout=0.1)
+                    limit, delay = self._limits()
+                if self._stop:
+                    return
+                if len(self._pending) > limit:
+                    # over-subscribed: highest-priority (lowest value)
+                    # lanes flush first, FIFO within a class
+                    order = sorted(
+                        self._pending,
+                        key=lambda p: (p.priority, p.submitted),
+                    )
+                    batch = order[:limit]
+                    # a one_flush group the cut went through rides along
+                    groups = {p.group for p in batch if p.group is not None}
+                    if groups:
+                        batch += [p for p in order[limit:] if p.group in groups]
+                    taken = {id(p) for p in batch}
+                    self._pending = [
+                        p for p in self._pending if id(p) not in taken
+                    ]
+                else:
+                    batch, self._pending = self._pending, []
+                if batch and self.continuous:
+                    # hand off and go straight back to accumulating:
+                    # lanes arriving now join the NEXT dispatch while
+                    # this one runs (continuous batching)
+                    self._dispatch_q.append((reason, batch))
+                    self._inflight_lanes += len(batch)
+                    self.dispatch_handoffs += 1
+                    depth = self._inflight + len(self._dispatch_q)
+                    self._dispatch_wake.notify_all()
+            if not batch:
+                continue
+            if self.continuous:
+                self._notify_dispatch(depth, len(batch), reason)
+            else:
+                # barrier path (A/B baseline): verify inline, blocking
+                # accumulation until the kernel returns
+                self._notify_dispatch(1, len(batch), reason)
+                self._flush_one(reason, batch, depth=1)
+
+    # --- dispatch workers ----------------------------------------------------
+
+    def _dispatch_run(self) -> None:
+        while True:
+            with self._mtx:
+                while not self._stop and not self._dispatch_q:
+                    self._dispatch_wake.wait(timeout=0.1)
+                if self._stop:
+                    return
+                reason, batch = self._dispatch_q.pop(0)
+                self._inflight += 1
+                depth = self._inflight + len(self._dispatch_q)
+            try:
+                self._flush_one(reason, batch, depth)
+            finally:
+                with self._mtx:
+                    self._inflight -= 1
+                    self._inflight_lanes -= len(batch)
+                    # a freed slot is what the accumulator (and any
+                    # other worker) waits on
+                    self._dispatch_wake.notify_all()
+
+    # --- flush ---------------------------------------------------------------
+
+    def _flush_one(
+        self, reason: str, batch: List[_Pending], depth: int
+    ) -> None:
+        # Coalesce duplicate (pubkey, msg, sig) submissions: a vote
+        # gossiped by k peers lands k times inside one deadline
+        # window but costs one verifier lane; the verdict fans out
+        # to every waiting future.
+        pks: List[bytes] = []
+        msgs: List[bytes] = []
+        sigs: List[bytes] = []
+        index: dict = {}
+        slots: List[int] = []
+        had_error = used_fallback = False
+        error: Optional[BaseException] = None
+        # Distinct submitter trace contexts in batch order.  The first
+        # becomes the dispatch span's remote parent; every other distinct
+        # context — including a waiter whose lane coalesces into another
+        # entry's slot — is linked via a sched_trace_link instant so the
+        # merged fleet timeline still reaches its client span.
+        t_dispatch = time.monotonic()
+        traces: List[tracing.TraceContext] = []
+        seen_tids: set = set()
+        for p in batch:
+            p.t_dispatch = t_dispatch
+            ctx = p.trace
+            if ctx is not None and ctx.trace_id not in seen_tids:
+                seen_tids.add(ctx.trace_id)
+                traces.append(ctx)
+        with tracing.span(
+            "scheduler_dispatch",
+            parent_ctx=traces[0] if traces else None,
+            lanes=len(batch),
+            reason=reason,
+            depth=depth,
+        ):
+            for ctx in traces[1:16]:
+                tracing.instant(
+                    "sched_trace_link",
+                    link_trace_id=ctx.trace_id,
+                    link_span_id=ctx.span_id,
+                )
+            with tracing.span("sched_assemble", lanes=len(batch)) as asp:
+                for p in batch:
+                    # A zero-copy ingress may submit lanes as memoryviews
+                    # into a client-owned slab; they stay views while
+                    # queued and materialise exactly once here, where
+                    # coalescing needs hashable keys and the verify
+                    # backends expect bytes.
+                    if type(p.msg) is memoryview:
+                        p.msg = p.msg.tobytes()
+                    if type(p.pubkey) is memoryview:
+                        p.pubkey = p.pubkey.tobytes()
+                    if type(p.sig) is memoryview:
+                        p.sig = p.sig.tobytes()
+                    key = (p.pubkey, p.msg, p.sig)
+                    idx = index.get(key)
+                    if idx is None:
+                        idx = index[key] = len(pks)
+                        pks.append(p.pubkey)
+                        msgs.append(p.msg)
+                        sigs.append(p.sig)
+                    slots.append(idx)
+                asp.set(unique=len(pks), coalesced=len(batch) - len(pks))
+            t0 = time.monotonic()
+            with tracing.span("sched_flush", lanes=len(pks), reason=reason):
+                try:
+                    oks = self._verify_fn(pks, msgs, sigs)
+                except Exception as e:
+                    had_error = True
+                    oks = None
+                    if self._fallback_fn is not None:
+                        try:
+                            oks = self._fallback_fn(pks, msgs, sigs)
+                            used_fallback = True
+                        except Exception:
+                            oks = None
+                    if oks is None:
+                        # fail closed, never hang callers
+                        error = e
+                        oks = [False] * len(pks)
+        if len(oks) != len(pks):  # misbehaving verifier: fail closed
+            error = RuntimeError(
+                f"verifier returned {len(oks)} verdicts for {len(pks)} lanes"
+            )
+            oks = [False] * len(pks)
+        dev_s = time.monotonic() - t0
+        if self._dyn is not None and batch:
+            # the controller's flush feed (same site the on_flush
+            # observer fires from): batch residency = dispatch minus
+            # oldest submit, slack = tightest wire-deadline headroom
+            # still unspent at dispatch (None when no lane carried one)
+            residency = max(
+                0.0, t_dispatch - min(p.submitted for p in batch)
+            )
+            slack: Optional[float] = None
+            for p in batch:
+                if p.flush_by is not None:
+                    s = p.flush_by - t_dispatch
+                    slack = s if slack is None else min(slack, s)
+            self._dyn.observe_flush(
+                len(batch), residency, dev_s, slack, self.max_delay
+            )
+        with self._mtx:
+            self.flushes += 1
+            self.flush_reasons[reason] += 1
+            self.entries_verified += len(batch)
+            self.entries_coalesced += len(batch) - len(pks)
+            if had_error:
+                self.flush_errors += 1
+            if used_fallback:
+                self.fallback_flushes += 1
+        # observers run strictly-before the futures resolve, so a
+        # waiter that wakes can already see its flush accounted for
+        self._notify_flush(reason, batch, time.monotonic() - t0)
+        t_done = time.monotonic()
+        for p, idx in zip(batch, slots):
+            p.ok = bool(oks[idx])
+            p.error = error
+            p.t_done = t_done
+            p.done.set()

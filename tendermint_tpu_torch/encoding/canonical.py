@@ -1,10 +1,11 @@
-"""Canonical vote sign-bytes.
+"""Canonical vote and vote-extension sign-bytes.
 
 The vote part of ``tendermint_tpu/encoding/canonical.py`` (reference
 types/canonical.go, types/vote.go:141-170): sign-bytes are the
-varint-length-prefixed protobuf encoding of the CanonicalVote. The
-non-nullable Timestamp and the PartSetHeader inside CanonicalBlockID are
-always serialized; other zero values are omitted.
+varint-length-prefixed protobuf encoding of the CanonicalVote (or the
+CanonicalVoteExtension). The non-nullable Timestamp and the
+PartSetHeader inside CanonicalBlockID are always serialized; other zero
+values are omitted.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from tendermint_tpu_torch.encoding.proto import (
     length_delimited,
 )
 
+# SignedMsgType (proto/tendermint/types/types.proto)
+SIGNED_MSG_TYPE_PREVOTE = 1
 SIGNED_MSG_TYPE_PRECOMMIT = 2
 
 
@@ -89,3 +92,12 @@ def vote_sign_bytes(
     return length_delimited(
         canonical_vote_bytes(chain_id, msg_type, height, round_, bid, timestamp)
     )
+
+
+def vote_extension_sign_bytes(chain_id: str, extension: bytes, height: int, round_: int) -> bytes:
+    """types.VoteExtensionSignBytes: the delimited CanonicalVoteExtension."""
+    out = encode_bytes_field(1, extension)
+    out += encode_sfixed64_field(2, height)
+    out += encode_sfixed64_field(3, round_)
+    out += encode_string_field(4, chain_id)
+    return length_delimited(out)

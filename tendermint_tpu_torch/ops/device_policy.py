@@ -72,6 +72,15 @@ class DeviceRefused(RuntimeError):
     """The machine did not admit a device batch (DISABLED, or cooling
     down) and ``host_fallback`` is off."""
 
+
+class DeviceStallError(RuntimeError):
+    """A device call that never returned (a wedge, not an exception),
+    reported by a watchdog such as the vote pre-verifier's deadline
+    tracking so other callers stop feeding a hung card. Always
+    transient."""
+
+    permanent = False
+
 # The texts PyTorch and the CUDA runtime raise when no card can come up in
 # this process, and torch's "CUDA error: <cudaGetErrorString>" of the
 # sticky codes (700, 702, 710, 714, 715, 716, 718, 719). Each pins a whole

@@ -236,6 +236,10 @@ class ResultCache:
         self.cap = cap
         self._lock = threading.Lock()
         self._entries: "OrderedDict[bytes, bool]" = OrderedDict()  # guarded-by: _lock
+        # lookups answered and not answered, so a caller can tell the
+        # lanes a verifier really checked from those the cache answered
+        self.hits = 0  # guarded-by: _lock
+        self.misses = 0  # guarded-by: _lock
 
     @staticmethod
     def _key(pk: bytes, msg: bytes, sig: bytes) -> bytes:
@@ -247,7 +251,14 @@ class ResultCache:
             verdict = self._entries.get(key)
             if verdict is not None:
                 self._entries.move_to_end(key)
+                self.hits += 1
+            else:
+                self.misses += 1
             return verdict
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._entries), "hits": self.hits, "misses": self.misses}
 
     def put(self, pk: bytes, msg: bytes, sig: bytes, verdict: bool) -> None:
         key = self._key(pk, msg, sig)

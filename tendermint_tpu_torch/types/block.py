@@ -1,10 +1,13 @@
-"""Block types: Consensus, PartSetHeader, BlockID, CommitSig, Commit and
-Header.
+"""Block types: Consensus, PartSetHeader, BlockID, CommitSig, Commit,
+Vote and Header.
 
-The part of ``tendermint_tpu/types/block.py`` (types/block.go) that
-commit verification and the light client read: the block-ID flags, the
-commit signatures and ``Commit.vote_sign_bytes``, the ``validate_basic``
-checks, the proto encodings the hashes read, and ``Header.hash``. Wire
+The part of ``tendermint_tpu/types/block.py`` (types/block.go,
+types/vote.go) that commit verification, the light client and the vote
+set read: the block-ID flags, the commit signatures and
+``Commit.vote_sign_bytes``, the ``validate_basic`` checks, the proto
+encodings the hashes read, ``Header.hash``, and ``Vote`` with its
+sign-bytes, its checks and the pre-verification tag of the vote
+pre-verifier (``consensus/reactor.py``). Wire
 encoding is gogoproto-compatible (ascending fields, proto3 zero
 omission, non-nullable embedded messages always written), so hashes are
 byte-exact with the reference.
@@ -12,14 +15,17 @@ byte-exact with the reference.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field as dc_field
-from typing import List
+from typing import List, Optional
 
 from tendermint_tpu_torch.crypto import merkle
-from tendermint_tpu_torch.crypto.keys import ADDRESS_LEN
+from tendermint_tpu_torch.crypto.keys import ADDRESS_LEN, PubKey
 from tendermint_tpu_torch.encoding.canonical import (
     SIGNED_MSG_TYPE_PRECOMMIT,
+    SIGNED_MSG_TYPE_PREVOTE,
     Timestamp,
+    vote_extension_sign_bytes,
     vote_sign_bytes,
 )
 from tendermint_tpu_torch.encoding.proto import (
@@ -31,6 +37,7 @@ from tendermint_tpu_torch.encoding.proto import (
 HASH_SIZE = 32
 MAX_CHAIN_ID_LEN = 50
 MAX_SIGNATURE_SIZE = 64  # ed25519/sr25519
+MAX_VOTE_EXTENSION_SIZE = 1024 * 1024  # types/vote.go:20
 
 # Go's time.Time{} (January 1, year 1 UTC) in Unix seconds.
 GO_ZERO_TIME = Timestamp(-62135596800, 0)
@@ -106,9 +113,20 @@ class BlockID:
     def is_nil(self) -> bool:
         return not self.hash and self.part_set_header.is_zero()
 
+    def is_complete(self) -> bool:
+        return (
+            len(self.hash) == HASH_SIZE
+            and self.part_set_header.total > 0
+            and len(self.part_set_header.hash) == HASH_SIZE
+        )
+
     def validate_basic(self) -> None:
         validate_hash(self.hash)
         self.part_set_header.validate_basic()
+
+    def key(self) -> bytes:
+        """Map key: hash + psh proto (types/block.go BlockID.Key)."""
+        return self.hash + self.part_set_header.to_proto_bytes()
 
     def to_proto_bytes(self) -> bytes:
         return encode_bytes_field(1, self.hash) + encode_message_field(
@@ -131,6 +149,12 @@ class CommitSig:
     @classmethod
     def absent(cls) -> "CommitSig":
         return cls()
+
+    def is_absent(self) -> bool:
+        return self.block_id_flag == BLOCK_ID_FLAG_ABSENT
+
+    def is_commit(self) -> bool:
+        return self.block_id_flag == BLOCK_ID_FLAG_COMMIT
 
     def block_id(self, commit_block_id: BlockID) -> BlockID:
         """The BlockID this signature signed over (types/block.go:641-653)."""
@@ -217,6 +241,141 @@ class Commit:
         for cs in self.signatures:
             out += encode_message_field(4, cs.to_proto_bytes())
         return out
+
+
+@dataclass
+class Vote:
+    """types/vote.go:55-66."""
+
+    type: int = 0
+    height: int = 0
+    round: int = 0
+    block_id: BlockID = dc_field(default_factory=BlockID)
+    timestamp: Timestamp = GO_ZERO_TIME
+    validator_address: bytes = b""
+    validator_index: int = 0
+    signature: bytes = b""
+    extension: bytes = b""
+    extension_signature: bytes = b""
+    # Pre-verification tags set by the vote pre-verifier
+    # (consensus/reactor.py): the (chain_id, pubkey bytes, sign-bytes
+    # digest) this vote's signature(s) were verified against in a device
+    # batch. verify() honours a tag only when all three match, and
+    # re-verifies inline otherwise, so a stale or wrong tag costs only
+    # the shortcut, never correctness.
+    _pre_verified: Optional[tuple] = dc_field(default=None, compare=False, repr=False)
+    _pre_verified_ext: Optional[tuple] = dc_field(default=None, compare=False, repr=False)
+
+    def mark_pre_verified(
+        self,
+        chain_id: str,
+        pub_key_bytes: bytes,
+        extension_too: bool = False,
+        sign_bytes_digest: Optional[bytes] = None,
+        extension_digest: Optional[bytes] = None,
+    ) -> None:
+        """Record that a batch path already verified this vote.
+
+        The tag carries a digest of the sign-bytes that were verified,
+        and :meth:`verify` recomputes it before honouring the tag, so a
+        signed field changed after pre-verification sends the vote back
+        to a full signature check. A caller that verified specific bytes
+        passes their digest; otherwise it is computed here from the
+        vote's current content.
+        """
+        if sign_bytes_digest is None:
+            sign_bytes_digest = hashlib.sha256(self.sign_bytes(chain_id)).digest()
+        self._pre_verified = (chain_id, pub_key_bytes, sign_bytes_digest)
+        if extension_too:
+            if extension_digest is None:
+                extension_digest = hashlib.sha256(self.extension_sign_bytes(chain_id)).digest()
+            self._pre_verified_ext = (chain_id, pub_key_bytes, extension_digest)
+
+    def sign_bytes(self, chain_id: str) -> bytes:
+        return vote_sign_bytes(
+            chain_id,
+            self.type,
+            self.height,
+            self.round,
+            self.block_id.hash,
+            self.block_id.part_set_header.total,
+            self.block_id.part_set_header.hash,
+            self.timestamp,
+        )
+
+    def extension_sign_bytes(self, chain_id: str) -> bytes:
+        return vote_extension_sign_bytes(chain_id, self.extension, self.height, self.round)
+
+    def commit_sig(self) -> CommitSig:
+        """types/vote.go:95-115."""
+        if self.block_id.is_complete():
+            flag = BLOCK_ID_FLAG_COMMIT
+        elif self.block_id.is_nil():
+            flag = BLOCK_ID_FLAG_NIL
+        else:
+            raise ValueError(f"invalid vote BlockID {self.block_id}")
+        return CommitSig(flag, self.validator_address, self.timestamp, self.signature)
+
+    def verify(self, chain_id: str, pub_key: PubKey) -> None:
+        """types/vote.go Verify: address match + signature over sign-bytes."""
+        if pub_key.address() != self.validator_address:
+            raise VoteError("invalid validator address")
+        sb = self.sign_bytes(chain_id)
+        if self._pre_verified == (chain_id, pub_key.bytes(), hashlib.sha256(sb).digest()):
+            return  # batch-verified for this key over these exact sign-bytes
+        if not pub_key.verify_signature(sb, self.signature):
+            raise VoteError("invalid signature")
+
+    def verify_vote_and_extension(self, chain_id: str, pub_key: PubKey) -> None:
+        """types/vote.go:258-274: also checks the extension signature of
+        a non-nil precommit."""
+        self.verify(chain_id, pub_key)
+        if self.type == SIGNED_MSG_TYPE_PRECOMMIT and not self.block_id.is_nil():
+            self.verify_extension(chain_id, pub_key)
+
+    def verify_extension(self, chain_id: str, pub_key: PubKey) -> None:
+        if self.type != SIGNED_MSG_TYPE_PRECOMMIT or self.block_id.is_nil():
+            return
+        esb = self.extension_sign_bytes(chain_id)
+        if self._pre_verified_ext == (chain_id, pub_key.bytes(), hashlib.sha256(esb).digest()):
+            return
+        if not pub_key.verify_signature(esb, self.extension_signature):
+            raise VoteError("invalid extension signature")
+
+    def validate_basic(self) -> None:
+        if self.type not in (SIGNED_MSG_TYPE_PREVOTE, SIGNED_MSG_TYPE_PRECOMMIT):
+            raise ValueError("invalid Type")
+        if self.height < 0:
+            raise ValueError("negative Height")
+        if self.round < 0:
+            raise ValueError("negative Round")
+        if not self.block_id.is_nil():
+            self.block_id.validate_basic()
+            if not self.block_id.is_complete():
+                raise ValueError("blockID must be either empty or complete")
+        if len(self.validator_address) != ADDRESS_LEN:
+            raise ValueError(
+                f"expected ValidatorAddress size {ADDRESS_LEN}, got "
+                f"{len(self.validator_address)}"
+            )
+        if self.validator_index < 0:
+            raise ValueError("negative ValidatorIndex")
+        if not self.signature:
+            raise ValueError("signature is missing")
+        if len(self.signature) > MAX_SIGNATURE_SIZE:
+            raise ValueError("signature is too big")
+        if self.type != SIGNED_MSG_TYPE_PRECOMMIT and (self.extension or self.extension_signature):
+            raise ValueError("extension only allowed on precommits")
+        if len(self.extension) > MAX_VOTE_EXTENSION_SIZE:
+            raise ValueError("vote extension is too big")
+        if self.extension and not self.extension_signature:
+            raise ValueError("vote extension signature absent on vote with extension")
+        if len(self.extension_signature) > MAX_SIGNATURE_SIZE:
+            raise ValueError("vote extension signature is too big")
+
+
+class VoteError(ValueError):
+    pass
 
 
 @dataclass

@@ -5,7 +5,7 @@ validator set, commits, signed headers) comes across by duck typing:
 each function here reads the reference's attribute names
 (``validators``, ``pub_key.type``, ``pub_key.bytes()``, ``signatures``,
 ``block_id.part_set_header`` ...) of any object and builds the port's
-type. Tests build one chain with the JAX package's types, carry it over,
+type; votes come across the same way. Tests build one chain with the JAX package's types, carry it over,
 and feed the same chain to both packages.
 
 :func:`build_header_chain` is the port-side twin of the benchmark's
@@ -29,6 +29,7 @@ from tendermint_tpu_torch.types.block import (
     Consensus,
     Header,
     PartSetHeader,
+    Vote,
 )
 from tendermint_tpu_torch.types.light import SignedHeader
 from tendermint_tpu_torch.types.validator import Validator
@@ -74,6 +75,22 @@ def commit(obj) -> Commit:
                       bytes(cs.signature))
             for cs in obj.signatures
         ],
+    )
+
+
+def vote(obj) -> Vote:
+    """A vote's fields (its pre-verification tags are not carried)."""
+    return Vote(
+        type=obj.type,
+        height=obj.height,
+        round=obj.round,
+        block_id=block_id(obj.block_id),
+        timestamp=timestamp(obj.timestamp),
+        validator_address=bytes(obj.validator_address),
+        validator_index=obj.validator_index,
+        signature=bytes(obj.signature),
+        extension=bytes(obj.extension),
+        extension_signature=bytes(obj.extension_signature),
     )
 
 

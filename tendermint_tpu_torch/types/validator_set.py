@@ -1,5 +1,5 @@
 """ValidatorSet: the subset of ``tendermint_tpu/types/validator_set.py``
-that commit verification and the light client use.
+that commit verification, the light client and the vote set use.
 
 Validators are kept in the canonical order (voting power descending,
 address ascending; types/validator.go:745-760), so a commit's signature
@@ -56,6 +56,11 @@ class ValidatorSet:
             if v.address == address:
                 return i, v
         return -1, None
+
+    def get_by_index(self, index: int) -> Optional[Validator]:
+        if 0 <= index < len(self.validators):
+            return self.validators[index]
+        return None
 
     def get_proposer(self) -> Validator:
         """The proposer of a newly built set.
