@@ -83,6 +83,23 @@ and, in order:
    with a bad signature, one ``submit_many`` and one flush; each outcome
    must equal the sequential verifier's; a cold round and the p50 of 5,
    beside the p50 of 5 sequential walks over the same candidates;
+11. the light client and its serving tier over 16 heights of 1,000
+   validators whose set slides 100 a height (so a jump of more than 6
+   heights cannot be trusted at 1/3): 11a, ``LightClient`` syncs from
+   height 1 to 16 (``MemoryProvider`` primary behind ``RetryingProvider``,
+   one honest witness, an empty store) in its three modes, bisection
+   rounds (3 rounds, stored heights 1, 4, 10, 16), one verify a pivot
+   (the same heights) and the sequential walk (all 16), each cold and 5
+   more times with the verdict cache emptied, with rounds, flushes,
+   lanes, table builds, store decodes, launches and a host profile; 11b,
+   a bad signature on 16 must give one error in all three modes; 11c,
+   a ``LightServer`` on 127.0.0.1 answers ``light_header`` over HTTP: a
+   cold miss (3 rounds), a hit with the same bytes, 2,000 hits from 8
+   threads (latency p50/p99, hits/s), 8 threads on a fresh server's cold
+   16 (one verification), bad heights (``INVALID_PARAMS``),
+   ``light_status`` and ``/metrics``; 11d, a witness with a conflicting
+   16 gives ``DivergedHeaderError`` with its evidence at the primary,
+   and through lightd ``INTERNAL_ERROR`` with the chain's cache dropped;
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -98,9 +115,9 @@ and, in order:
 
 Kernel launch counts are reset just before phase 3 and read just after
 phase 4b (K1-K4), and again around each of phases 5 (K5, and the
-ed25519 kernels of the mixed commit), 7, 8, 9 and 10. After each of
-these the health machine must show no host fallback, no transition and
-the healthy state. Each phase prints one JSON line; then the kernel table,
+ed25519 kernels of the mixed commit), 7, 8, 9, 10 and 11. After each
+of these the health machine must show no host fallback, no transition
+and the healthy state. Each phase prints one JSON line; then the kernel table,
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA it exits with code 2 and prints no result.
@@ -179,6 +196,22 @@ ROUND_SPREAD_S = 0.1
 LIGHT_ROUND_CANDIDATES = (16, 8, 4, 2)
 LIGHT_ROUND_BAD_INDEX = 200
 LIGHT_ROUND_REPS = 5
+# Phase 11: the light client and its serving tier (BASELINE config 3 as
+# users run it, through light/client.py and light/lightd.py): 16 heights
+# of 1,000 validators whose set slides 100 validators a height, so
+# heights h and h + k share 1,000 - 100k validators and the 1/3 trust
+# level trusts a jump of at most 6: skipping from 1 to 16 bisects in 3
+# rounds and stores heights 1, 4, 10 and 16.
+LIGHTD_HEADERS = 16
+LIGHTD_VALIDATORS = 1000
+LIGHTD_SLIDE = 100
+LIGHTD_STORE_HEIGHTS = [1, 4, 10, 16]
+LIGHTD_ROUNDS = 3
+LIGHTD_REPS = 5
+LIGHTD_BAD_INDEX = 300  # inside the +2/3 pass of every mode
+LIGHTD_HERD = 8  # threads asking for one cold height at once
+LIGHTD_HIT_THREADS = 8
+LIGHTD_HIT_REQUESTS = 2000
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -655,6 +688,39 @@ def round_workload(rng, signer):
         precommits[i].signature = sigs[n + i]
         precommits[i].extension_signature = sigs[2 * n + i]
     return vset, block_id, prevotes, precommits
+
+
+def lightd_workload(rng, signer):
+    """Phase 11's chain: ``LIGHTD_HEADERS`` light blocks whose set of
+    ``LIGHTD_VALIDATORS`` slides ``LIGHTD_SLIDE`` keys a height
+    (``types/carry.py`` ``build_rotating_chain``), a copy of the last
+    block with one bad signature, and a conflicting last block (the same
+    set, another app hash, signed anew), all signed in the pool."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.types import carry
+    from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, PartSetHeader
+    from tendermint_tpu_torch.types.light import LightBlock, SignedHeader
+
+    keys = [(priv, Ed25519PubKey(pub))
+            for priv, pub in signer.keys(rng, LIGHTD_HEADERS * LIGHTD_SLIDE + LIGHTD_VALIDATORS)]
+    chain = carry.build_rotating_chain(LIGHTD_HEADERS, keys, window=LIGHTD_VALIDATORS,
+                                       slide=LIGHTD_SLIDE, sign_many=signer.sign, chain_id=CHAIN_ID)
+    top = chain[-1]
+    bad = copy.deepcopy(top)
+    cs = bad.signed_header.commit.signatures[LIGHTD_BAD_INDEX]
+    cs.signature = cs.signature[:40] + bytes([cs.signature[40] ^ 1]) + cs.signature[41:]
+    header = copy.deepcopy(top.header)
+    header.app_hash = hashlib.sha256(b"conflicting app state").digest()
+    block_id = BlockID(header.hash(), PartSetHeader(1, hashlib.sha256(b"conflicting parts").digest()))
+    sigs = [CommitSig(c.block_id_flag, c.validator_address, c.timestamp, b"")
+            for c in top.signed_header.commit.signatures]
+    commit = Commit(height=top.height, round=0, block_id=block_id, signatures=sigs)
+    secret_of = {pub.address(): priv for priv, pub in keys}
+    for c, sig in zip(sigs, signer.sign([secret_of[c.validator_address] for c in sigs],
+                                        [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(len(sigs))])):
+        c.signature = sig
+    fork = LightBlock(SignedHeader(header, commit), top.validator_set)
+    return chain, bad, fork
 
 
 # --- phase 2 -------------------------------------------------------------------
@@ -1929,6 +1995,326 @@ def phase_light_round(light, dev):
     return counts
 
 
+# --- phase 11 ------------------------------------------------------------------
+
+
+def profile_shares(fn) -> dict:
+    """One call of ``fn`` under cProfile: the cumulative ms of the host
+    costs the light client's path is read by, and each one's share of
+    the profiled wall time. On Python 3.12 the profiler sees every
+    thread, so the scheduler's flush thread is in it too; its time
+    overlaps the calling thread's wait for it (``scheduler_wait``), so
+    the shares can add up to more than 1."""
+    import cProfile
+    import pstats
+
+    names = {
+        "store_decode": ("light.py", "from_proto_bytes"),  # LightBlock's (the largest)
+        "store_encode": ("light.py", "to_proto_bytes"),
+        "validator_set_hash": ("validator_set.py", "hash"),
+        "address_lookups": ("validator_set.py", "get_by_address"),
+        "sign_bytes": ("canonical.py", "vote_sign_bytes"),
+        "table_builds": ("precompute.py", "build_table"),
+        "verify_batch": ("ed25519_batch.py", "verify_batch"),
+        "round_plan": ("batch.py", "_plan_candidate"),
+        "scheduler_wait": ("scheduler.py", "wait_many"),
+        "verify_adjacent": ("verifier.py", "verify_adjacent"),
+    }
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    try:
+        fn()
+    finally:
+        prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    out = {"profiled_wall_ms": wall_ms}
+    for label, (base, func) in names.items():
+        cum = max([c for (path, _, f), (_, _, _, c, _) in stats.items()
+                   if f == func and os.path.basename(path) == base] or [0.0]) * 1e3
+        out[label] = {"ms": cum, "share": cum / wall_ms}
+    return out
+
+
+def phase_lightd(workload, dev):
+    """BASELINE config 3 as users run it: the light client
+    (``light/client.py``) and its serving tier (``light/lightd.py``) over
+    16 heights of 1,000 validators that slide 100 a height. 11a syncs
+    from height 1 to 16 in the three modes (bisection rounds, the
+    one-verify-per-pivot loop, the sequential walk); 11b the same with a
+    bad signature on 16; 11c serves ``light_header`` over HTTP (a cold
+    miss, hits, a herd on a cold height, bad parameters, status,
+    metrics); 11d gives a witness a conflicting 16. Returns the phase's
+    launch counts (which start at 0)."""
+    import urllib.request
+
+    from tendermint_tpu_torch.crypto import batch as crypto_batch
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.libs.metrics import LightMetrics, Registry
+    from tendermint_tpu_torch.light import batch as light_batch
+    from tendermint_tpu_torch.light.client import DivergedHeaderError, LightClient, TrustOptions
+    from tendermint_tpu_torch.light.lightd import LightServer
+    from tendermint_tpu_torch.light.provider import MemoryProvider, RetryingProvider
+    from tendermint_tpu_torch.light.store import LightStore
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.rpc.server import INTERNAL_ERROR, INVALID_PARAMS
+
+    chain, bad_top, fork_top = workload
+    top = LIGHTD_HEADERS
+    now = Timestamp.from_unix_ns(chain[-1].header.time.to_unix_ns() + 2 * 10**9)
+    sched = crypto_batch.get_shared_scheduler()
+    flush_errors0 = sched.stats()["flush_errors"]
+    failed_closed0 = light_batch.stats()["failed_closed"]
+
+    class CountingStore(LightStore):
+        """The client's store, counting the blocks it decodes."""
+
+        decodes = 0
+
+        def _counted(self, lb):
+            if lb is not None:
+                self.decodes += 1
+            return lb
+
+        def light_block(self, height):
+            return self._counted(super().light_block(height))
+
+        def latest_light_block(self):
+            return self._counted(super().latest_light_block())
+
+        def first_light_block(self):
+            return self._counted(super().first_light_block())
+
+        def light_block_before(self, height):
+            return self._counted(super().light_block_before(height))
+
+    modes = {
+        "batched": {"bisect_batching": True},
+        "skipping": {"bisect_batching": False},
+        "sequential": {"sequential": True},
+    }
+
+    def client(blocks, mode, witness_blocks=None, metrics=None):
+        witness = MemoryProvider(CHAIN_ID, chain if witness_blocks is None else witness_blocks)
+        return LightClient(
+            CHAIN_ID, TrustOptions(period=LIGHT_TRUSTING_PERIOD_S, height=1, hash=blocks[0].hash()),
+            RetryingProvider(MemoryProvider(CHAIN_ID, blocks)), [witness], store=CountingStore(),
+            max_clock_drift=LIGHT_MAX_CLOCK_DRIFT_S, now=lambda: now, metrics=metrics, device=dev,
+            **modes[mode])
+
+    def sync(mode, blocks=chain):
+        """A fresh client over ``blocks`` with the verdict cache emptied,
+        and its timed ``verify_light_block_at_height(16)``: the block (or
+        the error) and the run's counters."""
+        precompute.results.clear()
+        c = client(blocks, mode)
+        decodes0 = c.store.decodes
+        before, stats0 = ingest_counters(), light_batch.stats()
+        builds0 = precompute.tables.builds
+        t = time.perf_counter()
+        try:
+            got = c.verify_light_block_at_height(top)
+        except Exception as exc:  # 11b compares what escaped
+            got = exc
+        secs = time.perf_counter() - t
+        d = ingest_delta(before)
+        counts = {
+            "ms": secs * 1e3, "rounds": light_batch.stats()["rounds"] - stats0["rounds"],
+            "round_lanes": light_batch.stats()["lanes"] - stats0["lanes"],
+            "flushes": d["sched"]["flushes"], "verifier_lanes": d["cache"]["misses"],
+            "verdict_cache_answered": d["cache"]["hits"],
+            "table_builds": precompute.tables.builds - builds0,
+            "store_decodes": c.store.decodes - decodes0, "store_heights": c.store.heights(),
+            "launches": d["launches"],
+        }
+        return got, counts
+
+    # 11a: skipping sync, three ways
+    want_heights = {"batched": LIGHTD_STORE_HEIGHTS, "skipping": LIGHTD_STORE_HEIGHTS,
+                    "sequential": list(range(1, top + 1))}
+    syncs = {}
+    for mode in modes:
+        precompute.reset()  # cold: no table, no verdict
+        lb, cold = sync(mode)
+        check(not isinstance(lb, Exception), f"phase 11a {mode}: {lb!r}")
+        runs = []
+        for _ in range(LIGHTD_REPS):
+            got, counts = sync(mode)
+            check(not isinstance(got, Exception) and got.hash() == chain[-1].hash(),
+                  f"phase 11a {mode}: {got!r}")
+            runs.append(counts)
+        for counts in [cold] + runs:
+            check(counts["store_heights"] == want_heights[mode],
+                  f"phase 11a {mode}: stored heights {counts['store_heights']}")
+            check(counts["rounds"] == (LIGHTD_ROUNDS if mode == "batched" else 0)
+                  and counts["flushes"] == (LIGHTD_ROUNDS if mode == "batched" else 0),
+                  f"phase 11a {mode}: {counts['rounds']} rounds, {counts['flushes']} flushes")
+            check(counts["launches"].get("verify_resident", 0) > 0, f"phase 11a {mode}: K3 never launched")
+        check(lb.hash() == chain[-1].hash(), f"phase 11a {mode}: trusted block 16 differs")
+        syncs[mode] = {"cold": cold, "runs_ms": [r["ms"] for r in runs],
+                       "p50_ms": statistics.median(r["ms"] for r in runs), "steady": runs[-1]}
+    profiles = {}
+    for name, mode in (("batched_cold", "batched"), ("sequential", "sequential")):
+        if name == "batched_cold":
+            precompute.reset()
+        precompute.results.clear()
+        profiles[name] = profile_shares(lambda: client(chain, mode).verify_light_block_at_height(top))
+    emit({"phase": "light_sync", "headers": LIGHTD_HEADERS, "validators": LIGHTD_VALIDATORS,
+          "slide": LIGHTD_SLIDE, "modes": syncs, "host_profile": profiles})
+
+    # 11b: a bad signature on the target
+    bad_chain = chain[:-1] + [bad_top]
+    errors = {}
+    for mode in modes:
+        got, _ = sync(mode, bad_chain)
+        check(isinstance(got, Exception), f"phase 11b {mode}: a bad target was accepted")
+        errors[mode] = [type(got).__name__, str(got)]
+    check(len({tuple(e) for e in errors.values()}) == 1 and errors["batched"][0] == "InvalidHeaderError"
+          and errors["batched"][1].startswith(f"wrong signature (#{LIGHTD_BAD_INDEX}): "),
+          f"phase 11b: the modes disagree: {errors}")
+    emit({"phase": "light_bad_target", "errors": errors})
+
+    # 11c: lightd
+    def get(url):
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.read()
+
+    def serve(witness_blocks=None):
+        reg = Registry()
+        metrics = LightMetrics(reg)
+        srv = LightServer(client(chain, "batched", witness_blocks, metrics), metrics=metrics, registry=reg)
+        srv.start()
+        return srv
+
+    srv = serve()
+    try:
+        url = srv.url + f"/light_header?height={top}"
+        precompute.results.clear()
+        before, stats0 = ingest_counters(), light_batch.stats()
+        t = time.perf_counter()
+        miss = get(url)
+        cold_ms = (time.perf_counter() - t) * 1e3
+        cold_counts = ingest_delta(before)
+        cold_rounds = light_batch.stats()["rounds"] - stats0["rounds"]
+        result = json.loads(miss)["result"]
+        check(result["hash"] == chain[-1].hash().hex().upper()
+              and result["trust_path"] == [str(h) for h in LIGHTD_STORE_HEIGHTS[1:]]
+              and cold_rounds == LIGHTD_ROUNDS and cold_counts["launches"],
+              f"phase 11c: cold serve {result.get('trust_path')}, {cold_rounds} rounds")
+        check(get(url) == miss, "phase 11c: the hit's payload differs from the miss's")
+        lat, lat_mtx = [], threading.Lock()
+
+        def hits(n):
+            mine = []
+            for _ in range(n):
+                t = time.perf_counter()
+                body = get(url)
+                mine.append(time.perf_counter() - t)
+                check(body == miss, "phase 11c: a hit's payload differs")
+            with lat_mtx:
+                lat.extend(mine)
+
+        threads = [threading.Thread(target=hits, args=(LIGHTD_HIT_REQUESTS // LIGHTD_HIT_THREADS,))
+                   for _ in range(LIGHTD_HIT_THREADS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        hit_wall = time.perf_counter() - t
+        check(len(lat) == LIGHTD_HIT_REQUESTS, f"phase 11c: {len(lat)} hits answered")
+        bad_params = {h: json.loads(get(srv.url + f"/light_header?height={h}"))["error"]["code"]
+                      for h in ("0", "x")}
+        check(set(bad_params.values()) == {INVALID_PARAMS}, f"phase 11c: bad params {bad_params}")
+        status = json.loads(get(srv.url + "/light_status"))["result"]
+        check(status["trusted_height"] == str(top) and status["cache"]["entries"] == 1,
+              f"phase 11c: status {status}")
+        metrics_text = get(srv.url + "/metrics").decode()
+        families = sorted({line.split()[2] for line in metrics_text.splitlines()
+                           if line.startswith("# TYPE tendermint_light_")})
+        hits_line = f"tendermint_light_cache_hits_total {LIGHTD_HIT_REQUESTS + 1}"
+        check(len(families) == 5 and hits_line in metrics_text, f"phase 11c: metrics families {families}")
+    finally:
+        srv.stop()
+    # the herd: LIGHTD_HERD threads ask a fresh server for its cold 16 at once
+    srv = serve()
+    try:
+        precompute.results.clear()
+        gate = threading.Barrier(LIGHTD_HERD)
+        answers = []
+
+        def herd():
+            gate.wait(60)
+            answers.append(get(srv.url + f"/light_header?height={top}"))
+
+        heights0, stats0 = srv.client.store.heights(), light_batch.stats()
+        threads = [threading.Thread(target=herd) for _ in range(LIGHTD_HERD)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        herd_rounds = light_batch.stats()["rounds"] - stats0["rounds"]
+        new_heights = sorted(set(srv.client.store.heights()) - set(heights0))
+        check(len(answers) == LIGHTD_HERD and len(set(answers)) == 1
+              and json.loads(answers[0])["result"]["hash"] == chain[-1].hash().hex().upper(),
+              "phase 11c: the herd's answers differ")
+        check(herd_rounds == LIGHTD_ROUNDS and new_heights == LIGHTD_STORE_HEIGHTS[1:],
+              f"phase 11c: the herd verified {herd_rounds} rounds, stored {new_heights}")
+    finally:
+        srv.stop()
+    # one miss of a fresh server under the profiler, called in-process
+    srv = serve()
+    try:
+        precompute.results.clear()
+        miss_profile = profile_shares(lambda: srv.light_header(height=top))
+    finally:
+        srv.stop()
+    emit({"phase": "lightd", "cold_serve_ms": cold_ms, "cold_launches": cold_counts["launches"],
+          "cold_rounds": cold_rounds, "cold_flushes": cold_counts["sched"]["flushes"],
+          "hit_requests": LIGHTD_HIT_REQUESTS, "hit_threads": LIGHTD_HIT_THREADS,
+          "hit_p50_ms": statistics.median(lat) * 1e3, "hit_p99_ms": percentile(lat, 0.99) * 1e3,
+          "hits_per_s": LIGHTD_HIT_REQUESTS / hit_wall, "herd_threads": LIGHTD_HERD,
+          "herd_rounds": herd_rounds, "herd_new_store_heights": new_heights,
+          "bad_params": bad_params, "status": status, "metrics_families": families,
+          "host_profile_miss": miss_profile})
+
+    # 11d: a witness with a conflicting 16
+    forked = chain[:-1] + [fork_top]
+    precompute.results.clear()
+    c = client(chain, "batched", forked)
+    try:
+        c.verify_light_block_at_height(top)
+        check(False, "phase 11d: the fork was not detected")
+    except DivergedHeaderError as exc:
+        evidence = exc.evidence
+    reported = c.primary.inner.evidence
+    check([e.hash() for e in reported] == [evidence.hash()]
+          and evidence.conflicting_block.hash() == fork_top.hash()
+          and evidence.common_height == LIGHTD_STORE_HEIGHTS[-2] and top not in c.store.heights(),
+          f"phase 11d: evidence {len(reported)}, common height {evidence.common_height}")
+    srv = serve(forked)
+    try:
+        precompute.results.clear()
+        below = json.loads(get(srv.url + "/light_header?height=4"))["result"]
+        check(below["height"] == "4" and len(srv.cache) == 1, "phase 11d: height 4 not served")
+        err = json.loads(get(srv.url + f"/light_header?height={top}"))["error"]
+        check(err["code"] == INTERNAL_ERROR and "light client attack" in err["message"]
+              and err["data"] == "invalidated 1 cached headers" and len(srv.cache) == 0,
+              f"phase 11d: lightd answered {err}")
+    finally:
+        srv.stop()
+    emit({"phase": "light_fork", "evidence_hash": evidence.hash().hex(),
+          "common_height": evidence.common_height, "reported_to_primary": len(reported),
+          "lightd_error": {k: err[k] for k in ("code", "message", "data")}})
+    check(sched.stats()["flush_errors"] == flush_errors0
+          and light_batch.stats()["failed_closed"] == failed_closed0, "phase 11: a flush failed")
+    counts = launches()
+    check(counts.get("verify_resident", 0) > 0, f"phase 11: K3 never launched: {counts}")
+    precompute.reset()
+    return counts
+
+
 # --- phase 6 -------------------------------------------------------------------
 
 
@@ -2071,11 +2457,12 @@ def main() -> int:
         mixed_sync = chain_workload(rng, signer, MIXED_SYNC_BLOCKS, MIXED_SYNC_VALIDATORS, mixed=True)
         light = chain_workload(rng, signer, LIGHT_HEADERS, LIGHT_VALIDATORS)
         round_wl = round_workload(rng, signer)
+        lightd_wl = lightd_workload(rng, signer)
     emit({"phase": "setup", "seconds": time.perf_counter() - t0, "workers": workers,
           "signatures": 2 * KERNEL_LANES + BATCH_LANES + len(COMMIT_HEIGHTS) * COMMIT_VALIDATORS
           + MIXED_VALIDATORS + SYNC_BLOCKS * SYNC_VALIDATORS
           + MIXED_SYNC_BLOCKS * MIXED_SYNC_VALIDATORS + LIGHT_HEADERS * LIGHT_VALIDATORS
-          + 3 * ROUND_VALIDATORS})
+          + 3 * ROUND_VALIDATORS + (LIGHTD_HEADERS + 1) * LIGHTD_VALIDATORS})
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi("name,power.limit")
@@ -2113,6 +2500,10 @@ def main() -> int:
     cuda_hash.reset_launches()
     light_round_counts = phase_light_round(light, dev)
     health["phase_10"] = check_healthy("phase 10")
+    cuda_verify.reset_launches()  # the light client and lightd start here
+    cuda_hash.reset_launches()
+    lightd_counts = phase_lightd(lightd_wl, dev)
+    health["phase_11"] = check_healthy("phase 11")
     crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
@@ -2125,6 +2516,7 @@ def main() -> int:
         row["launches_light_client"] = light_counts[name]
         row["launches_votes"] = vote_counts[name]
         row["launches_light_batch"] = light_round_counts[name]
+        row["launches_lightd"] = lightd_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

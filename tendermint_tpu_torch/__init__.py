@@ -15,15 +15,18 @@ Entry points (``ops.verify_batch``, ``ops.sr25519_batch.verify_batch_sr``,
 ``crypto.sr25519.Sr25519BatchVerifier``,
 ``types.validation.verify_commit`` and its light variants,
 ``parallel.pipeline.verify_commits_pipelined``, the ``light.verifier``
-entry points and ``light.batch.evaluate_candidates``) take ``device=``.
+entry points, ``light.batch.evaluate_candidates`` and
+``light.client.LightClient``, which ``light.lightd.LightServer`` serves)
+take ``device=``.
 Without it they use :data:`DEFAULT_DEVICE`, which is ``"cuda"``: where
 CUDA is absent they raise rather than run on the CPU. Tests set
 ``DEFAULT_DEVICE = "cpu"``. The shared scheduler
 (``crypto.batch.get_shared_scheduler``) and the vote ingest that rides it
 (``consensus.reactor.VotePreverifier`` into ``types.vote_set.VoteSet``)
 resolve :data:`DEFAULT_DEVICE` at each flush, the same way; so
-``evaluate_candidates`` on the shared scheduler refuses a ``device=``
-other than :data:`DEFAULT_DEVICE`.
+``evaluate_candidates`` on the shared scheduler, and so a
+``LightClient`` that bisects in rounds, refuses a ``device=`` other than
+:data:`DEFAULT_DEVICE`.
 """
 
 DEFAULT_DEVICE = "cuda"

@@ -4,9 +4,10 @@ The ed25519 and sr25519 part of ``tendermint_tpu/crypto/keys.py``
 (reference crypto/crypto.go:38-76): ``PubKey`` (address, bytes, verify),
 private keys (sign, pub_key) and 20-byte addresses, SHA256(pubkey)[:20]
 (crypto/crypto.go:27 AddressHash), and the proto encoding of a public
-key that the validator-set hash reads. Ed25519 verification follows
-ZIP-215 through the host oracle and signing RFC 8032; the sr25519 keys
-live in :mod:`tendermint_tpu_torch.crypto.sr25519`.
+key that the validator-set hash reads and the light store decodes.
+Ed25519 verification follows ZIP-215 through the host oracle and signing
+RFC 8032; the sr25519 keys live in
+:mod:`tendermint_tpu_torch.crypto.sr25519`.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import hashlib
 from abc import ABC, abstractmethod
 
 from tendermint_tpu_torch.crypto import ed25519_ref
-from tendermint_tpu_torch.encoding.proto import encode_bytes_field
+from tendermint_tpu_torch.encoding.proto import Reader, encode_bytes_field
 
 ADDRESS_LEN = 20
 
@@ -121,3 +122,21 @@ def pubkey_to_proto(pub: PubKey) -> bytes:
     if pub.type == SR25519_KEY_TYPE:
         return encode_bytes_field(3, pub.bytes())
     raise ValueError(f"unknown key type {pub.type}")
+
+
+def pubkey_from_proto(data: bytes) -> PubKey:
+    """The key of a tendermint.crypto.PublicKey. A secp256k1 key (field
+    2), which the port does not have, raises ``ValueError``, as
+    ``pubkey_to_proto`` does for it."""
+    r = Reader(data)
+    for field, wire in r.fields():
+        if field == 1 and wire == 2:
+            return Ed25519PubKey(r.read_bytes())
+        if field == 3 and wire == 2:
+            from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
+
+            return Sr25519PubKey(r.read_bytes())
+        if field == 2:
+            raise ValueError("unknown key type secp256k1")
+        r.skip(wire)
+    raise ValueError("empty PublicKey proto")

@@ -35,8 +35,8 @@ verifier's exception, as the sequential ``verifier.verify`` does.
 A verdict wait that runs out still fails closed, as in the reference.
 
 The reference's ``batching_enabled`` and its environment knob
-(``TENDERMINT_TPU_LIGHT_BATCH``) are left out: their caller, the
-light client's bisection loop (``light/client.py``), is not ported.
+(``TENDERMINT_TPU_LIGHT_BATCH``) are left out: the light client
+(``light/client.py``) takes ``bisect_batching=`` instead.
 """
 
 from __future__ import annotations
@@ -338,6 +338,17 @@ def _resolve_sequential(
         return Outcome(ERROR, e)
 
 
+def check_shared_device(device) -> None:
+    """Raise ``ValueError`` unless ``device`` is the package's device,
+    the one the shared scheduler verifies on."""
+    device, shared = resolve_device(device), resolve_device(None)
+    if (device.type, device.index or 0) != (shared.type, shared.index or 0):
+        raise ValueError(
+            f"the shared scheduler verifies on the package's device "
+            f"{shared}, not {device}; pass a scheduler for {device}"
+        )
+
+
 def evaluate_candidates(
     chain_id: str,
     base,
@@ -363,12 +374,7 @@ def evaluate_candidates(
     in ``timed_out``."""
     device = resolve_device(device)
     if scheduler is None:
-        shared = resolve_device(None)
-        if (device.type, device.index or 0) != (shared.type, shared.index or 0):
-            raise ValueError(
-                f"the shared scheduler verifies on the package's device "
-                f"{shared}, not {device}; pass a scheduler for {device}"
-            )
+        check_shared_device(device)
     plans = [
         _plan_candidate(
             chain_id, base, c, trusting_period, now, max_clock_drift,

@@ -1,0 +1,79 @@
+"""Trusted light-block store (light/store/store.go + store/db).
+
+Counterpart of ``tendermint_tpu/light/store.py``, whole: verified
+LightBlocks keyed by height over the KV seam, kept as proto bytes and
+decoded on every read, as in the reference. In memory by default
+(``MemDB``).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+from tendermint_tpu_torch.storage.kv import KVStore, MemDB, ordered_key, prefix_end
+from tendermint_tpu_torch.types.light import LightBlock
+
+PREFIX_LIGHT_BLOCK = 11
+
+
+def _lb_key(height: int) -> bytes:
+    return ordered_key(PREFIX_LIGHT_BLOCK, height)
+
+
+class LightStore:
+    """light/store.Store over a KVStore (light/store/db/db.go)."""
+
+    def __init__(self, db: Optional[KVStore] = None):
+        self._db = db or MemDB()
+        self._lock = threading.Lock()
+
+    def save_light_block(self, lb: LightBlock) -> None:
+        if lb.height <= 0:
+            raise ValueError("lightBlock.Height <= 0")
+        with self._lock:
+            self._db.set(_lb_key(lb.height), lb.to_proto_bytes())
+
+    def delete_light_block(self, height: int) -> None:
+        with self._lock:
+            self._db.delete(_lb_key(height))
+
+    def light_block(self, height: int) -> Optional[LightBlock]:
+        raw = self._db.get(_lb_key(height))
+        return LightBlock.from_proto_bytes(raw) if raw is not None else None
+
+    def _all(self):
+        return self._db.iterator(_lb_key(0), prefix_end(bytes([PREFIX_LIGHT_BLOCK])))
+
+    def latest_light_block(self) -> Optional[LightBlock]:
+        for _, v in self._db.reverse_iterator(
+            _lb_key(0), prefix_end(bytes([PREFIX_LIGHT_BLOCK]))
+        ):
+            return LightBlock.from_proto_bytes(v)
+        return None
+
+    def first_light_block(self) -> Optional[LightBlock]:
+        for _, v in self._all():
+            return LightBlock.from_proto_bytes(v)
+        return None
+
+    def light_block_before(self, height: int) -> Optional[LightBlock]:
+        """Highest stored block with height < `height` (db.go
+        LightBlockBefore)."""
+        for _, v in self._db.reverse_iterator(_lb_key(0), _lb_key(height)):
+            return LightBlock.from_proto_bytes(v)
+        return None
+
+    def heights(self) -> list:
+        """All stored heights, ascending. lightd uses the before/after
+        delta of this to memoize which pivots proved a verification."""
+        return [int.from_bytes(k[1:9], "big") for k, _ in self._all()]
+
+    def prune(self, size: int) -> None:
+        """Keep only the newest `size` blocks (db.go Prune)."""
+        heights = self.heights()
+        for h in heights[: max(0, len(heights) - size)]:
+            self.delete_light_block(h)
+
+    def size(self) -> int:
+        return sum(1 for _ in self._all())

@@ -5,7 +5,8 @@ The part of ``tendermint_tpu/types/block.py`` (types/block.go,
 types/vote.go) that commit verification, the light client and the vote
 set read: the block-ID flags, the commit signatures and
 ``Commit.vote_sign_bytes``, the ``validate_basic`` checks, the proto
-encodings the hashes read, ``Header.hash``, and ``Vote`` with its
+encodings the hashes and the light store read and their decoders
+(``from_proto_bytes``), ``Header.hash``, and ``Vote`` with its
 sign-bytes, its checks and the pre-verification tag of the vote
 pre-verifier (``consensus/reactor.py``). Wire
 encoding is gogoproto-compatible (ascending fields, proto3 zero
@@ -29,6 +30,7 @@ from tendermint_tpu_torch.encoding.canonical import (
     vote_sign_bytes,
 )
 from tendermint_tpu_torch.encoding.proto import (
+    Reader,
     encode_bytes_field,
     encode_message_field,
     encode_varint_field,
@@ -60,6 +62,24 @@ def validate_hash(h: bytes) -> None:
         raise ValueError(f"expected hash size {HASH_SIZE}, got {len(h)}")
 
 
+def _encode_time_field(field_no: int, ts: Timestamp) -> bytes:
+    """Non-nullable stdtime field: always serialized (gogo marshaller)."""
+    return encode_message_field(field_no, ts.encode())
+
+
+def _decode_time(data: bytes) -> Timestamp:
+    r = Reader(data)
+    seconds = nanos = 0
+    for f, w in r.fields():
+        if f == 1 and w == 0:
+            seconds = r.read_svarint()
+        elif f == 2 and w == 0:
+            nanos = r.read_svarint()
+        else:
+            r.skip(w)
+    return Timestamp(seconds, nanos)
+
+
 def cdc_encode_bytes(b: bytes) -> bytes:
     """gogotypes.BytesValue wrapper (types/encoding_helper.go:11)."""
     return encode_bytes_field(1, b)
@@ -83,6 +103,19 @@ class Consensus:
     def to_proto_bytes(self) -> bytes:
         return encode_varint_field(1, self.block) + encode_varint_field(2, self.app)
 
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "Consensus":
+        r = Reader(data)
+        block = app = 0
+        for f, w in r.fields():
+            if f == 1 and w == 0:
+                block = r.read_varint()
+            elif f == 2 and w == 0:
+                app = r.read_varint()
+            else:
+                r.skip(w)
+        return cls(block, app)
+
 
 @dataclass(frozen=True)
 class PartSetHeader:
@@ -101,6 +134,19 @@ class PartSetHeader:
 
     def to_proto_bytes(self) -> bytes:
         return encode_varint_field(1, self.total) + encode_bytes_field(2, self.hash)
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "PartSetHeader":
+        r = Reader(data)
+        total, hash_ = 0, b""
+        for f, w in r.fields():
+            if f == 1 and w == 0:
+                total = r.read_varint()
+            elif f == 2 and w == 2:
+                hash_ = r.read_bytes()
+            else:
+                r.skip(w)
+        return cls(total, hash_)
 
 
 @dataclass(frozen=True)
@@ -132,6 +178,19 @@ class BlockID:
         return encode_bytes_field(1, self.hash) + encode_message_field(
             2, self.part_set_header.to_proto_bytes()
         )
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "BlockID":
+        r = Reader(data)
+        hash_, psh = b"", PartSetHeader()
+        for f, w in r.fields():
+            if f == 1 and w == 2:
+                hash_ = r.read_bytes()
+            elif f == 2 and w == 2:
+                psh = PartSetHeader.from_proto_bytes(r.read_bytes())
+            else:
+                r.skip(w)
+        return cls(hash_, psh)
 
 
 NIL_BLOCK_ID = BlockID()
@@ -189,9 +248,26 @@ class CommitSig:
         return (
             encode_varint_field(1, self.block_id_flag)
             + encode_bytes_field(2, self.validator_address)
-            + encode_message_field(3, self.timestamp.encode())
+            + _encode_time_field(3, self.timestamp)
             + encode_bytes_field(4, self.signature)
         )
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "CommitSig":
+        r = Reader(data)
+        out = cls()
+        for f, w in r.fields():
+            if f == 1 and w == 0:
+                out.block_id_flag = r.read_varint()
+            elif f == 2 and w == 2:
+                out.validator_address = r.read_bytes()
+            elif f == 3 and w == 2:
+                out.timestamp = _decode_time(r.read_bytes())
+            elif f == 4 and w == 2:
+                out.signature = r.read_bytes()
+            else:
+                r.skip(w)
+        return out
 
 
 @dataclass
@@ -240,6 +316,23 @@ class Commit:
         out += encode_message_field(3, self.block_id.to_proto_bytes())
         for cs in self.signatures:
             out += encode_message_field(4, cs.to_proto_bytes())
+        return out
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "Commit":
+        r = Reader(data)
+        out = cls()
+        for f, w in r.fields():
+            if f == 1 and w == 0:
+                out.height = r.read_svarint()
+            elif f == 2 and w == 0:
+                out.round = r.read_svarint()
+            elif f == 3 and w == 2:
+                out.block_id = BlockID.from_proto_bytes(r.read_bytes())
+            elif f == 4 and w == 2:
+                out.signatures.append(CommitSig.from_proto_bytes(r.read_bytes()))
+            else:
+                r.skip(w)
         return out
 
 
@@ -378,6 +471,20 @@ class VoteError(ValueError):
     pass
 
 
+# Header fields 6-14, the hashes and the proposer address, in field order.
+_HEADER_HASH_FIELDS = (
+    "last_commit_hash",
+    "data_hash",
+    "validators_hash",
+    "next_validators_hash",
+    "consensus_hash",
+    "app_hash",
+    "last_results_hash",
+    "evidence_hash",
+    "proposer_address",
+)
+
+
 @dataclass
 class Header:
     """types/block.go:332-358: the fields, their hash and their checks."""
@@ -448,3 +555,34 @@ class Header:
                 raise ValueError(f"wrong {name}: {e}") from e
         if len(self.proposer_address) != ADDRESS_LEN:
             raise ValueError("invalid ProposerAddress length")
+
+    def to_proto_bytes(self) -> bytes:
+        out = encode_message_field(1, self.version.to_proto_bytes())
+        out += encode_bytes_field(2, self.chain_id.encode("utf-8"))
+        out += encode_varint_field(3, self.height)
+        out += _encode_time_field(4, self.time)
+        out += encode_message_field(5, self.last_block_id.to_proto_bytes())
+        for field_no, name in enumerate(_HEADER_HASH_FIELDS, start=6):
+            out += encode_bytes_field(field_no, getattr(self, name))
+        return out
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "Header":
+        r = Reader(data)
+        out = cls()
+        for f, w in r.fields():
+            if f == 1 and w == 2:
+                out.version = Consensus.from_proto_bytes(r.read_bytes())
+            elif f == 2 and w == 2:
+                out.chain_id = r.read_bytes().decode("utf-8")
+            elif f == 3 and w == 0:
+                out.height = r.read_svarint()
+            elif f == 4 and w == 2:
+                out.time = _decode_time(r.read_bytes())
+            elif f == 5 and w == 2:
+                out.last_block_id = BlockID.from_proto_bytes(r.read_bytes())
+            elif 6 <= f <= 14 and w == 2:
+                setattr(out, _HEADER_HASH_FIELDS[f - 6], r.read_bytes())
+            else:
+                r.skip(w)
+        return out

@@ -1,9 +1,9 @@
 """SignedHeader and LightBlock (types/light.go).
 
 The light client's unit of verification: a header plus the commit that
-signed it, and the validator set that produced the commit. The part of
-``tendermint_tpu/types/light.py`` that verification reads, without the
-proto encoders and decoders.
+signed it, and the validator set that produced the commit, with their
+proto encodings, in which the light store keeps them
+(``tendermint_tpu/types/light.py``).
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+from tendermint_tpu_torch.encoding.proto import Reader, encode_message_field
 from tendermint_tpu_torch.types.block import Commit, Header
 from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
@@ -53,6 +54,27 @@ class SignedHeader:
         if self.header.hash() != self.commit.block_id.hash:
             raise ValueError("commit signs a different block than the header")
 
+    def to_proto_bytes(self) -> bytes:
+        out = b""
+        if self.header is not None:
+            out += encode_message_field(1, self.header.to_proto_bytes())
+        if self.commit is not None:
+            out += encode_message_field(2, self.commit.to_proto_bytes())
+        return out
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "SignedHeader":
+        r = Reader(data)
+        out = cls()
+        for f, w in r.fields():
+            if f == 1 and w == 2:
+                out.header = Header.from_proto_bytes(r.read_bytes())
+            elif f == 2 and w == 2:
+                out.commit = Commit.from_proto_bytes(r.read_bytes())
+            else:
+                r.skip(w)
+        return out
+
 
 @dataclass
 class LightBlock:
@@ -60,6 +82,17 @@ class LightBlock:
 
     signed_header: Optional[SignedHeader] = None
     validator_set: Optional[ValidatorSet] = None
+
+    @property
+    def height(self) -> int:
+        return self.signed_header.height if self.signed_header else 0
+
+    @property
+    def header(self) -> Optional[Header]:
+        return self.signed_header.header if self.signed_header else None
+
+    def hash(self) -> bytes:
+        return self.signed_header.hash() if self.signed_header else b""
 
     def validate_basic(self, chain_id: str) -> None:
         """types/light.go LightBlock.ValidateBasic."""
@@ -71,3 +104,24 @@ class LightBlock:
         self.validator_set.validate_basic()
         if self.signed_header.header.validators_hash != self.validator_set.hash():
             raise ValueError("expected validator hash of header to match validator set hash")
+
+    def to_proto_bytes(self) -> bytes:
+        out = b""
+        if self.signed_header is not None:
+            out += encode_message_field(1, self.signed_header.to_proto_bytes())
+        if self.validator_set is not None:
+            out += encode_message_field(2, self.validator_set.to_proto_bytes())
+        return out
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "LightBlock":
+        r = Reader(data)
+        out = cls()
+        for f, w in r.fields():
+            if f == 1 and w == 2:
+                out.signed_header = SignedHeader.from_proto_bytes(r.read_bytes())
+            elif f == 2 and w == 2:
+                out.validator_set = ValidatorSet.from_proto_bytes(r.read_bytes())
+            else:
+                r.skip(w)
+        return out
