@@ -100,6 +100,33 @@ and, in order:
    ``light_status`` and ``/metrics``; 11d, a witness with a conflicting
    16 gives ``DivergedHeaderError`` with its evidence at the primary,
    and through lightd ``INTERNAL_ERROR`` with the chain's cache dropped;
+12. the main path observed: the port's tracer in ``ring`` mode, one
+   ``OpsMetrics`` (and lightd's ``LightMetrics``) in one registry bound
+   to every unit, the stage observer and the kernel profiler installed.
+   12a, the steady 10,000-validator commit (phase 4's set, its tables
+   built in the set-up's pool) with the verdict cache emptied, then
+   warm: the span tree (``verify_commit`` > ``verify_batch`` >
+   ``cache_lookup`` with 0 then 10,000 hits, one ``prep_chunk``,
+   ``dispatch_chunk`` and ``collect_chunk`` a K3 chunk, no
+   ``host_fallback``), the stage
+   histogram against the stage spans, the store and cache counters
+   against ``stats()``, and the byte ledger against the store tensor,
+   ``memstats()`` and ``torch.cuda.memory_allocated()``; 12f, 5 steady
+   commits with the instruments off against 5 with them on, in turns;
+   12e, ``torch.profiler`` (CPU and CUDA) over one steady commit and
+   one 8,192-lane batch: the kernels it saw against the launches
+   counted, the device-busy share of the wall, the top device
+   operations and the longest idle gaps with the tracer span open on
+   the host at each, the Chrome traces written under ``--trace-dir``
+   (default ``build``); 12b, the mixed commit once (sr25519 spans
+   against K5 launches); 12c, a fault on one chunk with host fallback
+   off (it escapes) and on (``host_fallback`` span lanes, the fallback
+   counter and ``snapshot()`` agree; the transition instants equal the
+   counter); 12d, phase 11's lightd with the ops metrics in its
+   registry: a cold ``light_header`` whose request carries a ``trace``
+   member, ``/metrics``, ``/debug/traces?format=chrome`` (the serve's
+   ``verify_batch`` spans in the request's trace under
+   ``rpc_dispatch``) and ``/debug/memstats``;
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -115,7 +142,7 @@ and, in order:
 
 Kernel launch counts are reset just before phase 3 and read just after
 phase 4b (K1-K4), and again around each of phases 5 (K5, and the
-ed25519 kernels of the mixed commit), 7, 8, 9, 10 and 11. After each
+ed25519 kernels of the mixed commit), 7, 8, 9, 10, 11 and 12. After each
 of these the health machine must show no host fallback, no transition
 and the healthy state. Each phase prints one JSON line; then the kernel table,
 the card's ``nvidia-smi`` name and power limit, and last
@@ -354,6 +381,12 @@ def _sr_challenge(job):
     return tsb._challenge_row(msg, pub, r).tobytes()
 
 
+def _table(pk: bytes):
+    from tendermint_tpu_torch.ops import precompute
+
+    return (pk, *precompute.build_table(pk))
+
+
 class Signer:
     """Pure-Python key generation and signing spread over a process pool."""
 
@@ -380,6 +413,11 @@ class Signer:
     def sr_challenges(self, msgs, pks, rs):
         """The Merlin challenge rows k of sr25519 lanes, as 32 bytes each."""
         return self.pool.map(_sr_challenge, list(zip(msgs, pks, rs)), chunksize=64)
+
+    def tables(self, vset):
+        """The host tables ``(pk, table, ok)`` of ``vset``'s keys, built as
+        ``precompute.build_table`` builds them."""
+        return self.pool.map(_table, [v.pub_key.bytes() for v in vset.validators], chunksize=64)
 
 
 def fault_lanes(rng, signer):
@@ -2434,9 +2472,620 @@ def fallback_cases(health, wants, runs, injected) -> dict:
     return cases
 
 
-def main() -> int:
+# --- phase 12 ------------------------------------------------------------------
+
+OBSERVED_RING_CAP = 1 << 17  # spans phase 12 keeps; a lightd cold serve opens about 2,000
+OVERHEAD_REPS = 5  # steady commits a side in 12f
+PROFILE_TOP_OPS = 10
+PROFILE_IDLE_GAPS = 5
+PROFILE_SAMPLES = 256  # points a stretch of the trace is sampled at for its host spans
+SPAN_COST_REPS = 20_000  # spans timed for 12f's cost a span
+# The kernels' function names, as the profiler reports them.
+KERNEL_FUNCTIONS = {
+    "verify": "ed25519_verify_kernel", "verify_tables": "ed25519_verify_tables_kernel",
+    "verify_resident": "ed25519_verify_resident_kernel", "verify_sr": "sr25519_verify_kernel",
+    "challenge": "sha512_challenge_kernel",
+}
+
+
+def spans_of(events, name, **tags):
+    """The completed spans called ``name`` whose args hold ``tags``."""
+    return [e for e in events if e.get("ph") == "X" and e["name"] == name
+            and all(e["args"].get(k) == v for k, v in tags.items())]
+
+
+def stage_spans(events):
+    """{(stage, engine): count} of the spans tagged with both."""
+    out = {}
+    for e in events:
+        stage, engine = e["args"].get("stage"), e["args"].get("engine")
+        if e.get("ph") == "X" and stage and engine:
+            out[(stage, engine)] = out.get((stage, engine), 0) + 1
+    return out
+
+
+def stage_histogram(ops):
+    """{(stage, engine): observations} of ``verify_stage_seconds``."""
+    return {(dict(k)["stage"], dict(k)["engine"]): n for k, n in ops.verify_stage_seconds.counts().items()}
+
+
+class Observed:
+    """Phase 12's instruments and the readings a part is checked by: the
+    tracer's ring in ``ring`` mode, one ``OpsMetrics`` (and the
+    ``LightMetrics`` lightd serves) in one registry, bound to every unit,
+    the stage observer and the kernel profiler."""
+
+    def __init__(self):
+        from tendermint_tpu_torch import ops as tops
+        from tendermint_tpu_torch.libs import tracing
+        from tendermint_tpu_torch.libs.metrics import LightMetrics, OpsMetrics, Registry
+        from tendermint_tpu_torch.ops import introspect
+
+        self.tracing, self.introspect = tracing, introspect
+        self.registry = Registry()
+        self.ops = OpsMetrics(self.registry)
+        self.light = LightMetrics(self.registry)
+        tops.bind_metrics(self.ops)
+        self.on()
+
+    def on(self):
+        self.tracing.configure("ring", cap=OBSERVED_RING_CAP)
+        self.tracing.tracer.set_metrics_observer(self.tracing.metrics_observer(ops=self.ops))
+        self.introspect.install()
+
+    def off(self):
+        self.tracing.configure("off")
+        self.tracing.tracer.set_metrics_observer(None)
+        self.introspect.uninstall()
+
+    def close(self):
+        from tendermint_tpu_torch import ops as tops
+
+        self.off()
+        self.tracing.tracer.clear()
+        tops.bind_metrics(None)
+
+    def mark(self):
+        """What a part's checks are deltas from."""
+        from tendermint_tpu_torch.ops import hash512, precompute, resident
+
+        return {"launches": launches(), "resident": resident.stats(),
+                "results": precompute.results.stats(), "hash": hash512.stats(),
+                "stages": stage_histogram(self.ops), "counters": self.counters(),
+                "ring": self.tracing.tracer.recorded}
+
+    def counters(self):
+        ops = self.ops
+        out = {name: getattr(ops, attr).value() for name, attr in (
+            ("table_resident_hits", "table_resident_hits"),
+            ("table_resident_misses", "table_resident_misses"),
+            ("result_cache_hits", "result_cache_hits"), ("result_cache_misses", "result_cache_misses"),
+            ("hash_device_lanes", "hash_device_lanes"), ("precompute_builds", "precompute_builds"))}
+        for engine in ("ed25519", "sr25519"):
+            out[f"fallback_lanes_{engine}"] = ops.device_fallback_lanes.value(engine=engine)
+        for kind in ("transient", "permanent"):
+            out[f"failures_{kind}"] = ops.device_failures.value(kind=kind)
+        with ops.device_transitions._lock:
+            out["transitions"] = sum(ops.device_transitions._values.values())
+        return out
+
+    def since(self, mark):
+        """The events of the ring since ``mark`` (the ring must not have
+        wrapped) and every delta the checks read."""
+        from tendermint_tpu_torch.ops import hash512, precompute, resident
+
+        tracer = self.tracing.tracer
+        new = tracer.recorded - mark["ring"]
+        check(new <= tracer.cap, f"phase 12: {new} events overflowed the ring of {tracer.cap}")
+        events = tracer.events()[-new:] if new else []
+        sub = lambda a, b: {k: a[k] - b.get(k, 0) for k in a if a[k] - b.get(k, 0)}
+        return events, {
+            "launches": sub(launches(), mark["launches"]),
+            "resident": sub(resident.stats(), mark["resident"]),
+            "results": sub(precompute.results.stats(), mark["results"]),
+            "hash": sub(hash512.stats(), mark["hash"]),
+            "stages": sub(stage_histogram(self.ops), mark["stages"]),
+            "counters": sub(self.counters(), mark["counters"]),
+        }
+
+
+def check_engine_spans(part, events, d, engine, kernel, chunks=None, kind=None, parent="verify_batch"):
+    """A part's per-chunk spans of ``engine``: one prep, dispatch and
+    collect a chunk (``kind`` where given) under ``parent``, as many
+    dispatches as ``kernel`` launches, no host fallback."""
+    tags = {"engine": engine, **({"kind": kind} if kind else {})}
+    counts = {name: len(spans_of(events, name, **tags))
+              for name in ("prep_chunk", "dispatch_chunk", "collect_chunk")}
+    launched = d["launches"].get(kernel, 0)
+    check(counts["dispatch_chunk"] == launched > 0,
+          f"{part}: {counts['dispatch_chunk']} dispatch_chunk spans of {engine}, {launched} {kernel} launches")
+    check(counts["prep_chunk"] == counts["collect_chunk"] == launched,
+          f"{part}: per-chunk spans {counts}, {launched} launches")
+    if chunks is not None:
+        check(launched == chunks, f"{part}: {launched} {kernel} launches, expected {chunks}")
+    check(not spans_of(events, "host_fallback"), f"{part}: a host_fallback span")
+    for name in counts:
+        for e in spans_of(events, name, **tags):
+            check(e["args"]["parent"] == parent, f"{part}: {name} under {e['args']['parent']}")
+    return counts
+
+
+def check_stage_histogram(part, events, d):
+    """The stage histogram observed exactly the part's stage spans."""
+    check(d["stages"] == stage_spans(events),
+          f"{part}: stage histogram {d['stages']} != stage spans {stage_spans(events)}")
+
+
+def check_ledger(part):
+    """The resident store's bytes in the ledger, its gauge and memstats
+    equal the store tensor's, within what the card holds."""
     import torch
 
+    from tendermint_tpu_torch.ops import introspect, resident
+
+    nbytes = resident.store.device_nbytes()
+    ledger = introspect.accountant.bytes_for("resident_tables")
+    mem = introspect.memstats()
+    gauge = OBSERVED.ops.device_bytes.value(owner="resident_tables")
+    allocated = torch.cuda.memory_allocated()
+    check(nbytes == ledger == gauge == mem["device_bytes"].get("resident_tables", 0) <= allocated,
+          f"{part}: store {nbytes} B, ledger {ledger}, gauge {gauge}, memstats {mem['device_bytes']}, "
+          f"allocated {allocated}")
+    return {"store_bytes": nbytes, "ledger_bytes": ledger, "memory_allocated": allocated}
+
+
+OBSERVED = None  # phase 12's instruments, while it runs
+
+
+def restore_tables(vset, tables):
+    """Activate ``vset`` and put its host tables, built in the set-up's
+    pool, into the cache."""
+    from tendermint_tpu_torch.ops import precompute
+
+    precompute.activate_validator_set(vset)
+    for pk, tab, ok in tables:
+        precompute.tables.insert(pk, tab, ok)
+
+
+def observed_commit(commit_wl, dev):
+    """12a: the steady 10,000-validator commit, verdict cache emptied, then
+    warm."""
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    vset, block_id, commits = commit_wl
+    c = commits[1]
+    chunks = len(chunk_sizes(COMMIT_VALIDATORS))
+    mark = OBSERVED.mark()
+    precompute.results.clear()
+    t = time.perf_counter()
+    verify_commit(CHAIN_ID, vset, block_id, c.height, c, device=dev)
+    cold_s = time.perf_counter() - t
+    t = time.perf_counter()
+    verify_commit(CHAIN_ID, vset, block_id, c.height, c, device=dev)
+    warm_s = time.perf_counter() - t
+    events, d = OBSERVED.since(mark)
+    part = "phase 12a"
+    vcs = spans_of(events, "verify_commit")
+    check(len(vcs) == 2 and all(e["args"] == {"height": c.height, "round": c.round,
+                                              "sigs": COMMIT_VALIDATORS} for e in vcs),
+          f"{part}: verify_commit spans {[e['args'] for e in vcs]}")
+    vbs = spans_of(events, "verify_batch", engine="ed25519")
+    check(len(vbs) == 2 and all(e["args"]["parent"] == "verify_commit" for e in vbs),
+          f"{part}: verify_batch spans {[e['args'] for e in vbs]}")
+    hits = [e["args"]["hits"] for e in spans_of(events, "cache_lookup")]
+    check(hits == [0, COMMIT_VALIDATORS], f"{part}: cache_lookup hits {hits}")
+    counts = check_engine_spans(part, events, d, "ed25519", "verify_resident", chunks, "resident")
+    check(not spans_of(events, "dispatch_chunk", kind="tables")
+          and not spans_of(events, "dispatch_chunk", kind="legacy"), f"{part}: a K1 or K2 chunk")
+    check_stage_histogram(part, events, d)
+    k = d["counters"]
+    check(k.get("table_resident_hits", 0) == d["resident"].get("hits", 0) == COMMIT_VALIDATORS
+          and k.get("table_resident_misses", 0) == d["resident"].get("misses", 0),
+          f"{part}: resident counters {k} vs stats {d['resident']}")
+    check(k.get("result_cache_hits", 0) == d["results"].get("hits", 0) == COMMIT_VALIDATORS
+          and k.get("result_cache_misses", 0) == d["results"].get("misses", 0) == COMMIT_VALIDATORS,
+          f"{part}: result-cache counters {k} vs stats {d['results']}")
+    check(k.get("hash_device_lanes", 0) == d["hash"].get("device_lanes", 0),
+          f"{part}: hash counter {k} vs stats {d['hash']}")
+    check(k.get("precompute_builds", 0) == 0, f"{part}: table builds {k}: the saved tables were not used")
+    ledger = check_ledger(part)
+    check(ledger["store_bytes"] == (COMMIT_VALIDATORS + 1) * TABLE_BYTES, f"{part}: store {ledger}")
+    check(OBSERVED.ops.inflight_lanes.value(engine="ed25519") == 0, f"{part}: lanes left in flight")
+    uploads = spans_of(events, "resident_upload")
+    check(len(uploads) == d["resident"].get("uploads", 0) == 1
+          and uploads[0]["args"]["bytes"] == ledger["store_bytes"], f"{part}: uploads {uploads}")
+    check_healthy(part)
+    return {"cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3, "spans": counts,
+            "launches": d["launches"], "stage_spans": {f"{s}/{e}": n for (s, e), n in stage_spans(events).items()},
+            "counters": k, **ledger}
+
+
+def observed_mixed(mixed_wl, dev):
+    """12b: the mixed commit, once: K5 under sr25519 spans, K3 under
+    ed25519 spans."""
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    vset, block_id, commit, _, _ = mixed_wl
+    n_sr = sum(v.pub_key.type == "sr25519" for v in vset.validators)
+    mark = OBSERVED.mark()
+    precompute.results.clear()
+    t = time.perf_counter()
+    verify_commit(CHAIN_ID, vset, block_id, commit.height, commit, device=dev)
+    secs = time.perf_counter() - t
+    events, d = OBSERVED.since(mark)
+    part = "phase 12b"
+    sr = check_engine_spans(part, events, d, "sr25519", "verify_sr", len(chunk_sizes(n_sr)),
+                            parent="verify_commit")
+    ed = check_engine_spans(part, events, d, "ed25519", "verify_resident",
+                            len(chunk_sizes(MIXED_VALIDATORS - n_sr)), "resident")
+    check_stage_histogram(part, events, d)
+    k = d["counters"]
+    check(k.get("hash_device_lanes", 0) == d["hash"].get("device_lanes", 0),
+          f"{part}: hash counter {k} vs stats {d['hash']}")
+    check(k.get("result_cache_misses", 0) == d["results"].get("misses", 0),
+          f"{part}: result-cache counters {k} vs stats {d['results']}")
+    check_ledger(part)
+    check_healthy(part)
+    return {"ms": secs * 1e3, "sr25519_spans": sr, "ed25519_spans": ed, "launches": d["launches"],
+            "hash_device_lanes": d["hash"].get("device_lanes", 0), "counters": k}
+
+
+def observed_faults(ed_lanes, dev):
+    """12c: a transient fault on one chunk, with host fallback off (it
+    escapes) and on (the host answers the chunk)."""
+    import warnings
+
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.ops import device_policy, fault_injection, precompute, verify_batch
+
+    health = device_policy.shared
+    ed = [x[:FAULT_ED_LANES] for x in ed_lanes[:3]]
+    want = [ref.verify_zip215(*lane) for lane in zip(*ed)]
+
+    def run():
+        precompute.results.clear()
+        return verify_batch(*ed, device=dev)
+
+    part = "phase 12c"
+    health.reset()
+    mark = OBSERVED.mark()
+    with fault_injection.inject(site="ed25519.chunk", fail_calls=(1,)) as plan:
+        try:
+            run()
+            raised = None
+        except fault_injection.DeviceFault as exc:
+            raised = exc
+    check(raised is not None and plan.faults_raised == 1, f"{part}: the fault did not escape")
+    check(OBSERVED.ops.inflight_lanes.value(engine="ed25519") == 0,
+          f"{part}: lanes left in flight after the escaped fault")
+    check(run() == want and health.state == "healthy", f"{part}: no recovery after the fault")
+    check(not spans_of(OBSERVED.since(mark)[0], "host_fallback"),
+          f"{part}: a host_fallback span with host fallback off")
+    health.host_fallback = True
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with fault_injection.inject(site="ed25519.chunk", fail_calls=(1,)) as plan:
+                got = run()
+    finally:
+        health.host_fallback = False
+    check(got == want and plan.faults_raised == 1, f"{part}: verdicts under host fallback")
+    check(run() == want and health.state == "healthy", f"{part}: no recovery after the fallback")
+    events, d = OBSERVED.since(mark)
+    snap = health.snapshot()
+    k = d["counters"]
+    fb = spans_of(events, "host_fallback", engine="ed25519", stage="fallback")
+    fb_lanes = sum(e["args"]["lanes"] for e in fb)
+    check(len(fb) == 1 and fb_lanes == k.get("fallback_lanes_ed25519", 0)
+          == snap["fallback_lanes"]["ed25519"] == FAULT_ED_LANES,
+          f"{part}: host_fallback spans {fb_lanes} lanes, counter {k}, snapshot {snap}")
+    instants = [e for e in events if e.get("ph") == "i" and e["name"] == "device_health_transition"]
+    edges = [(e["args"]["from_state"], e["args"]["to_state"]) for e in instants]
+    check(edges == snap["transitions"] and len(edges) == k.get("transitions", 0) == 4,
+          f"{part}: transition instants {edges}, counter {k}, snapshot {snap['transitions']}")
+    check(k.get("failures_transient", 0) == snap["failures"]["transient"] == 2,
+          f"{part}: failures {k} vs {snap['failures']}")
+    check_stage_histogram(part, events, d)
+    health.reset()
+    return {"lanes": FAULT_ED_LANES, "raised_without_fallback": type(raised).__name__,
+            "fallback_span_lanes": fb_lanes, "transitions": edges, "counters": k}
+
+
+def trace_ancestors(by_id, event):
+    """The span ids above ``event`` through its parent_span_id links."""
+    out, sid = [], event.get("parent_span_id")
+    while sid and sid not in out:
+        out.append(sid)
+        sid = by_id.get(sid, {}).get("parent_span_id")
+    return out
+
+
+def observed_lightd(lightd_wl, dev):
+    """12d: phase 11's server with the ops metrics in its registry: a
+    cold ``light_header`` whose request carries a ``trace`` member, then
+    ``/metrics``, ``/debug/traces`` and ``/debug/memstats``."""
+    import urllib.request
+
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.light.client import LightClient, TrustOptions
+    from tendermint_tpu_torch.light.lightd import LightServer
+    from tendermint_tpu_torch.light.provider import MemoryProvider, RetryingProvider
+    from tendermint_tpu_torch.ops import precompute, resident
+
+    chain = lightd_wl[0]
+    top = LIGHTD_HEADERS
+    now = Timestamp.from_unix_ns(chain[-1].header.time.to_unix_ns() + 2 * 10**9)
+    tracing = OBSERVED.tracing
+    part = "phase 12d"
+    client = LightClient(
+        CHAIN_ID, TrustOptions(period=LIGHT_TRUSTING_PERIOD_S, height=1, hash=chain[0].hash()),
+        RetryingProvider(MemoryProvider(CHAIN_ID, chain)), [MemoryProvider(CHAIN_ID, chain)],
+        max_clock_drift=LIGHT_MAX_CLOCK_DRIFT_S, now=lambda: now, metrics=OBSERVED.light, device=dev)
+    srv = LightServer(client, metrics=OBSERVED.light, registry=OBSERVED.registry)
+    srv.start()
+
+    def get(path):
+        with urllib.request.urlopen(srv.url + path, timeout=60) as resp:
+            return resp.read()
+
+    try:
+        precompute.results.clear()
+        mark = OBSERVED.mark()
+        with tracing.span("light_request", height=top) as call:
+            body = {"jsonrpc": "2.0", "id": 1, "method": "light_header",
+                    "params": {"height": top}, "trace": call.context().to_header()}
+            req = urllib.request.Request(srv.url, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                answer = json.loads(resp.read())
+            serve_s = time.perf_counter() - t
+        check(answer.get("result", {}).get("hash") == chain[-1].hash().hex().upper(),
+              f"{part}: light_header answered {str(answer)[:300]}")
+        events, d = OBSERVED.since(mark)
+        metrics_text = get("/metrics").decode()
+        families = {prefix: sorted({line.split()[2] for line in metrics_text.splitlines()
+                                    if line.startswith("# TYPE " + prefix)})
+                    for prefix in ("tendermint_ops_", "tendermint_light_")}
+        check(len(families["tendermint_ops_"]) == 29 and len(families["tendermint_light_"]) == 5,
+              f"{part}: /metrics families {families}")
+        doc = json.loads(get("/debug/traces?format=chrome"))
+        check(set(doc["otherData"]) == {"epoch_unix_us"}, f"{part}: chrome otherData {doc['otherData']}")
+        spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+        by_id = {e["span_id"]: e for e in spans if "span_id" in e}
+        mine = [e for e in spans if e.get("trace_id") == call.trace_id]
+        (dispatch,) = [e for e in mine if e["name"] == "rpc_dispatch"]
+        check(dispatch["parent_span_id"] == call.span_id and dispatch["args"]["method"] == "light_header",
+              f"{part}: rpc_dispatch {dispatch}")
+        vbs = [e for e in mine if e["name"] == "verify_batch"]
+        check(len(vbs) >= LIGHTD_ROUNDS and all(dispatch["span_id"] in trace_ancestors(by_id, e)
+                                                for e in vbs),
+              f"{part}: {len(vbs)} verify_batch spans of the request's trace under rpc_dispatch")
+        all_vbs = spans_of(events, "verify_batch")
+        check(len(all_vbs) == len(vbs), f"{part}: verify_batch spans outside the request's trace")
+        launched = sum(d["launches"].values())
+        dispatched = len(spans_of(events, "dispatch_chunk"))
+        check(dispatched == launched - d["launches"].get("challenge", 0) > 0,
+              f"{part}: {dispatched} dispatch_chunk spans, launches {d['launches']}")
+        check(not spans_of(events, "host_fallback"), f"{part}: a host_fallback span")
+        check_stage_histogram(part, events, d)
+        mem = json.loads(get("/debug/memstats"))
+        ledger = check_ledger(part)
+        check(mem["device_bytes"].get("resident_tables") == ledger["store_bytes"] > 0
+              and mem["resident"] == resident.stats()
+              and any(key.startswith("ed25519/b") for key in mem["profile"]["kernel"])
+              and mem["compile_events"] == {"ed25519": 4, "pallas": 2, "sr25519": 1}
+              and mem["exec_cache_entries"] == {"ed25519": 2, "pallas": 1, "sr25519": 1},
+              f"{part}: memstats {json.dumps(mem)[:600]}")
+    finally:
+        srv.stop()
+    check_healthy(part)
+    return {"cold_serve_ms": serve_s * 1e3, "request_trace_verify_batches": len(vbs),
+            "dispatch_chunk_spans": dispatched, "launches": d["launches"], "families": families,
+            "memstats": {k: mem[k] for k in ("device_bytes", "compile_events", "exec_cache_entries",
+                                             "builds")},
+            "profile_kernel_digests": mem["profile"]["kernel"]}
+
+
+def merged(intervals):
+    """Sorted, merged (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def profiled(label, fn, trace_dir):
+    """12e: ``fn`` under ``torch.profiler`` (CPU and CUDA activities): the
+    device-busy share of the call's wall, the top device operations, and
+    the longest idle gaps, each with the innermost tracer span open on
+    the host at its middle. The Chrome trace goes to ``trace_dir``."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    name = f"phase12_{label}"
+    torch.cuda.synchronize()
+    mark = OBSERVED.mark()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(name):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"{name}.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        trace = json.load(fh)["traceEvents"]
+    events, d = OBSERVED.since(mark)
+    part = f"phase 12e {label}"
+    wins = [e for e in trace if e.get("name") == name and e.get("ph") == "X"
+            and e.get("cat") == "user_annotation"]
+    check(len(wins) == 1, f"{part}: {len(wins)} windows named {name} in the trace")
+    lo, hi = wins[0]["ts"], wins[0]["ts"] + wins[0]["dur"]
+    device = [e for e in trace if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    clip = lambda evs: [(max(lo, e["ts"]), min(hi, e["ts"] + e["dur"])) for e in evs
+                        if e["ts"] < hi and e["ts"] + e["dur"] > lo]
+    busy = merged(clip(device))
+    kernel_busy = merged(clip([e for e in device if e["cat"] == "kernel"]))
+    span_us = hi - lo
+    seen = {key: sum(1 for e in device if e["cat"] == "kernel" and re.search(rf"\b{fn_name}\b", e["name"]))
+            for key, fn_name in KERNEL_FUNCTIONS.items()}
+    want = {key: d["launches"].get(key, 0) for key in KERNEL_FUNCTIONS}
+    check(seen == want, f"{part}: kernels in the trace {seen}, launches counted {want}")
+    by_op = {}
+    for e in device:
+        row = by_op.setdefault(e["name"][:90], [0.0, 0])
+        row[0] += e["dur"] / 1e3
+        row[1] += 1
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP_OPS]
+    # Idle gaps, and the host span open at each gap's middle: the window
+    # opened at t0 on the host's clock, so trace time maps to it by one offset.
+    edges = [lo] + [x for iv in busy for x in iv] + [hi]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)), reverse=True)
+    tracer = OBSERVED.tracing.tracer
+    spans = [(tracer.to_perf_counter(e["ts"]), tracer.to_perf_counter(e["ts"] + e["dur"]), e)
+             for e in events if e.get("ph") == "X"]
+
+    def host_span(t_trace):
+        """The innermost tracer span open on the host at trace time
+        ``t_trace``, as its name and stage tags (None when none is)."""
+        t = t0 + (t_trace - lo) / 1e6
+        inside = [(b - a, e) for a, b, e in spans if a <= t <= b]
+        if not inside:
+            return None
+        e = min(inside, key=lambda x: x[0])[1]
+        return {"name": e["name"], **{k: e["args"][k] for k in ("stage", "kind", "engine") if k in e["args"]}}
+
+    def host_shares(a, b, samples=PROFILE_SAMPLES):
+        """Shares of [a, b) (trace time) by the innermost host span."""
+        out = {}
+        for i in range(samples):
+            sp = host_span(a + (b - a) * (i + 0.5) / samples)
+            key = "none" if sp is None else "/".join(str(sp.get(k)) for k in ("name", "kind") if sp.get(k))
+            out[key] = out.get(key, 0) + 1 / samples
+        return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+    idle = [{"ms": g / 1e3, "at_ms": (a - lo) / 1e3, "host_span": host_span(a + g / 2),
+             "host_shares": host_shares(a, a + g)}
+            for g, a in gaps[:PROFILE_IDLE_GAPS]]
+    out = {"label": label, "wall_ms": wall * 1e3, "window_ms": span_us / 1e3,
+           "device_busy_share": sum(b - a for a, b in busy) / span_us,
+           "kernel_busy_share": sum(b - a for a, b in kernel_busy) / span_us,
+           "kernel_ms": sum(b - a for a, b in kernel_busy) / 1e3, "launches": d["launches"],
+           "top_device_ops": [{"name": k, "ms": v[0], "count": v[1]} for k, v in top],
+           "idle_gaps": idle, "host_shares": host_shares(lo, hi, 4 * PROFILE_SAMPLES), "trace": path}
+    emit({"phase": "observed_12e", **out})
+    return out
+
+
+def observed_overhead(commit_wl, dev):
+    """12f: the steady commit with the tracer off and the profiler
+    uninstalled, against ``ring`` with the profiler installed, in turns."""
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    vset, block_id, commits = commit_wl
+    c = commits[1]
+    times = {"off": [], "on": []}
+    for _ in range(OVERHEAD_REPS):
+        for side in ("off", "on"):
+            OBSERVED.off() if side == "off" else OBSERVED.on()
+            precompute.results.clear()
+            t = time.perf_counter()
+            verify_commit(CHAIN_ID, vset, block_id, c.height, c, device=dev)
+            times[side].append(time.perf_counter() - t)
+    OBSERVED.on()
+    p50 = {side: statistics.median(v) for side, v in times.items()}
+    # What the instruments cost a span, on this host: a stage span under
+    # the ring, the observer and the profiler, against the no-op span.
+    tracing = OBSERVED.tracing
+    mark = OBSERVED.mark()
+    precompute.results.clear()
+    verify_commit(CHAIN_ID, vset, block_id, c.height, c, device=dev)
+    spans_per_commit = len([e for e in OBSERVED.since(mark)[0] if e.get("ph") == "X"])
+    cost = {}
+    for side in ("off", "on"):
+        OBSERVED.off() if side == "off" else OBSERVED.on()
+        t = time.perf_counter()
+        for _ in range(SPAN_COST_REPS):
+            with tracing.span("prep_chunk", stage="prep", engine="ed25519", kind="resident", lanes=1):
+                pass
+        cost[side] = (time.perf_counter() - t) / SPAN_COST_REPS
+    OBSERVED.on()
+    OBSERVED.tracing.tracer.clear()
+    span_us = (cost["on"] - cost["off"]) * 1e6
+    return {"off_ms": [x * 1e3 for x in times["off"]], "on_ms": [x * 1e3 for x in times["on"]],
+            "off_p50_ms": p50["off"] * 1e3, "on_p50_ms": p50["on"] * 1e3,
+            "on_over_off": p50["on"] / p50["off"], "span_cost_us": span_us,
+            "spans_per_commit": spans_per_commit,
+            "span_cost_share": span_us * spans_per_commit / (p50["off"] * 1e6)}
+
+
+def phase_observed(commit_wl, commit_tables, mixed_wl, ed_lanes, batch, lightd_wl, dev, trace_dir):
+    """Phase 12: the main path with the instruments on (see the module
+    note). Returns the phase's launch counts (which start at 0)."""
+    global OBSERVED
+    from tendermint_tpu_torch.ops import precompute, verify_batch
+    from tendermint_tpu_torch.types.validation import verify_commit
+
+    t_phase = time.perf_counter()
+    check(len(commit_tables) == COMMIT_VALIDATORS,
+          f"phase 12: {len(commit_tables)} tables of the 10,000 set")
+    precompute.reset()
+    restore_tables(commit_wl[0], commit_tables)
+    OBSERVED = Observed()
+    vset, block_id, commits = commit_wl
+    pks, msgs, sigs, want = batch
+
+    def steady_commit():
+        precompute.results.clear()
+        verify_commit(CHAIN_ID, vset, block_id, commits[1].height, commits[1], device=dev)
+
+    def batch_8192():
+        precompute.results.clear()
+        check(np.array_equal(np.asarray(verify_batch(pks, msgs, sigs, device=dev)), want),
+              "phase 12e: verify_batch verdicts wrong")
+
+    try:
+        parts = [("12a_commit", lambda: observed_commit(commit_wl, dev)),
+                 ("12f_overhead", lambda: observed_overhead(commit_wl, dev)),
+                 ("12e_profile_commit", lambda: profiled("commit", steady_commit, trace_dir)),
+                 ("12e_profile_batch", lambda: profiled("batch", batch_8192, trace_dir)),
+                 ("12b_mixed", lambda: observed_mixed(mixed_wl, dev)),
+                 ("12c_faults", lambda: observed_faults(ed_lanes, dev)),
+                 ("12d_lightd", lambda: observed_lightd(lightd_wl, dev))]
+        for label, run in parts:
+            t = time.perf_counter()
+            out = run()
+            if not label.startswith("12e"):
+                emit({"phase": f"observed_{label}", "seconds": time.perf_counter() - t, **out})
+        check(OBSERVED.tracing.tracer.dropped == 0, "phase 12: the ring dropped events")
+    finally:
+        OBSERVED.close()
+        OBSERVED = None
+    precompute.reset()
+    counts = launches()
+    emit({"phase": "observed", "seconds": time.perf_counter() - t_phase, "launches": counts})
+    return counts
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description="Drive the port's main path on one GPU and check it.")
+    parser.add_argument("--trace-dir", default="build",
+                        help="where phase 12 writes its profiler traces (default: build)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 2
@@ -2458,6 +3107,7 @@ def main() -> int:
         light = chain_workload(rng, signer, LIGHT_HEADERS, LIGHT_VALIDATORS)
         round_wl = round_workload(rng, signer)
         lightd_wl = lightd_workload(rng, signer)
+        commit_tables = signer.tables(commit[0])  # phase 12 starts from them
     emit({"phase": "setup", "seconds": time.perf_counter() - t0, "workers": workers,
           "signatures": 2 * KERNEL_LANES + BATCH_LANES + len(COMMIT_HEIGHTS) * COMMIT_VALIDATORS
           + MIXED_VALIDATORS + SYNC_BLOCKS * SYNC_VALIDATORS
@@ -2504,6 +3154,11 @@ def main() -> int:
     cuda_hash.reset_launches()
     lightd_counts = phase_lightd(lightd_wl, dev)
     health["phase_11"] = check_healthy("phase 11")
+    cuda_verify.reset_launches()  # the observed path starts here
+    cuda_hash.reset_launches()
+    observed_counts = phase_observed(commit, commit_tables, mixed, kernel_lanes, batch, lightd_wl, dev,
+                                     args.trace_dir)
+    health["phase_12"] = check_healthy("phase 12")
     crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
@@ -2517,6 +3172,7 @@ def main() -> int:
         row["launches_votes"] = vote_counts[name]
         row["launches_light_batch"] = light_round_counts[name]
         row["launches_lightd"] = lightd_counts[name]
+        row["launches_observed"] = observed_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,10 @@ one ``nvcc`` process each), which is then loaded with ``ctypes``. A
 library is named after a digest of its source and the flags, so an
 edited source rebuilds; the result is renamed into place atomically.
 A failed build raises :class:`KernelBuildError` with nvcc's output.
+:func:`build_events` lists what each source cost this process: an nvcc
+build or the load of a library built before, and its seconds;
+:func:`loaded` names the libraries loaded (``ops/introspect.py``
+reports both).
 
 :class:`CudaError` is what a wrapper raises when a launcher returns a
 CUDA error code: it carries the ``code`` and whether the error is
@@ -25,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,6 +64,7 @@ class CudaError(RuntimeError):
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
 build_log: Dict[str, str] = {}  # source name -> nvcc/ptxas output of its build
+_events: List[Dict[str, object]] = []  # guarded-by: _lock
 
 
 def build_dir() -> str:
@@ -98,6 +104,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         todo = [s for s in _sources() if s[:-3] not in _libs]
         os.makedirs(build_dir(), exist_ok=True)
         procs = {}
+        t0 = time.perf_counter()
         for src in todo:
             out = _lib_path(src)
             if not os.path.exists(out):
@@ -107,6 +114,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
                 ), tmp, out)
         failed = []
+        built: Dict[str, float] = {}
         for src, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
             build_log[src] = log
@@ -114,10 +122,15 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 failed.append(f"nvcc failed for {src} (exit {proc.returncode}):\n{log}")
                 continue
             os.replace(tmp, out)
+            built[src] = time.perf_counter() - t0
         if failed:
             raise KernelBuildError("\n".join(failed))
         for src in todo:
+            t = time.perf_counter()
             _libs[src[:-3]] = ctypes.CDLL(_lib_path(src))
+            load_s = time.perf_counter() - t
+            _events.append({"source": src, "action": "nvcc" if src in built else "load",
+                            "seconds": built.get(src, 0.0) + load_s})
         return dict(_libs)
 
 
@@ -126,3 +139,17 @@ def load(stem: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(stem)
     return lib if lib is not None else build_all()[stem]
+
+
+def loaded() -> List[str]:
+    """The stems of the libraries loaded in this process."""
+    with _lock:
+        return sorted(_libs)
+
+
+def build_events() -> List[Dict[str, object]]:
+    """One entry a source built or loaded in this process: ``source``,
+    ``action`` (``nvcc`` or ``load``) and ``seconds`` (an nvcc build's
+    wall from the start of the parallel builds, plus the load)."""
+    with _lock:
+        return [dict(e) for e in _events]

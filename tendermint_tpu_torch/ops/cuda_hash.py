@@ -9,7 +9,9 @@ the reference's XLA graph ``tendermint_tpu/ops/hash512.py::_challenge_kernel``.
 
 For CUDA tensors the wrapper launches the kernel on the current stream,
 or raises; for CPU tensors it runs the plain PyTorch version in
-:mod:`.hash512`. ``LAUNCHES`` counts kernel launches only.
+:mod:`.hash512`. ``LAUNCHES`` counts kernel launches only; the first
+launch in the process is a compile event of the ``ed25519`` engine
+(``cuda_verify.first_launch``).
 :func:`challenge_attributes` reports the challenge kernel's registers,
 stack, shared memory and occupancy on the current CUDA device.
 """
@@ -22,7 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from tendermint_tpu_torch.ops import _build, hash512 as plain
-from tendermint_tpu_torch.ops.cuda_verify import ATTRIBUTE_KEYS
+from tendermint_tpu_torch.ops.cuda_verify import ATTRIBUTE_KEYS, first_launch
 
 LAUNCHES: Dict[str, int] = {"challenge": 0}
 
@@ -62,7 +64,7 @@ def _check_blocks(blocks: torch.Tensor) -> int:
 
 
 def _run(name: str, key: str, args, device: torch.device) -> None:
-    with torch.cuda.device(device):
+    with first_launch(key, ("ed25519",), args[2]), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _launcher(name)(*args, stream)
     if rc != 0:

@@ -22,25 +22,51 @@ the bound) and are built by :mod:`._build`:
 For CUDA tensors a wrapper launches its kernel on the current stream,
 or raises; for CPU tensors it runs the plain PyTorch version in
 :mod:`.ed25519_batch` (:mod:`.sr25519_batch` for K5). ``LAUNCHES`` counts kernel launches only.
+A kernel's first launch in the process (its library's build or load
+included) is a compile event of ``ops/introspect.py`` under the
+reference's engine names (:data:`COMPILE_ENGINES`), inside
+``kernel_compile`` spans.
 :func:`kernel_attributes` reports each kernel's registers, stack, shared
 memory and occupancy on the current CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict
+import threading
+from typing import Dict, Set
 
 import numpy as np
 import torch
 
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
-from tendermint_tpu_torch.ops import _build, ed25519_batch as plain, field as F
+from tendermint_tpu_torch.ops import _build, ed25519_batch as plain, field as F, introspect
 from tendermint_tpu_torch.ops import sr25519_batch as plain_sr
 
 LAUNCHES: Dict[str, int] = {"verify": 0, "verify_tables": 0, "verify_resident": 0, "verify_sr": 0}
 # The kernels of kernel_attributes, in the order of the C function's index.
 KERNELS = ("verify", "verify_tables", "verify_resident", "verify_sr")
+# The engines a kernel's first launch is a compile event of: K1 and K2
+# are the ports of the reference's Pallas kernels, so ``pallas`` too.
+COMPILE_ENGINES = {
+    "verify": ("ed25519", "pallas"),
+    "verify_tables": ("ed25519", "pallas"),
+    "verify_resident": ("ed25519",),
+    "verify_sr": ("sr25519",),
+}
+_first_lock = threading.Lock()
+_launched: Set[str] = set()  # guarded-by: _first_lock; kernels launched once
+
+
+def first_launch(key: str, engines, lanes: int):
+    """The context of ``key``'s launch: the compile event when it is the
+    first in the process (then it is marked launched), else nothing."""
+    with _first_lock:
+        if key in _launched:
+            return contextlib.nullcontext()
+        _launched.add(key)
+    return introspect.first_launch(engines, key, lanes)
 
 COMB_ROWS = 32
 
@@ -117,7 +143,7 @@ def _launch(name: str, key: str, args, n: int, device: torch.device, *ints: int)
     the output, n and ``ints``); count it under ``LAUNCHES[key]``."""
     out = torch.empty(n, dtype=torch.uint8, device=device)
     if n:
-        with torch.cuda.device(device):
+        with first_launch(key, COMPILE_ENGINES[key], n), torch.cuda.device(device):
             consts = F.on(CONSTS, out)
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = _launcher(name)(

@@ -31,9 +31,13 @@ answered by the host oracle and counted) sets ``host_fallback``::
 
     device_policy.shared.host_fallback = True
 
-Every transition is kept in ``transitions``; ``snapshot()`` reports the
+Every transition is kept in ``transitions`` and emitted as a
+``device_health_transition`` trace instant; ``snapshot()`` reports the
 state, the failure counts and the host-fallback batches and lanes per
-engine (the port has no metrics registry, so the lane counts live here).
+engine. :meth:`DeviceHealth.bind_metrics` mirrors them into an
+``OpsMetrics``: the state gauge, transitions, failures by kind,
+fallbacks and fallback lanes per engine, probe seconds, and the lanes
+in flight on the card per engine (``note_inflight``).
 
 Classification (:func:`classify_failure`): an explicit boolean
 ``permanent`` attribute wins (injected faults, and the wrappers'
@@ -57,6 +61,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from tendermint_tpu_torch.libs import tracing
+
 HEALTHY = "healthy"
 DEGRADED = "degraded"
 COOLDOWN = "cooldown"
@@ -66,6 +72,7 @@ TRANSIENT = "transient"
 PERMANENT = "permanent"
 
 ENGINES = ("ed25519", "sr25519")
+STATE_CODES = {HEALTHY: 0, DEGRADED: 1, COOLDOWN: 2, DISABLED: 3}
 
 
 class DeviceRefused(RuntimeError):
@@ -128,13 +135,15 @@ def classify_failure(exc: BaseException) -> str:
 
 class Attempt:
     """Token for one admitted device attempt: whether it is the half-open
-    probe, so its outcome re-arms or clears the cooldown."""
+    probe, so its outcome re-arms or clears the cooldown, and when it
+    was admitted (the probe's latency)."""
 
-    __slots__ = ("engine", "probe")
+    __slots__ = ("engine", "probe", "started")
 
-    def __init__(self, engine: str, probe: bool):
+    def __init__(self, engine: str, probe: bool, started: float = 0.0):
         self.engine = engine
         self.probe = probe
+        self.started = started
 
 
 class DeviceHealth:
@@ -163,6 +172,16 @@ class DeviceHealth:
         self.fallback_batches = 0  # guarded-by: _mtx
         self.fallback_lanes: Dict[str, int] = dict.fromkeys(ENGINES, 0)  # guarded-by: _mtx
         self.failure_counts = {TRANSIENT: 0, PERMANENT: 0}  # guarded-by: _mtx
+        self._metrics = None  # an OpsMetrics; guarded-by: _mtx
+
+    def bind_metrics(self, metrics) -> None:
+        """Mirror the machine into an ``OpsMetrics`` (None unbinds). The
+        machine is process-wide: the last binder wins."""
+        with self._mtx:
+            self._metrics = metrics
+            state = self._state
+        if metrics is not None:
+            metrics.device_health_state.set(STATE_CODES[state])
 
     def reset(self) -> None:
         """Back to a pristine HEALTHY machine (tests, operator reset);
@@ -177,6 +196,9 @@ class DeviceHealth:
             self.fallback_batches = 0
             self.fallback_lanes = dict.fromkeys(ENGINES, 0)
             self.failure_counts = {TRANSIENT: 0, PERMANENT: 0}
+            metrics = self._metrics
+        if metrics is not None:
+            metrics.device_health_state.set(STATE_CODES[HEALTHY])
 
     @property
     def state(self) -> str:
@@ -198,10 +220,24 @@ class DeviceHealth:
                 "failures": dict(self.failure_counts),
             }
 
-    def _transition_locked(self, to: str) -> None:
-        if self._state != to:
-            self.transitions.append((self._state, to))
-            self._state = to
+    def _transition_locked(self, to: str) -> Optional[Tuple[str, str]]:
+        if self._state == to:
+            return None
+        edge = (self._state, to)
+        self.transitions.append(edge)
+        self._state = to
+        return edge
+
+    def _emit(self, edge: Optional[Tuple[str, str]], metrics) -> None:
+        """A transition, outside the lock: a trace instant (it lines up
+        with the verify spans of the same timeline) and the metrics."""
+        if edge is None:
+            return
+        tracing.instant("device_health_transition", from_state=edge[0], to_state=edge[1])
+        if metrics is None:
+            return
+        metrics.device_health_state.set(STATE_CODES[edge[1]])
+        metrics.device_transitions.labels(from_state=edge[0], to_state=edge[1]).inc()
 
     def begin_attempt(self, engine: str = "ed25519") -> Optional[Attempt]:
         """Admission for one device batch: an Attempt to hand back to
@@ -211,13 +247,13 @@ class DeviceHealth:
         now = self._clock()
         with self._mtx:
             if self._state in (HEALTHY, DEGRADED):
-                return Attempt(engine, probe=False)
+                return Attempt(engine, probe=False, started=now)
             if self._state == DISABLED:
                 return None
             if now < self._cooldown_until or self._probe_inflight:
                 return None
             self._probe_inflight = True
-            return Attempt(engine, probe=True)
+            return Attempt(engine, probe=True, started=now)
 
     def record_success(self, attempt: Optional[Attempt] = None) -> None:
         """A device batch (or probe) completed: back to HEALTHY, with the
@@ -229,7 +265,11 @@ class DeviceHealth:
                 return  # terminal: a late success changes nothing
             self._consecutive_failures = 0
             self._cooldown = self.cooldown_base
-            self._transition_locked(HEALTHY)
+            edge = self._transition_locked(HEALTHY)
+            metrics = self._metrics
+        self._emit(edge, metrics)
+        if metrics is not None and attempt is not None and attempt.probe:
+            metrics.device_probe_seconds.observe(max(0.0, self._clock() - attempt.started))
 
     def release_probe(self, attempt: Optional[Attempt]) -> None:
         """Give back a probe reservation without an outcome: the attempt
@@ -245,24 +285,33 @@ class DeviceHealth:
         budget is spent (or the failure was the probe), then COOLDOWN
         with the backoff doubled."""
         kind = classify_failure(exc)
+        edge = None
+        probe_latency = None
         with self._mtx:
             was_probe = attempt is not None and attempt.probe
             if was_probe:
                 self._probe_inflight = False
+                probe_latency = max(0.0, self._clock() - attempt.started)
             self.failure_counts[kind] += 1
+            metrics = self._metrics
             if self._state == DISABLED:
-                return kind
-            if kind == PERMANENT:
-                self._transition_locked(DISABLED)
-                return kind
-            self._consecutive_failures += 1
-            if was_probe or self._consecutive_failures >= self.retry_budget:
-                self._cooldown_until = self._clock() + self._cooldown
-                self._cooldown = min(self._cooldown * 2, self.cooldown_max)
-                self._consecutive_failures = 0
-                self._transition_locked(COOLDOWN)
+                pass  # terminal: the failure is counted, no transition
+            elif kind == PERMANENT:
+                edge = self._transition_locked(DISABLED)
             else:
-                self._transition_locked(DEGRADED)
+                self._consecutive_failures += 1
+                if was_probe or self._consecutive_failures >= self.retry_budget:
+                    self._cooldown_until = self._clock() + self._cooldown
+                    self._cooldown = min(self._cooldown * 2, self.cooldown_max)
+                    self._consecutive_failures = 0
+                    edge = self._transition_locked(COOLDOWN)
+                else:
+                    edge = self._transition_locked(DEGRADED)
+        self._emit(edge, metrics)
+        if metrics is not None:
+            metrics.device_failures.labels(kind=kind).inc()
+            if probe_latency is not None:
+                metrics.device_probe_seconds.observe(probe_latency)
         return kind
 
     def refuse(self, engine: str, lanes: int) -> None:
@@ -282,6 +331,18 @@ class DeviceHealth:
         with self._mtx:
             self.fallback_batches += 1
             self.fallback_lanes[engine] = self.fallback_lanes.get(engine, 0) + lanes
+            metrics = self._metrics
+        if metrics is not None:
+            metrics.device_fallbacks.labels(engine=engine).inc()
+            metrics.device_fallback_lanes.labels(engine=engine).inc(lanes)
+
+    def note_inflight(self, engine: str, delta: int) -> None:
+        """The in-flight lanes gauge: + a chunk's lanes at its launch,
+        - them once its verdicts are read back (or fail to be)."""
+        with self._mtx:
+            metrics = self._metrics
+        if metrics is not None:
+            metrics.inflight_lanes.labels(engine=engine).inc(delta)
 
 
 # The process-wide instance both engines share.

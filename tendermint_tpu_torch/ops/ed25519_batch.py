@@ -37,6 +37,14 @@ batches are answered on the host whole, and their lanes are counted in
 never handed to the machine and always propagate: a kernel that does not
 build (``_build.KernelBuildError``), and an error of the resident store's
 ``acquire`` or of its upload.
+
+Each stage runs in a span of ``libs/tracing.py`` with the reference's
+names and tags: ``verify_batch`` (``engine``, ``lanes``) around
+``cache_lookup`` (``hits``) and, per chunk, ``prep_chunk``,
+``dispatch_chunk`` and ``collect_chunk`` (``stage``, ``engine``,
+``kind``, ``lanes``); ``host_fallback`` only where the host answers.
+``dispatch_chunk`` times the launch, not the kernel: launches are
+asynchronous, and nothing in the span waits for the card.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from tendermint_tpu_torch.crypto.hashing import (
     sha512_batch_mod_l,
     sha512_batch_prefixed,
 )
+from tendermint_tpu_torch.libs import tracing
 from tendermint_tpu_torch.ops import (
     _build,
     curve,
@@ -533,25 +542,28 @@ def verify_batch(
     n = len(pubkeys)
     if n == 0:
         return []
-    verdicts = np.zeros(n, dtype=bool)
-    pending = []
-    for i in range(n):
-        v = precompute.results.get(pubkeys[i], msgs[i], sigs[i])
-        if v is None:
-            pending.append(i)
-        else:
-            verdicts[i] = v
-    if pending:
-        out = _verify_uncached(
-            [pubkeys[i] for i in pending],
-            [msgs[i] for i in pending],
-            [sigs[i] for i in pending],
-            dev,
-        )
-        verdicts[pending] = out
-        for j, i in enumerate(pending):
-            precompute.results.put(pubkeys[i], msgs[i], sigs[i], bool(out[j]))
-    return [bool(v) for v in verdicts]
+    with tracing.span("verify_batch", engine="ed25519", lanes=n):
+        verdicts = np.zeros(n, dtype=bool)
+        pending = []
+        with tracing.span("cache_lookup", stage="cache_lookup", engine="ed25519", lanes=n) as csp:
+            for i in range(n):
+                v = precompute.results.get(pubkeys[i], msgs[i], sigs[i])
+                if v is None:
+                    pending.append(i)
+                else:
+                    verdicts[i] = v
+            csp.set(hits=n - len(pending))
+        if pending:
+            out = _verify_uncached(
+                [pubkeys[i] for i in pending],
+                [msgs[i] for i in pending],
+                [sigs[i] for i in pending],
+                dev,
+            )
+            verdicts[pending] = out
+            for j, i in enumerate(pending):
+                precompute.results.put(pubkeys[i], msgs[i], sigs[i], bool(out[j]))
+        return [bool(v) for v in verdicts]
 
 
 def _host_verify_rows(pubkeys, msgs, sigs, rows) -> np.ndarray:
@@ -576,7 +588,8 @@ def _verify_uncached(
         # Cooling down or disabled: an instant answer on the host, where
         # the caller allows one.
         health.refuse("ed25519", n)
-        return _host_verify_rows(pubkeys, msgs, sigs, range(n))
+        with tracing.span("host_fallback", stage="fallback", engine="ed25519", lanes=n):
+            return _host_verify_rows(pubkeys, msgs, sigs, range(n))
     try:
         # Lanes whose key has a cached (or eligible, host-built) table
         # take a table kernel; ill-formed lanes stay on the legacy path,
@@ -603,6 +616,10 @@ def _verify_uncached(
 
     def prep(job) -> Tuple[dict, np.ndarray]:
         kind, rows = job
+        with tracing.span("prep_chunk", stage="prep", engine="ed25519", kind=kind, lanes=len(rows)):
+            return prep_rows(kind, rows)
+
+    def prep_rows(kind, rows) -> Tuple[dict, np.ndarray]:
         pks = [pubkeys[i] for i in rows]
         ms = [msgs[i] for i in rows]
         sgs = [sigs[i] for i in rows]
@@ -622,11 +639,19 @@ def _verify_uncached(
             )
         return prepare_batch(pks, ms, sgs, pad_to, device)
 
+    inflight = 0  # lanes launched and not yet read back
+
+    def in_flight(lanes: int) -> None:
+        nonlocal inflight
+        inflight += lanes
+        health.note_inflight("ed25519", lanes)
+
     def failed(what: str, lanes: int, exc: Exception) -> None:
         nonlocal attempt
         health.record_failure(exc, attempt)
         attempt = None
         if not health.host_fallback:
+            in_flight(-inflight)  # the error leaves the launched chunks unread
             raise exc
         warnings.warn(
             f"ed25519 chunk of {lanes} lanes: {what} failed ({exc!r}); host fallback "
@@ -659,7 +684,10 @@ def _verify_uncached(
                 attempt = health.begin_attempt("ed25519")
             if attempt is not None:
                 try:
-                    outs[j] = runners[kind](inputs, device)
+                    with tracing.span("dispatch_chunk", stage="dispatch", engine="ed25519",
+                                      kind=kind, lanes=len(rows)):
+                        outs[j] = runners[kind](inputs, device)
+                    in_flight(len(rows))
                 except _build.KernelBuildError:
                     health.release_probe(attempt)
                     raise
@@ -668,18 +696,24 @@ def _verify_uncached(
         prepped = prep_or_none(jobs[j + 1]) if j + 1 < len(jobs) else None
     fallback_lanes = 0
     device_chunks_ok = 0
-    for (_, rows), out in zip(jobs, outs):
+    for (kind, rows), out in zip(jobs, outs):
         ok = None
         if out is not None:
             try:
-                fault_injection.fire("ed25519.collect")
-                ok = out[: len(rows)].cpu().numpy()
+                with tracing.span("collect_chunk", stage="collect", engine="ed25519", kind=kind,
+                                  lanes=len(rows)):
+                    fault_injection.fire("ed25519.collect")
+                    ok = out[: len(rows)].cpu().numpy()
                 device_chunks_ok += 1
             except Exception as exc:
+                in_flight(-len(rows))
                 failed("collect", len(rows), exc)
+            else:
+                in_flight(-len(rows))
         if ok is None:
             fallback_lanes += len(rows)
-            results[rows] = _host_verify_rows(pubkeys, msgs, sigs, rows)
+            with tracing.span("host_fallback", stage="fallback", engine="ed25519", lanes=len(rows)):
+                results[rows] = _host_verify_rows(pubkeys, msgs, sigs, rows)
             host_ok_all[rows] = True  # the oracle's verdicts are final
         else:
             results[rows] = ok

@@ -18,8 +18,9 @@ many builds, and an int64 right shift is arithmetic). Both are exact.
 
 :func:`try_challenge_device` returns ``None`` (the caller hashes on the
 host) only for eligibility: the path is off, the chunk is empty, or the
-messages differ in length; each case is counted in :func:`stats`. A
-kernel error propagates. The path is on exactly when the chunk is
+messages differ in length; each case is counted in :func:`stats`, and
+``bind_metrics`` mirrors the device lanes into
+``tendermint_ops_hash_device_lanes_total``. A kernel error propagates. The path is on exactly when the chunk is
 verified on a CUDA device: K4 takes the block count as an argument, so
 no message length needs a cap.
 
@@ -229,6 +230,15 @@ def device_hash_enabled(device) -> bool:
 _stats_lock = threading.Lock()
 _REASONS = ("off", "empty", "mixed_lengths")
 _counts: Dict[str, int] = {}  # guarded-by: _stats_lock
+_metrics = None  # guarded-by: _stats_lock
+
+
+def bind_metrics(metrics) -> None:
+    """Mirror the device lanes into ``metrics.hash_device_lanes`` (an
+    ``OpsMetrics``; None unbinds)."""
+    global _metrics
+    with _stats_lock:
+        _metrics = metrics
 
 
 def reset_stats() -> None:
@@ -243,6 +253,9 @@ reset_stats()
 def _count(key: str, n: int = 1) -> None:
     with _stats_lock:
         _counts[key] += n
+        metrics = _metrics
+    if metrics is not None and key == "device_lanes":
+        metrics.hash_device_lanes.inc(n)
 
 
 def stats() -> Dict[str, int]:

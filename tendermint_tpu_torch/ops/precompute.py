@@ -1,7 +1,10 @@
 """Validator-set-aware precompute and result caches for the verify path.
 
-Counterpart of ``tendermint_tpu/ops/precompute.py`` without its tracing
-and metrics hooks and env knobs.
+Counterpart of ``tendermint_tpu/ops/precompute.py`` without its env
+knobs and key pins. ``bind_metrics`` mirrors both caches' counters into
+an ``OpsMetrics`` (table hits, misses, builds, evictions, invalidations
+and build seconds; verdict-cache hits and misses), and a table gather
+runs in a ``gather_tables`` span.
 
 - :class:`PrecomputeCache`: a bounded, thread-safe LRU keyed by raw
   pubkey bytes, holding the host-built table column ``(8, 4, 32)``
@@ -30,12 +33,14 @@ from __future__ import annotations
 
 import hashlib
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
+from tendermint_tpu_torch.libs import tracing
 
 TABLE_WIDTH = 8  # signed 4-bit windows select from [1..8](-A)
 NLIMBS = 32
@@ -115,7 +120,21 @@ class PrecomputeCache:
         self._active_sets: "OrderedDict[bytes, FrozenSet[bytes]]" = OrderedDict()  # guarded-by: _lock
         self._eligible: FrozenSet[bytes] = frozenset()  # guarded-by: _lock
         self._pending_events: List[Tuple[str, tuple]] = []  # guarded-by: _lock
+        self._metrics = None  # guarded-by: _lock
+        self._zero_counts()
+
+    def _zero_counts(self) -> None:
+        self.hits = 0  # guarded-by: _lock
+        self.misses = 0  # guarded-by: _lock
         self.builds = 0  # host table builds; guarded-by: _lock
+        self.evictions = 0  # guarded-by: _lock
+        self.invalidations = 0  # guarded-by: _lock
+        self.build_seconds = 0.0  # guarded-by: _lock
+
+    def bind_metrics(self, metrics) -> None:
+        """Mirror the counters into an ``OpsMetrics`` (None unbinds)."""
+        with self._lock:
+            self._metrics = metrics
 
     def _flush_events(self) -> None:
         """Deliver the queued events to the observers, outside the lock."""
@@ -156,7 +175,10 @@ class PrecomputeCache:
         for pk in stale:
             del self._entries[pk]
         if stale:
+            self.invalidations += len(stale)
             self._pending_events.append(("rotation", stale))
+            if self._metrics is not None:
+                self._metrics.precompute_invalidations.inc(len(stale))
 
     def insert(self, pk: bytes, table: np.ndarray, ok: bool) -> None:
         with self._lock:
@@ -168,7 +190,10 @@ class PrecomputeCache:
         self._entries.move_to_end(pk)
         while len(self._entries) > self.cap:
             old_pk, _ = self._entries.popitem(last=False)
+            self.evictions += 1
             self._pending_events.append(("evict", (old_pk,)))
+            if self._metrics is not None:
+                self._metrics.precompute_evictions.inc()
 
     def snapshot_eligible(self) -> List[Tuple[bytes, np.ndarray, bool]]:
         """``(pk, table, ok)`` of every cached key of a live set, in
@@ -191,28 +216,69 @@ class PrecomputeCache:
         n = len(pubkeys)
         has_table = np.zeros(n, dtype=bool)
         entries: List[Optional[Entry]] = [None] * n
-        with self._lock:
-            seen: Dict[bytes, Optional[Entry]] = {}
-            for i, pk in enumerate(pubkeys):
-                pk = bytes(pk)
-                if pk in seen:
-                    entry = seen[pk]
-                else:
+        with tracing.span("gather_tables", stage="gather", engine="ed25519", lanes=n) as tspan:
+            with self._lock:
+                metrics = self._metrics
+                hits = misses = builds = 0
+                build_time = 0.0
+                seen: Dict[bytes, int] = {}
+                for i, pk in enumerate(pubkeys):
+                    pk = bytes(pk)
                     entry = self._entries.get(pk)
                     if entry is not None:
                         self._entries.move_to_end(pk)
+                        hits += 1
+                    elif pk in seen:
+                        # a key repeated in the batch and not cached: one
+                        # build serves every lane, and only the first
+                        # lane counts as a miss
+                        entry = entries[seen[pk]]
+                        if entry is None:
+                            continue
                     elif pk in self._eligible:
+                        misses += 1
+                        t0 = time.perf_counter()
                         entry = build_table(pk)
-                        self.builds += 1
+                        build_time += time.perf_counter() - t0
+                        builds += 1
                         self._insert_locked(pk, *entry)
-                    seen[pk] = entry
-                if entry is not None:
+                    else:
+                        misses += 1
+                        seen.setdefault(pk, i)
+                        continue
                     entries[i] = entry
                     has_table[i] = True
+                    seen.setdefault(pk, i)
+                self.hits += hits
+                self.misses += misses
+                self.builds += builds
+                self.build_seconds += build_time
+            tspan.set(hits=hits, misses=misses, builds=builds)
+            if metrics is not None:
+                if hits:
+                    metrics.precompute_hits.inc(hits)
+                if misses:
+                    metrics.precompute_misses.inc(misses)
+                if builds:
+                    metrics.precompute_builds.inc(builds)
+                    metrics.table_build_seconds.observe(build_time)
         self._flush_events()
         if not has_table.any():
             return None, has_table
         return entries, has_table
+
+    def stats(self) -> Dict[str, float]:
+        with self._lock:
+            return {
+                "entries": len(self._entries),
+                "active_sets": len(self._active_sets),
+                "hits": self.hits,
+                "misses": self.misses,
+                "builds": self.builds,
+                "evictions": self.evictions,
+                "invalidations": self.invalidations,
+                "build_seconds": self.build_seconds,
+            }
 
     def clear(self) -> None:
         """Drop every entry and set (a ``"clear"`` event)."""
@@ -220,7 +286,7 @@ class PrecomputeCache:
             self._entries.clear()
             self._active_sets.clear()
             self._eligible = frozenset()
-            self.builds = 0
+            self._zero_counts()
             self._pending_events.append(("clear", ()))
         self._flush_events()
 
@@ -240,6 +306,11 @@ class ResultCache:
         # lanes a verifier really checked from those the cache answered
         self.hits = 0  # guarded-by: _lock
         self.misses = 0  # guarded-by: _lock
+        self._metrics = None  # guarded-by: _lock
+
+    def bind_metrics(self, metrics) -> None:
+        with self._lock:
+            self._metrics = metrics
 
     @staticmethod
     def _key(pk: bytes, msg: bytes, sig: bytes) -> bytes:
@@ -254,7 +325,10 @@ class ResultCache:
                 self.hits += 1
             else:
                 self.misses += 1
-            return verdict
+            metrics = self._metrics
+        if metrics is not None:
+            (metrics.result_cache_misses if verdict is None else metrics.result_cache_hits).inc()
+        return verdict
 
     def stats(self) -> dict:
         with self._lock:
@@ -281,6 +355,15 @@ results = ResultCache()
 
 def activate_validator_set(vset) -> bool:
     return tables.activate_validator_set(vset)
+
+
+def bind_metrics(metrics) -> None:
+    tables.bind_metrics(metrics)
+    results.bind_metrics(metrics)
+
+
+def stats() -> Dict[str, Dict[str, float]]:
+    return {"precompute": tables.stats(), "result_cache": results.stats()}
 
 
 def from_reference_tables(np_tables: Mapping[bytes, Entry]) -> int:

@@ -1,7 +1,7 @@
 """Device-resident table store for the verify path.
 
 Counterpart of ``tendermint_tpu/ops/resident.py`` for one CUDA device,
-without mesh keys, hot-key and tenant pins, metrics and tracing.
+without mesh keys and hot-key and tenant pins.
 
 The precompute cache (ops/precompute.py) keeps each live validator's
 ``(8, 4, 32)`` uint8 table column on the host. Without this store every
@@ -27,6 +27,12 @@ lane has a table, or no lane's key is stored (each counted in
 The store serves batches verified on a CUDA device; :func:`configure`
 forces it ``"on"`` (for any device) or ``"off"``, and ``None`` returns
 to following the device.
+
+An upload runs in a ``resident_upload`` span. The installed tensor's
+``nbytes`` is set in the device-byte ledger of ``ops/introspect.py``
+as ``resident_tables`` when it is installed, and 0 when it is dropped.
+``bind_metrics`` mirrors the store's hits and misses and the table
+bytes it ships (uploads and gathered chunks) into an ``OpsMetrics``.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tendermint_tpu_torch.ops import precompute
+from tendermint_tpu_torch.libs import tracing
+from tendermint_tpu_torch.ops import introspect, precompute
 
 # What acquire hands the engine: the (N,) bool lane partition, the (N,)
 # int32 store columns (0 outside the mask), the (K,) uint8 decompression
@@ -56,6 +63,7 @@ class ResidentTableStore:
         self._ok_host: Optional[np.ndarray] = None  # guarded-by: _lock
         self._device: Optional[torch.device] = None  # guarded-by: _lock
         self._version = 0  # guarded-by: _lock
+        self._metrics = None  # guarded-by: _lock
         self._zero_counts()
 
     def _zero_counts(self) -> None:
@@ -85,6 +93,10 @@ class ResidentTableStore:
             return mode == "on"
         return torch.device(device).type == "cuda"
 
+    def bind_metrics(self, metrics) -> None:
+        with self._lock:
+            self._metrics = metrics
+
     # --- upload / invalidate ------------------------------------------------
 
     def refresh(self, device) -> bool:
@@ -108,7 +120,10 @@ class ResidentTableStore:
             cols.append(table)
             oks.append(ok)
         host_tab = np.ascontiguousarray(np.stack(cols).transpose(1, 2, 3, 0))
-        tab_dev = self._upload(host_tab, device)
+        nbytes = int(host_tab.nbytes)
+        with tracing.span("resident_upload", stage="resident_upload", engine="ed25519",
+                          keys=len(index), bytes=nbytes):
+            tab_dev = self._upload(host_tab, device)
         with self._lock:
             if self._version != version:
                 return False
@@ -117,7 +132,14 @@ class ResidentTableStore:
             self._ok_host = np.asarray(oks, dtype=np.uint8)
             self._device = device
             self.uploads += 1
-            self.h2d_bytes += int(host_tab.nbytes)
+            self.h2d_bytes += nbytes
+            metrics = self._metrics
+            # Set under the store's lock (the ledger's own lock is a
+            # leaf), so a drop racing this install cannot leave the
+            # ledger holding a store that is gone, or the reverse.
+            introspect.set_bytes("resident_tables", tab_dev.nbytes)
+        if metrics is not None:
+            metrics.table_h2d_bytes.inc(nbytes)
         return True
 
     @staticmethod
@@ -146,6 +168,7 @@ class ResidentTableStore:
         self._ok_host = None
         self._device = None
         self._version += 1
+        introspect.set_bytes("resident_tables", 0)
 
     # --- lookup -------------------------------------------------------------
 
@@ -191,9 +214,16 @@ class ResidentTableStore:
                 hits += 1
             self.hits += hits
             self.misses += misses
+            metrics = self._metrics
             if not hits:
                 self.declined["no_hit"] += 1
-                return None
+        if metrics is not None:
+            if hits:
+                metrics.table_resident_hits.inc(hits)
+            if misses:
+                metrics.table_resident_misses.inc(misses)
+        if not hits:
+            return None
         return res_mask, idx, ok_host, tab_dev
 
     def _decline(self, reason: str) -> None:
@@ -205,8 +235,16 @@ class ResidentTableStore:
         """Count the bytes of a gathered (per-chunk) table tensor."""
         with self._lock:
             self.gathered_h2d_bytes += int(nbytes)
+            metrics = self._metrics
+        if metrics is not None:
+            metrics.table_h2d_bytes.inc(int(nbytes))
 
     # --- introspection ------------------------------------------------------
+
+    def device_nbytes(self) -> int:
+        """The installed store tensor's bytes (0 when none is)."""
+        with self._lock:
+            return 0 if self._tab_dev is None else int(self._tab_dev.nbytes)
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
@@ -261,6 +299,10 @@ def note_table_h2d(nbytes: int) -> None:
 
 def stats() -> Dict[str, int]:
     return store.stats()
+
+
+def bind_metrics(metrics) -> None:
+    store.bind_metrics(metrics)
 
 
 def reset() -> None:

@@ -27,7 +27,9 @@ chunk j+1 computed while chunk j runs. Device failures are classified
 and counted by the health machine both engines share
 (``ops/device_policy.py``) and propagate; only with
 ``device_policy.shared.host_fallback`` set is a failed chunk answered
-by the host oracle. A kernel that does not build always raises.
+by the host oracle. A kernel that does not build always raises. The
+stages run in the reference's spans (``prep_chunk``, ``dispatch_chunk``,
+``collect_chunk``, ``host_fallback``; ``engine="sr25519"``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 
 from tendermint_tpu_torch import resolve_device
 from tendermint_tpu_torch.crypto import sr25519 as sr
+from tendermint_tpu_torch.libs import tracing
 from tendermint_tpu_torch.ops import _build, curve, device_policy, fault_injection, field as F
 from tendermint_tpu_torch.ops.ed25519_batch import (
     CHUNK,
@@ -217,17 +220,26 @@ def verify_batch_sr(
     attempt = health.begin_attempt("sr25519")
     if attempt is None:
         health.refuse("sr25519", n)
-        return [sr.verify(p, m, s) for p, m, s in zip(pubkeys, msgs, sigs)]
+        with tracing.span("host_fallback", stage="fallback", engine="sr25519", lanes=n):
+            return [sr.verify(p, m, s) for p, m, s in zip(pubkeys, msgs, sigs)]
 
     checked = _host_checks(pubkeys, sigs)
     host_ok = checked[3]
     m = _bucket(n)
+
+    inflight = 0  # lanes launched and not yet read back
+
+    def in_flight(lanes: int) -> None:
+        nonlocal inflight
+        inflight += lanes
+        health.note_inflight("sr25519", lanes)
 
     def failed(what: str, lo: int, hi: int, exc: Exception) -> None:
         nonlocal attempt
         health.record_failure(exc, attempt)
         attempt = None
         if not health.host_fallback:
+            in_flight(-inflight)  # the error leaves the launched chunks unread
             raise exc
         warnings.warn(
             f"sr25519 chunk [{lo}:{hi}]: {what} failed ({exc!r}); host fallback for the "
@@ -236,7 +248,8 @@ def verify_batch_sr(
 
     def prep_or_none(lo: int, hi: int):
         try:
-            return _prep_chunk(checked, pubkeys, msgs, sigs, lo, hi)
+            with tracing.span("prep_chunk", stage="prep", engine="sr25519", lanes=hi - lo):
+                return _prep_chunk(checked, pubkeys, msgs, sigs, lo, hi)
         except Exception as exc:
             failed("prepare", lo, hi, exc)
             return None
@@ -251,7 +264,10 @@ def verify_batch_sr(
                 attempt = health.begin_attempt("sr25519")
             if attempt is not None:
                 try:
-                    out = _run_chunk_sr(prepped, dev)
+                    with tracing.span("dispatch_chunk", stage="dispatch", engine="sr25519",
+                                      lanes=hi - lo):
+                        out = _run_chunk_sr(prepped, dev)
+                    in_flight(hi - lo)
                 except _build.KernelBuildError:
                     health.release_probe(attempt)
                     raise
@@ -267,16 +283,24 @@ def verify_batch_sr(
         ok = None
         if out is not None:
             try:
-                ok = out.cpu().numpy()
+                with tracing.span("collect_chunk", stage="collect", engine="sr25519",
+                                  lanes=hi - lo):
+                    ok = out.cpu().numpy()
                 device_chunks_ok += 1
             except Exception as exc:
+                in_flight(-(hi - lo))
                 failed("collect", lo, hi, exc)
+            else:
+                in_flight(-(hi - lo))
         if ok is None:
             ok = np.ones(hi - lo, dtype=bool)
             top = min(hi, n)  # pad lanes need no host verify
             if lo < top:
                 fallback_lanes += top - lo
-                ok[: top - lo] = [sr.verify(pubkeys[i], msgs[i], sigs[i]) for i in range(lo, top)]
+                with tracing.span("host_fallback", stage="fallback", engine="sr25519",
+                                  lanes=top - lo):
+                    ok[: top - lo] = [sr.verify(pubkeys[i], msgs[i], sigs[i])
+                                      for i in range(lo, top)]
         results[lo:hi] = ok
     if fallback_lanes:
         health.count_fallback("sr25519", fallback_lanes)

@@ -10,11 +10,19 @@ listen backlog of the reference's event-loop listener, 128), with
 - GET ``/<method>?k=v``: URI parameters decoded by the reference's
   heuristics (quoted strings, bools, integers);
 - GET ``/``: the route index; GET ``/metrics``: the text exposition of
-  the registry, when one is given.
+  the registry, when one is given;
+- GET ``/debug/traces``: the tracer's ring as Chrome trace JSON
+  (``?limit=N`` keeps the newest N events, ``?clear=1`` empties the ring
+  after the read, ``?format=chrome`` keeps only the epoch anchor of
+  ``otherData``), written outside the tracer lock; GET ``/debug/memstats``: the device-tier
+  snapshot of ``ops/introspect.py``;
+- a request's optional ``trace`` member (``<trace_id>-<span_id>-<flags>``,
+  ``TraceContext.to_header``): the handler runs in an ``rpc_dispatch``
+  span under the caller's span, so the spans it causes share the
+  caller's trace. A missing or malformed member changes nothing.
 
-Left out: the selector event-loop transport and its knob, the websocket
-upgrade, the ``debug/traces`` and ``debug/memstats`` routes, and the
-cross-process trace context a request may carry.
+Left out: the selector event-loop transport and its knob, and the
+websocket upgrade.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qsl, urlparse
+
+from tendermint_tpu_torch.libs import tracing
 
 
 class RPCError(Exception):
@@ -152,6 +162,20 @@ class RPCServer:
         method = parsed.path.strip("/")
         if method == "":
             return 200, "application/json", self._index().encode()
+        if method == "debug/traces":
+            q = dict(parse_qsl(parsed.query))
+            try:
+                limit = int(q["limit"]) if "limit" in q else None
+            except ValueError:
+                limit = None
+            clear = q.get("clear") in ("1", "true")
+            fmt = "chrome" if q.get("format") == "chrome" else "full"
+            body = b"".join(tracing.tracer.export_chunks(limit=limit, clear=clear, fmt=fmt))
+            return 200, "application/json", body
+        if method == "debug/memstats":
+            from tendermint_tpu_torch.ops import introspect
+
+            return 200, "application/json", introspect.memstats_json().encode()
         if method == "metrics" and self.metrics_registry is not None:
             return 200, "text/plain; version=0.0.4", self.metrics_registry.expose().encode()
         params: Dict[str, Any] = {}
@@ -183,8 +207,16 @@ class RPCServer:
             resp["error"] = {"code": METHOD_NOT_FOUND, "message": f"method not found: {method}"}
             return resp
         params = req.get("params") or {}
+        raw_trace = req.get("trace")
+        ctx = tracing.TraceContext.from_header(raw_trace) if isinstance(raw_trace, str) else None
         try:
-            resp["result"] = _invoke(fn, params)
+            with tracing.attach(ctx):
+                if ctx is not None:
+                    with tracing.span("rpc_dispatch", method=method or ""):
+                        result = _invoke(fn, params)
+                else:
+                    result = _invoke(fn, params)
+            resp["result"] = result
         except RPCError as e:
             resp["error"] = {"code": e.code, "message": e.message, "data": e.data}
         except TypeError as e:

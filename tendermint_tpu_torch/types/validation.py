@@ -11,7 +11,9 @@ and rejects a double vote. The batch goes to
 :class:`~tendermint_tpu_torch.crypto.batch.MultiBatchVerifier`, one
 sub-batch per key type (ed25519, sr25519), so one commit is verified by
 the CUDA kernels in a few chunked launches; a key type without batch
-support sends the commit to single verification.
+support sends the commit to single verification. ``verify_commit`` and
+``verify_commit_light`` run in a ``verify_commit`` span tagged
+``height``, ``round`` and ``sigs`` (the light one also ``mode="light"``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 
 from tendermint_tpu_torch import resolve_device
 from tendermint_tpu_torch.crypto import batch as crypto_batch
+from tendermint_tpu_torch.libs import tracing
 from tendermint_tpu_torch.types.block import (
     BLOCK_ID_FLAG_ABSENT,
     BLOCK_ID_FLAG_COMMIT,
@@ -78,12 +81,13 @@ def verify_commit(
 ) -> None:
     """validation.go:28-54: +2/3 signed; checks ALL signatures."""
     dev = resolve_device(device)
-    _verify_basic_vals_and_commit(vals, commit, height, block_id)
-    needed = vals.total_voting_power() * 2 // 3
-    ignore = lambda c: c.block_id_flag == BLOCK_ID_FLAG_ABSENT
-    count = lambda c: c.block_id_flag == BLOCK_ID_FLAG_COMMIT
-    verify = _verify_commit_batch if _should_batch_verify(vals, commit) else _verify_commit_single
-    verify(chain_id, vals, commit, needed, ignore, count, True, True, dev)
+    with tracing.span("verify_commit", height=height, round=commit.round, sigs=len(commit.signatures)):
+        _verify_basic_vals_and_commit(vals, commit, height, block_id)
+        needed = vals.total_voting_power() * 2 // 3
+        ignore = lambda c: c.block_id_flag == BLOCK_ID_FLAG_ABSENT
+        count = lambda c: c.block_id_flag == BLOCK_ID_FLAG_COMMIT
+        verify = _verify_commit_batch if _should_batch_verify(vals, commit) else _verify_commit_single
+        verify(chain_id, vals, commit, needed, ignore, count, True, True, dev)
 
 
 def verify_commit_light(
@@ -96,12 +100,14 @@ def verify_commit_light(
 ) -> None:
     """validation.go:58-87: light-client/blocksync variant; stops at +2/3."""
     dev = resolve_device(device)
-    _verify_basic_vals_and_commit(vals, commit, height, block_id)
-    needed = vals.total_voting_power() * 2 // 3
-    ignore = lambda c: c.block_id_flag != BLOCK_ID_FLAG_COMMIT
-    count = lambda c: True
-    verify = _verify_commit_batch if _should_batch_verify(vals, commit) else _verify_commit_single
-    verify(chain_id, vals, commit, needed, ignore, count, False, True, dev)
+    with tracing.span("verify_commit", mode="light", height=height, round=commit.round,
+                      sigs=len(commit.signatures)):
+        _verify_basic_vals_and_commit(vals, commit, height, block_id)
+        needed = vals.total_voting_power() * 2 // 3
+        ignore = lambda c: c.block_id_flag != BLOCK_ID_FLAG_COMMIT
+        count = lambda c: True
+        verify = _verify_commit_batch if _should_batch_verify(vals, commit) else _verify_commit_single
+        verify(chain_id, vals, commit, needed, ignore, count, False, True, dev)
 
 
 def verify_commit_light_trusting(
