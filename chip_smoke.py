@@ -127,6 +127,33 @@ and, in order:
    member, ``/metrics``, ``/debug/traces?format=chrome`` (the serve's
    ``verify_batch`` spans in the request's trace under
    ``rpc_dispatch``) and ``/debug/memstats``;
+13. verifyd on the card (``verifyd/server.py`` and its client): 13a, an
+   in-process ``VerifydServer`` with the reference's defaults and
+   ``vclient.set_remote_addr``: phase 4's 10,000-validator commit through
+   ``verify_commit`` over the wire (three requests of at most 4,096
+   lanes), one cold run then 5 in turns with the in-process path, and
+   the bad commit rejected with the in-process error's message; 13b,
+   four clients at once on a server with room for the mix (admission
+   cap, ``max_pending`` and tenant cap 16,384, service budget 60 s; the
+   reference's defaults shed a 667-lane light request outright):
+   consensus (phase 4's
+   commits, 10,000 lanes a call), blocksync (phase 7's blocks, 334 lanes
+   a request), light (phase 8's headers, 667) and sr25519 (phase 7's
+   mixed window, 64, K5), each with planted bad lanes; every verdict
+   must equal the in-process one, some flush must mix clients, and
+   nothing may be shed, answered on the host or fail; per-class p50/p99
+   and the lanes/s the server verified; 13c, ``brownout.force(1..5)``:
+   rpc, light and blocksync shed in that order, consensus never, and
+   host-direct (counted) at rungs 4 and 5; after ``force(None)``
+   consensus launches again; a fault at ``ed25519.chunk`` with host
+   fallback off reaches the client as ``STATUS_INTERNAL``, not as
+   verdicts; 13d, set-less traffic from phase 3's 256 signers seen 3
+   times under two tenants of 128 pins: K1, then the store (K3), pins
+   within quota and the ledger's tenant rows summing to the store's
+   bytes; 13e, ``python -m tendermint_tpu_torch verifyd`` as a child
+   process: phase 8's header commits (its verdicts equal the in-process
+   ones) and one ``verify_commit`` from this process, its STATS_PATH
+   snapshot (with its own launch counts), ``/metrics`` and SIGTERM;
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -142,9 +169,12 @@ and, in order:
 
 Kernel launch counts are reset just before phase 3 and read just after
 phase 4b (K1-K4), and again around each of phases 5 (K5, and the
-ed25519 kernels of the mixed commit), 7, 8, 9, 10, 11 and 12. After each
-of these the health machine must show no host fallback, no transition
-and the healthy state. Each phase prints one JSON line; then the kernel table,
+ed25519 kernels of the mixed commit), 7, 8, 9, 10, 11, 12 and 13 (whose
+count is that of the served requests only: each sub-phase's deltas around
+what a server answered, without the in-process references, plus the
+daemon's own of 13e). After each of these the health machine
+must show no host fallback, no transition and the healthy state (in
+phase 13 after 13b, and after 13c has reset it). Each phase prints one JSON line; then the kernel table,
 the card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line. Without CUDA it exits with code 2 and prints no result.
@@ -1183,6 +1213,15 @@ def launches():
 
 def delta(before):
     return {k: v - before[k] for k, v in launches().items() if v != before[k]}
+
+
+def add_launches(*counts):
+    """The sum of launch-count dicts, by kernel."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def phase_verify_batch(lanes, dev):
@@ -3077,6 +3116,560 @@ def phase_observed(commit_wl, commit_tables, mixed_wl, ed_lanes, batch, lightd_w
     return counts
 
 
+# --- phase 13: verifyd -----------------------------------------------------------
+
+VERIFYD_REPS = 5  # 13a: remote and in-process commits, in turns
+VERIFYD_CONSENSUS_CALLS = 2  # 13b: 10,000-lane calls of the consensus client (heights 1, 2)
+VERIFYD_SR_REQUESTS = 3  # 13b: sr25519 requests
+VERIFYD_SR_LANES = 64  # 13b: lanes an sr25519 request (phase 7's mixed window holds 64)
+VERIFYD_MIX_CAP = 16384  # 13b's admission cap, max_pending and tenant cap (see PERF.md)
+VERIFYD_MIX_SERVICE_BUDGET = 60.0  # 13b's service-time budget, seconds (the default is 0.5)
+VERIFYD_LADDER_SHED_LANES = 64  # 13c: a sheddable class's request
+VERIFYD_LADDER_LANES = 256  # 13c: consensus, past the default tenant cap's shrunken share (128)
+VERIFYD_HOT_SIGNERS = BATCH_SIGNERS  # 13d: phase 3's 256 signers, each seen 3 times
+VERIFYD_HOT_SIGHTINGS = 3
+VERIFYD_HOT_QUOTA = 128  # 13d: pins a tenant may hold (two tenants of 128 signers)
+VERIFYD_CHILD_HEADERS = 3  # 13e: header commits sent to the daemon, then one verify_commit
+VERIFYD_CHILD_WAIT_S = 180.0  # 13e: the daemon's start, its CUDA context and kernel load
+VERIFYD_CHILD_STOP_S = 10.0
+VERIFYD_PHASE_S = 60.0  # the phase's time limit
+
+
+def commit_lanes(vset, commit, n=None):
+    """The (pks, msgs, sigs) lanes of ``commit``'s first ``n`` signatures."""
+    n = len(vset.validators) if n is None else n
+    return ([v.pub_key.bytes() for v in vset.validators[:n]],
+            [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(n)],
+            [cs.signature for cs in commit.signatures[:n]])
+
+
+def plant_bad(lanes, idx):
+    """A copy of ``lanes`` with the signatures at ``idx`` corrupted."""
+    pks, msgs, sigs = (list(x) for x in lanes)
+    for i in idx:
+        sigs[i] = sigs[i][:40] + bytes([sigs[i][40] ^ 1]) + sigs[i][41:]
+    return pks, msgs, sigs
+
+
+def in_process(requests, dev, algo="ed25519"):
+    """Each request's verdicts from the port's engine in this process (one
+    call per class), with the verdict cache emptied after."""
+    from tendermint_tpu_torch.ops import precompute, verify_batch
+    from tendermint_tpu_torch.ops.sr25519_batch import verify_batch_sr
+
+    flat = [sum((list(r[k]) for r in requests), []) for k in range(3)]
+    fn = verify_batch if algo == "ed25519" else verify_batch_sr
+    oks = list(fn(*flat, device=dev))
+    precompute.results.clear()
+    out, lo = [], 0
+    for r in requests:
+        out.append(oks[lo:lo + len(r[0])])
+        lo += len(r[0])
+    return out
+
+
+def verifyd_remote_commit(srv, commit_wl, commit_tables, dev):
+    """13a: phase 4's 10,000-validator commit through ``verify_commit``
+    with the remote set, against the in-process path in turns."""
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.types.validation import InvalidCommitError, verify_commit
+    from tendermint_tpu_torch.verifyd import client as vclient, protocol
+
+    part = "phase 13a"
+    vset, block_id, commits = commit_wl
+    addr = "%s:%d" % srv.address
+    precompute.reset()
+    restore_tables(vset, commit_tables)
+    served0 = srv.stats()["requests_served"]
+    sched0 = srv.scheduler.stats()
+    remote_client = None
+
+    def run(remote, commit):
+        nonlocal remote_client
+        vclient.set_remote_addr(addr if remote else "")
+        if remote:
+            remote_client = vclient.remote_client()
+        precompute.results.clear()
+        before = launches()
+        t = time.perf_counter()
+        try:
+            verify_commit(CHAIN_ID, vset, block_id, commit.height, commit, device=dev)
+            err = None
+        except InvalidCommitError as exc:
+            err = str(exc)
+        return time.perf_counter() - t, delta(before), err
+
+    cold_s, cold_d, err = run(True, commits[1])
+    check(err is None, f"{part}: the cold remote commit failed: {err}")
+    times = {"remote": [], "in_process": []}
+    per_side = {"remote": {}, "in_process": {}}
+    for _ in range(VERIFYD_REPS):
+        for side in ("remote", "in_process"):
+            s, d, err = run(side == "remote", commits[1])
+            check(err is None, f"{part}: the {side} commit failed: {err}")
+            times[side].append(s)
+            for k, v in d.items():
+                per_side[side][k] = per_side[side].get(k, 0) + v
+    bad = {side: run(side == "remote", commits[2]) for side in ("remote", "in_process")}
+    errors = {side: r[2] for side, r in bad.items()}
+    vclient.set_remote_addr("")
+    check(errors["remote"] is not None and errors["remote"] == errors["in_process"]
+          and f"(#{BAD_COMMIT_INDEX})" in errors["remote"],
+          f"{part}: bad commit remote {errors['remote']!r}, in process {errors['in_process']!r}")
+    calls = VERIFYD_REPS + 2
+    per_call = -(-COMMIT_VALIDATORS // protocol.MAX_LANES)
+    stats, sched = srv.stats(), srv.scheduler.stats()
+    served = stats["requests_served"] - served0
+    flushes = sched["flushes"] - sched0["flushes"]
+    reasons = {k: sched["flush_reasons"][k] - sched0["flush_reasons"][k] for k in sched["flush_reasons"]}
+    cstats = remote_client.stats()
+    check(served == calls * per_call, f"{part}: {served} requests served for {calls} commits")
+    check(reasons["size"] + reasons["deadline"] == flushes > 0, f"{part}: flush reasons {reasons}")
+    check(sched["flush_errors"] == sched0["flush_errors"]
+          and sched["fallback_flushes"] == sched0["fallback_flushes"],
+          f"{part}: failed or fallback flushes {sched}")
+    check(stats["host_direct_lanes"] == 0 and stats["pin_errors"] == 0 and stats["failed_closed"] == 0
+          and cstats["fallback_calls"] == 0, f"{part}: stats {stats} client {cstats}")
+    check(cold_d.get("verify_resident", 0) > 0 and per_side["remote"].get("verify_resident", 0) > 0
+          and set(cold_d) <= {"verify_resident", "challenge"},
+          f"{part}: remote launches cold {cold_d}, steady {per_side['remote']}")
+    p50 = {side: statistics.median(v) for side, v in times.items()}
+    return {"validators": COMMIT_VALIDATORS, "requests_per_commit": per_call,
+            "cold_remote_ms": cold_s * 1e3, "cold_remote_launches": cold_d,
+            "remote_ms": [x * 1e3 for x in times["remote"]],
+            "in_process_ms": [x * 1e3 for x in times["in_process"]],
+            "remote_p50_ms": p50["remote"] * 1e3, "in_process_p50_ms": p50["in_process"] * 1e3,
+            "remote_over_in_process": p50["remote"] / p50["in_process"],
+            "launches_per_remote_commit": {k: v / VERIFYD_REPS for k, v in per_side["remote"].items()},
+            "launches_per_in_process_commit": {k: v / VERIFYD_REPS
+                                                for k, v in per_side["in_process"].items()},
+            "flushes_per_remote_commit": flushes / (VERIFYD_REPS + 2), "flush_reasons": reasons,
+            "bad_commit_error": errors["remote"], "client": cstats,
+            "scheduler_knobs": stats["scheduler"], "cross_client_flushes": stats["cross_client_flushes"],
+            "served_launches": add_launches(cold_d, per_side["remote"], bad["remote"][1])}
+
+
+def verifyd_mix(commit_wl, sync, mixed_sync, light, dev):
+    """13b: four clients at once on one server: consensus (phase 4's
+    commits), blocksync (phase 7's blocks), light (phase 8's headers) and
+    sr25519 (phase 7's mixed window), each with planted bad lanes."""
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.verifyd import protocol
+    from tendermint_tpu_torch.verifyd.client import VerifydClient
+    from tendermint_tpu_torch.verifyd.server import VerifydServer
+
+    part = "phase 13b"
+    vset, _, commits = commit_wl
+    chain, bvset, _ = sync
+    lchain, lvset, _ = light
+    mchain, mvset, _ = mixed_sync
+    sync_lanes = SYNC_VALIDATORS * 2 // 3 + 1
+    light_lanes = LIGHT_VALIDATORS * 2 // 3 + 1
+    requests = {
+        "consensus": [plant_bad(commit_lanes(vset, commits[h]), (17 + h, COMMIT_VALIDATORS // 2 + h,
+                                                                   COMMIT_VALIDATORS - 1 - h))
+                      for h in range(VERIFYD_CONSENSUS_CALLS)],
+        "blocksync": [plant_bad(commit_lanes(bvset, sh.commit, sync_lanes),
+                                (b % sync_lanes,) if b % 4 == 0 else ())
+                      for b, sh in enumerate(chain[:SYNC_BLOCKS])],
+        "light": [plant_bad(commit_lanes(lvset, sh.commit, light_lanes),
+                            (h * 41 % light_lanes,) if h % 4 == 1 else ())
+                  for h, sh in enumerate(lchain[:LIGHT_HEADERS])],
+    }
+    sr = [(v.pub_key.bytes(), sh.commit.vote_sign_bytes(CHAIN_ID, i), sh.commit.signatures[i].signature)
+          for sh in mchain[:MIXED_SYNC_BLOCKS] for i, v in enumerate(mvset.validators)
+          if v.pub_key.type == "sr25519"][:VERIFYD_SR_LANES]
+    check(len(sr) == VERIFYD_SR_LANES, f"{part}: {len(sr)} sr25519 lanes in phase 7's mixed window")
+    requests["sr25519"] = [plant_bad(tuple(zip(*sr)), (r * 7 % VERIFYD_SR_LANES,))
+                           for r in range(VERIFYD_SR_REQUESTS)]
+    klass = {"consensus": protocol.CLASS_CONSENSUS, "blocksync": protocol.CLASS_BLOCKSYNC,
+             "light": protocol.CLASS_LIGHT, "sr25519": protocol.CLASS_BLOCKSYNC}
+    t = time.perf_counter()
+    want = {name: in_process(reqs, dev, "sr25519" if name == "sr25519" else "ed25519")
+            for name, reqs in requests.items()}
+    reference_s = time.perf_counter() - t
+    planted = {"consensus": 3 * VERIFYD_CONSENSUS_CALLS, "blocksync": -(-SYNC_BLOCKS // 4),
+               "light": LIGHT_HEADERS // 4, "sr25519": VERIFYD_SR_REQUESTS}
+    falses = {name: sum(not x for w in want[name] for x in w) for name in want}
+    check(falses == planted, f"{part}: in-process rejections {falses}, planted {planted}")
+    precompute.results.clear()
+    srv = VerifydServer(device=dev, admission_cap=VERIFYD_MIX_CAP, max_pending=VERIFYD_MIX_CAP,
+                        tenant_cap=VERIFYD_MIX_CAP, service_budget=VERIFYD_MIX_SERVICE_BUDGET)
+    srv.start()
+    addr = "%s:%d" % srv.address
+    results = {name: [] for name in requests}
+    errors = []
+    barrier = threading.Barrier(len(requests))
+    clients = {name: VerifydClient(addr, timeout=60.0) for name in requests}
+    t_end = {}
+
+    def run(name):
+        try:
+            c = clients[name]
+            barrier.wait(timeout=30)
+            for r in requests[name]:
+                t0 = time.perf_counter()
+                got = c.verify(*r, klass=klass[name],
+                               algo=protocol.ALGO_SR25519 if name == "sr25519" else protocol.ALGO_ED25519)
+                results[name].append((time.perf_counter() - t0, got))
+            t_end[name] = time.perf_counter()
+        except Exception as exc:  # reported below
+            errors.append((name, repr(exc)))
+
+    before = launches()
+    threads = [threading.Thread(target=run, args=(name,)) for name in requests]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=VERIFYD_PHASE_S)
+    wall = max(t_end.values(), default=time.perf_counter()) - t0
+    d = delta(before)
+    try:
+        check(not errors and all(not th.is_alive() for th in threads), f"{part}: clients {errors}")
+        for name in requests:
+            got = [v for _, v in results[name]]
+            check(got == want[name], f"{part}: {name} verdicts differ from the in-process ones")
+        stats = srv.stats()
+        scheds = srv.scheduler_stats()
+        cstats = {name: c.stats() for name, c in clients.items()}
+        check(sum(stats["cross_client_flushes"].values()) > 0, f"{part}: no cross-client flush {stats}")
+        check(stats["admission_rejections"] == 0 and stats["host_direct_lanes"] == 0
+              and stats["pin_errors"] == 0 and stats["failed_closed"] == 0,
+              f"{part}: sheds, host-direct lanes or pin errors {stats}")
+        check(all(s["fallback_calls"] == 0 and s["shed_retries_used"] == 0 for s in cstats.values()),
+              f"{part}: client fallbacks or sheds {cstats}")
+        check(all(s["flush_errors"] == 0 and s["fallback_flushes"] == 0 for s in scheds.values()),
+              f"{part}: failed or fallback flushes {scheds}")
+        check(d.get("verify_sr", 0) > 0 and d.get("verify", 0) + d.get("verify_resident", 0) > 0,
+              f"{part}: launches {d}")
+    finally:
+        for c in clients.values():
+            c.close()
+        srv.stop()
+    lanes = sum(len(r[0]) for reqs in requests.values() for r in reqs)
+    per_class = {}
+    for name, res in results.items():
+        ms = [s * 1e3 for s, _ in res]
+        per_class[name] = {"requests": len(ms), "lanes_per_request": len(requests[name][0][0]),
+                           "p50_ms": percentile(ms, 0.5), "p99_ms": percentile(ms, 0.99),
+                           "max_ms": max(ms)}
+    return {"config": {"admission_cap": VERIFYD_MIX_CAP, "max_pending": VERIFYD_MIX_CAP,
+                       "tenant_cap": VERIFYD_MIX_CAP, "service_budget_s": VERIFYD_MIX_SERVICE_BUDGET,
+                       "tenant": protocol.DEFAULT_TENANT},
+            "brownout": srv.brownout.snapshot(),
+            "lanes": lanes, "wall_s": wall, "lanes_per_s": lanes / wall, "per_class": per_class,
+            "launches": d, "cross_client_flushes": stats["cross_client_flushes"],
+            "schedulers": scheds, "scheduler_knobs": stats["scheduler"],
+            "in_process_reference_s": reference_s}
+
+
+def verifyd_ladder(srv, commit_wl, dev):
+    """13c: ``brownout.force(1..5)`` on 13a's server (the reference's
+    defaults): rpc, light and blocksync shed in that order, consensus
+    never, host-direct at rungs 4 and 5; after ``force(None)`` consensus
+    launches a kernel again. Then a fault at ``ed25519.chunk`` with host
+    fallback off reaches the client as STATUS_INTERNAL."""
+    from tendermint_tpu_torch.ops import device_policy, fault_injection, precompute
+    from tendermint_tpu_torch.verifyd import protocol
+    from tendermint_tpu_torch.verifyd.client import VerifydClient, VerifydRejectedError
+    from tendermint_tpu_torch.verifyd.server import LEVEL_NAMES, level_sheds_class
+
+    part = "phase 13c"
+    vset, _, commits = commit_wl
+    all_lanes = commit_lanes(vset, commits[0])
+    cursor = [0]
+
+    def take(n):
+        lo = cursor[0]
+        cursor[0] += n
+        check(cursor[0] <= COMMIT_VALIDATORS, f"{part}: out of lanes")
+        lanes = plant_bad(tuple(x[lo:lo + n] for x in all_lanes), (n // 2,))
+        return lanes, [i != n // 2 for i in range(n)]
+
+    health = device_policy.shared
+    check(not health.host_fallback, f"{part}: host fallback is on")
+    c = VerifydClient("%s:%d" % srv.address, shed_retries=0)
+    classes = (protocol.CLASS_RPC, protocol.CLASS_LIGHT, protocol.CLASS_BLOCKSYNC, protocol.CLASS_CONSENSUS)
+    rows = []
+    try:
+        for level in range(1, 6):
+            srv.brownout.force(level)
+            row = {"level": LEVEL_NAMES[level]}
+            for klass in classes:
+                n = VERIFYD_LADDER_LANES if klass == protocol.CLASS_CONSENSUS else VERIFYD_LADDER_SHED_LANES
+                lanes, want = take(n)
+                precompute.results.clear()
+                host0, before = srv.stats()["host_direct_lanes"], launches()
+                try:
+                    got = c.verify(*lanes, klass=klass)
+                    outcome = "ok"
+                except VerifydRejectedError as exc:
+                    got, outcome = None, protocol.STATUS_NAMES[exc.status]
+                host = srv.stats()["host_direct_lanes"] - host0
+                name = protocol.CLASS_NAMES[klass]
+                if level_sheds_class(level, klass):
+                    check(outcome == "resource_exhausted", f"{part}: {name} at {row['level']}: {outcome}")
+                else:
+                    check(outcome == "ok" and got == want, f"{part}: {name} at {row['level']}: {outcome}")
+                if klass == protocol.CLASS_CONSENSUS:
+                    direct = level >= 4
+                    check(host == (n if direct else 0) and (not delta(before)) == direct,
+                          f"{part}: consensus at {row['level']}: {host} host-direct lanes, "
+                          f"launches {delta(before)}")
+                row[name] = outcome if not host else f"host_direct ({host} lanes)"
+            rows.append(row)
+        srv.brownout.force(None)
+        snap = health.snapshot()
+        direct_lanes = srv.stats()["host_direct_lanes"]
+        check(direct_lanes == 2 * VERIFYD_LADDER_LANES
+              and snap["fallback_lanes"].get("ed25519", 0) == direct_lanes,
+              f"{part}: host-direct lanes {direct_lanes}, health {snap}")
+        health.reset()
+        lanes, want = take(VERIFYD_LADDER_LANES)
+        precompute.results.clear()
+        before = launches()
+        check(c.verify(*lanes, klass=protocol.CLASS_CONSENSUS) == want, f"{part}: after the ladder")
+        after_ladder = delta(before)
+        check(after_ladder, f"{part}: no kernel launched after force(None)")
+        # a device fault with host fallback off: an error at the client,
+        # never a verdict list
+        lanes, _ = take(VERIFYD_LADDER_LANES)
+        precompute.results.clear()
+        failed0 = srv.stats()["failed_closed"]
+        with fault_injection.inject(site="ed25519.chunk", fail_calls=(1,)) as plan:
+            try:
+                got = c.verify(*lanes, klass=protocol.CLASS_CONSENSUS)
+            except VerifydRejectedError as exc:
+                got, status, message = None, exc.status, str(exc)
+            else:
+                status, message = protocol.STATUS_OK, ""
+        fault_snap = health.snapshot()
+        check(got is None and status == protocol.STATUS_INTERNAL and "injected" in message
+              and plan.faults_raised == 1 and srv.stats()["failed_closed"] == failed0 + 1,
+              f"{part}: the fault reached the client as {status} {message!r} (verdicts {got is not None})")
+        check(sum(fault_snap["failures"].values()) == 1 and fault_snap["fallback_batches"] == 0,
+              f"{part}: health after the fault {fault_snap}")
+    finally:
+        srv.brownout.force(None)
+        c.close()
+        health.reset()
+    return {"rungs": rows, "host_direct_lanes": direct_lanes,
+            "launches_after_force_none": after_ladder,
+            "fault": {"status": protocol.STATUS_NAMES[status], "message": message,
+                      "health": {k: fault_snap[k] for k in ("state", "failures", "transitions")}}}
+
+
+def verifyd_hot_keys(batch, dev):
+    """13d: set-less traffic from phase 3's 256 signers, each seen 3 times,
+    under two tenants with 128 pins each: K1 first, then the store (K3)."""
+    from tendermint_tpu_torch.ops import introspect, precompute, resident
+    from tendermint_tpu_torch.verifyd import protocol
+    from tendermint_tpu_torch.verifyd.client import VerifydClient
+    from tendermint_tpu_torch.verifyd.server import VerifydServer
+
+    part = "phase 13d"
+    pks, msgs, sigs, want = batch
+    precompute.reset()
+    resident.reset()
+    check(precompute.tables.stats()["active_sets"] == 0 and resident.stats()["resident_keys"] == 0,
+          f"{part}: caches not empty")
+    srv = VerifydServer(device=dev, tenant_pin_quota=VERIFYD_HOT_QUOTA)
+    srv.start()
+    tenants = ("chain-a", "chain-b")
+    clients = [VerifydClient("%s:%d" % srv.address, tenant=t) for t in tenants]
+    half = VERIFYD_HOT_SIGNERS // 2
+    rounds = []
+    try:
+        for r in range(VERIFYD_HOT_SIGHTINGS):
+            before = launches()
+            t = time.perf_counter()
+            for h, c in enumerate(clients):
+                lo = r * VERIFYD_HOT_SIGNERS + h * half
+                got = c.verify(pks[lo:lo + half], msgs[lo:lo + half], sigs[lo:lo + half],
+                               klass=protocol.CLASS_CONSENSUS)
+                check(got == [bool(x) for x in want[lo:lo + half]], f"{part}: round {r} verdicts")
+            d = delta(before)
+            rounds.append({"ms": (time.perf_counter() - t) * 1e3, "launches": d,
+                           "pinned": len(resident.pinned_keys())})
+            if r < 2:
+                check(d.get("verify", 0) > 0 and not d.get("verify_resident"),
+                      f"{part}: round {r} launches {d}")
+            else:
+                check(d.get("verify_resident", 0) > 0 and not d.get("verify"),
+                      f"{part}: round {r} launches {d}")
+        pins = resident.tenant_pins()
+        store = resident.stats()
+        rows = {k: v for k, v in introspect.accountant.snapshot()["device_bytes"].items()
+                if k.startswith("resident_tables/")}
+        stats = srv.stats()
+        check(pins == {t: half for t in tenants} and all(n <= VERIFYD_HOT_QUOTA for n in pins.values()),
+              f"{part}: pins {pins}")
+        check(store["hits"] > 0 and store["resident_keys"] == VERIFYD_HOT_SIGNERS,
+              f"{part}: store {store}")
+        check(set(rows) == {f"resident_tables/{t}" for t in tenants}
+              and sum(rows.values()) == resident.store.device_nbytes() > 0,
+              f"{part}: ledger rows {rows}, store {resident.store.device_nbytes()} bytes")
+        check(stats["pin_errors"] == 0 and stats["host_direct_lanes"] == 0
+              and stats["admission_rejections"] == 0, f"{part}: stats {stats}")
+    finally:
+        for c in clients:
+            c.close()
+        srv.stop()
+        precompute.reset()
+    return {"rounds": rounds, "tenant_pins": pins, "store": store, "ledger_rows": rows,
+            "store_bytes": sum(rows.values())}
+
+
+def verifyd_daemon(light, dev):
+    """13e: ``python -m tendermint_tpu_torch verifyd`` as its own process
+    on the card: phase 8's header commits from this process, the
+    STATS_PATH snapshot, ``/metrics``, and SIGTERM."""
+    import queue
+    import signal
+    import urllib.request
+
+    from tendermint_tpu_torch.libs.metrics import Registry, VerifydMetrics
+    from tendermint_tpu_torch.types.validation import verify_commit
+    from tendermint_tpu_torch.verifyd import client as vclient, protocol
+    from tendermint_tpu_torch.verifyd.client import VerifydClient
+
+    part = "phase 13e"
+    chain, lvset, _ = light
+    requests = [plant_bad(commit_lanes(lvset, sh.commit), ((h * 131 + 17) % LIGHT_VALIDATORS,))
+                for h, sh in enumerate(chain[:VERIFYD_CHILD_HEADERS])]
+    want = in_process(requests, dev)
+    check(all(sum(not x for x in w) == 1 for w in want), f"{part}: in-process verdicts")
+    sh = chain[VERIFYD_CHILD_HEADERS]
+    verify_commit(CHAIN_ID, lvset, sh.commit.block_id, sh.height, sh.commit, device=dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    err_path = os.path.join(root, "build", "verifyd_daemon.stderr")
+    env = dict(os.environ, PYTHONPATH=root, PYTHONUNBUFFERED="1")
+    t_start = time.perf_counter()
+    with open(err_path, "w") as err:
+        # the daemon's default device is CUDA; a CPU rehearsal names its own
+        argv = [sys.executable, "-m", "tendermint_tpu_torch", "verifyd", "--port", "0",
+                "--metrics", "127.0.0.1:0"] + ([] if dev.type == "cuda" else ["--device", dev.type])
+        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    c = None
+    try:
+        banner = lines.get(timeout=VERIFYD_CHILD_WAIT_S).strip()
+        metrics_line = lines.get(timeout=VERIFYD_CHILD_WAIT_S).strip()
+        start_s = time.perf_counter() - t_start
+        check(banner.startswith("verifyd serving on ") and "shm=off, shard=standalone)" in banner
+              and f"device={dev.type}" in metrics_line, f"{part}: banner {banner!r} {metrics_line!r}")
+        addr = banner.split()[3]
+        murl = "http://" + metrics_line.split()[3] + "/metrics"
+        c = VerifydClient(addr, timeout=60.0)
+        header_ms = []
+        for r, w in zip(requests, want):
+            t = time.perf_counter()
+            got = c.verify(*r, klass=protocol.CLASS_CONSENSUS)
+            header_ms.append((time.perf_counter() - t) * 1e3)
+            check(got == w, f"{part}: the daemon's verdicts differ from the in-process ones")
+        vclient.set_remote_addr(addr)
+        try:
+            t = time.perf_counter()
+            verify_commit(CHAIN_ID, lvset, sh.commit.block_id, sh.height, sh.commit, device=dev)
+            commit_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            vclient.set_remote_addr("")
+        snap = c.server_stats(timeout=30.0)
+        stats = snap["stats"]
+        check(stats["requests_served"] == VERIFYD_CHILD_HEADERS + 1 and stats["host_direct_lanes"] == 0
+              and stats["pin_errors"] == 0 and stats["admission_rejections"] == 0,
+              f"{part}: daemon stats {stats}")
+        check(all(s["flush_errors"] == 0 and s["fallback_flushes"] == 0
+                  for s in snap["schedulers"].values())
+              and snap["health"]["state"] == "healthy" and snap["health"]["fallback_batches"] == 0,
+              f"{part}: daemon schedulers {snap['schedulers']}, health {snap['health']}")
+        child_launches = {k: v for k, v in snap["launches"].items() if v}
+        check(child_launches.get("verify", 0) > 0, f"{part}: daemon launches {child_launches}")
+        with urllib.request.urlopen(murl, timeout=30) as resp:
+            text = resp.read().decode()
+        families = sorted({ln.split()[2] for ln in text.splitlines()
+                           if ln.startswith("# TYPE tendermint_verifyd_")})
+        ref_reg = Registry()
+        VerifydMetrics(ref_reg)
+        want_families = sorted({ln.split()[2] for ln in ref_reg.expose().splitlines()
+                                if ln.startswith("# TYPE ")})
+        check(families == want_families
+              and 'tendermint_verifyd_requests_total{kind="commit",status="ok"}' in text,
+              f"{part}: /metrics families {families}")
+        c.close()
+        c = None
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=VERIFYD_CHILD_STOP_S)
+        stop_s = time.perf_counter() - t
+        check(rc == 0, f"{part}: the daemon exited {rc}")
+    finally:
+        if c is not None:
+            c.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    return {"start_s": start_s, "banner": banner, "header_lanes": LIGHT_VALIDATORS,
+            "header_ms": header_ms, "cross_process_commit_ms": commit_ms,
+            "requests_served": stats["requests_served"], "resident": snap["resident"],
+            "pinned_keys": len(snap["pinned_keys"]), "tenant_pins": snap["tenant_pins"],
+            "launches": child_launches, "metrics_families": len(families), "stop_s": stop_s}
+
+
+def phase_verifyd(commit_wl, commit_tables, batch, sync, mixed_sync, light, dev):
+    """Phase 13: verifyd on the card (see the module note). Returns the
+    launches of the requests the servers answered: each sub-phase's
+    deltas around its served requests only (13a's and 13b's in-process
+    references and 13e's warm-up are left out), plus the daemon's own
+    counts from its snapshot."""
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.verifyd import client as vclient
+    from tendermint_tpu_torch.verifyd.server import VerifydServer
+
+    t_phase = time.perf_counter()
+    check(len(commit_tables) == COMMIT_VALIDATORS, f"phase 13: {len(commit_tables)} tables of the set")
+    srv = VerifydServer(device=dev)  # the reference's defaults
+    srv.start()
+    try:
+        t = time.perf_counter()
+        out = verifyd_remote_commit(srv, commit_wl, commit_tables, dev)
+        served = {"13a": out["served_launches"]}
+        emit({"phase": "verifyd_13a_remote_commit", "seconds": time.perf_counter() - t, **out})
+        t = time.perf_counter()
+        out = verifyd_mix(commit_wl, sync, mixed_sync, light, dev)
+        served["13b"] = out["launches"]  # taken around the clients only
+        emit({"phase": "verifyd_13b_mix", "seconds": time.perf_counter() - t, **out})
+        health = check_healthy("phase 13a-13b")
+        t = time.perf_counter()
+        before = launches()  # 13c runs no in-process reference: all of it is served
+        out = verifyd_ladder(srv, commit_wl, dev)
+        served["13c"] = delta(before)
+        emit({"phase": "verifyd_13c_ladder", "seconds": time.perf_counter() - t, **out})
+    finally:
+        vclient.reset_remote()
+        srv.stop()
+    t = time.perf_counter()
+    out = verifyd_hot_keys(batch, dev)
+    served["13d"] = add_launches(*(r["launches"] for r in out["rounds"]))
+    emit({"phase": "verifyd_13d_hot_keys", "seconds": time.perf_counter() - t, **out})
+    t = time.perf_counter()
+    daemon = verifyd_daemon(light, dev)
+    served["13e"] = daemon["launches"]
+    emit({"phase": "verifyd_13e_daemon", "seconds": time.perf_counter() - t, **daemon})
+    precompute.reset()
+    counts = launches()
+    summed = add_launches(*served.values())
+    total = {k: summed.get(k, 0) for k in counts}
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "verifyd", "seconds": seconds, "launches_this_process": counts,
+          "launches_served": served, "launches": total, "health_13a_13b": health})
+    check(seconds <= VERIFYD_PHASE_S, f"phase 13 took {seconds:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3159,6 +3752,12 @@ def main(argv=None) -> int:
     observed_counts = phase_observed(commit, commit_tables, mixed, kernel_lanes, batch, lightd_wl, dev,
                                      args.trace_dir)
     health["phase_12"] = check_healthy("phase 12")
+    cuda_verify.reset_launches()  # verifyd starts here
+    cuda_hash.reset_launches()
+    verifyd_counts = phase_verifyd(commit, commit_tables, batch, sync, mixed_sync, light, dev)
+    for name in ("verify", "verify_resident", "verify_sr"):
+        check(verifyd_counts[name] > 0, f"kernel {name} never launched through verifyd")
+    health["phase_13"] = check_healthy("phase 13")
     crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
@@ -3173,6 +3772,7 @@ def main(argv=None) -> int:
         row["launches_light_batch"] = light_round_counts[name]
         row["launches_lightd"] = lightd_counts[name]
         row["launches_observed"] = observed_counts[name]
+        row["launches_verifyd"] = verifyd_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,14 @@ host check. :class:`MultiBatchVerifier` splits a mixed validator set's
 commit by key type. :func:`get_shared_scheduler` is the process-wide
 accumulate-with-deadline scheduler (``crypto/scheduler.py``) in front of
 :func:`tiered_verify_ed25519`. Counterpart of
-``tendermint_tpu/crypto/batch.py`` without the verifyd remote.
+``tendermint_tpu/crypto/batch.py`` with one verifyd remote and no
+federation.
+
+A verify service set with ``verifyd.client.set_remote_addr`` owns the
+card for this process (:func:`remote_verify_backend`): the ed25519 batch
+verifier sends batches at or above :data:`DEVICE_THRESHOLD` to it, and
+the shared scheduler every flush, so ``types/validation.verify_commit``
+rides the wire. sr25519 stays local, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,11 +27,17 @@ from typing import List, Optional, Tuple
 
 from tendermint_tpu_torch import resolve_device
 from tendermint_tpu_torch.crypto.keys import ED25519_KEY_TYPE, SR25519_KEY_TYPE, PubKey
+from tendermint_tpu_torch.verifyd import client as vclient
 
 # Host/device crossover: below this many signatures a device launch
 # costs more than it saves, so batches stay on the host (the analog of
 # the reference's batchVerifyThreshold, types/validation.go:12-16).
 DEVICE_THRESHOLD = 16
+
+
+def remote_verify_backend():
+    """The verify function of the configured verifyd remote, or None."""
+    return vclient.remote_backend()
 
 
 def host_verify_ed25519(pks, msgs, sigs) -> List[bool]:
@@ -95,7 +108,10 @@ def tiered_verify_ed25519(pks, msgs, sigs, device=None) -> List[bool]:
 def note_validator_set(vals) -> None:
     """Make the set's ed25519 keys eligible for per-validator table
     caching in the port's precompute cache (ops/precompute.py); keys of
-    rotated-out sets are dropped."""
+    rotated-out sets are dropped. The reference also forwards the set's
+    digest to a verifyd federation as a routing key; with one remote
+    there is nothing to route, and the remote pins the set's keys from
+    its traffic (``ops/resident.note_hot_keys``)."""
     from tendermint_tpu_torch.ops import precompute
 
     precompute.activate_validator_set(vals)
@@ -128,6 +144,11 @@ class Ed25519BatchVerifier:
         if not self._pks:
             return False, []
         if len(self._pks) >= DEVICE_THRESHOLD:
+            # a configured verifyd remote owns the card for this process
+            remote = remote_verify_backend()
+            if remote is not None:
+                oks = remote(self._pks, self._msgs, self._sigs)
+                return all(oks), list(oks)
             from tendermint_tpu_torch.ops import verify_batch
 
             oks = verify_batch(self._pks, self._msgs, self._sigs, device=self.device)
@@ -193,28 +214,39 @@ _shared_scheduler_lock = threading.Lock()
 
 
 def _shared_verify(pks, msgs, sigs) -> List[bool]:
-    """The shared scheduler's flush target: the small-batch policy on the
-    package's device, resolved at flush time."""
+    """The shared scheduler's flush target: a configured verifyd remote
+    gets every flush, even a tiny one (other clients' lanes coalesce
+    there); else the small-batch policy on the package's device,
+    resolved at flush time."""
+    remote = remote_verify_backend()
+    if remote is not None:
+        return remote(pks, msgs, sigs)
     return tiered_verify_ed25519(pks, msgs, sigs)
 
 
-def _shared_host_fallback(pks, msgs, sigs) -> List[bool]:
-    """The shared scheduler's fallback for a flush whose verify raised.
+def gated_host_verify(engine: str, host_fn, pks, msgs, sigs) -> List[bool]:
+    """A scheduler fallback's answer for a flush whose verify raised.
 
     The port answers on the host only where the caller allows it
     (``device_policy.shared.host_fallback``), and counts those lanes in
-    the health machine as the engines count theirs. With fallback off it
-    raises, and the scheduler fails the flush closed (every lane False,
-    ``flush_errors`` counted) as it does for a flush with no fallback;
-    the engine has already recorded the device fault."""
+    the health machine under ``engine`` as the engines count theirs.
+    With fallback off it raises, and the scheduler fails the flush
+    closed (every lane False, ``flush_errors`` counted, the error on each
+    handle) as it does for a flush with no fallback; the engine has
+    already recorded the device fault."""
     from tendermint_tpu_torch.ops import device_policy
 
     health = device_policy.shared
     if not health.host_fallback:
         raise RuntimeError("host fallback is off (device_policy.shared.host_fallback)")
-    oks = host_verify_ed25519(pks, msgs, sigs)
-    health.count_fallback("ed25519", len(pks))
+    oks = host_fn(pks, msgs, sigs)
+    health.count_fallback(engine, len(pks))
     return oks
+
+
+def _shared_host_fallback(pks, msgs, sigs) -> List[bool]:
+    """The shared scheduler's fallback (:func:`gated_host_verify`)."""
+    return gated_host_verify("ed25519", host_verify_ed25519, pks, msgs, sigs)
 
 
 def get_shared_scheduler():

@@ -1,0 +1,511 @@
+"""Shared selector-based event loop for the serving front-ends.
+
+Counterpart of ``tendermint_tpu/libs/evloop.py``, whole but for the
+reference's lock-checker instrumentation: the port's verify service
+(``verifyd/server.py``) serves its gRPC connections on it.
+
+Both wire servers historically spent one OS thread per connection
+(``GrpcServer._accept_loop`` spawning ``_serve_conn`` threads, and
+``ThreadingHTTPServer`` under the RPC surface). That holds a few dozen
+peers; it does not hold the light-client serving tier's 10k+ sockets.
+This module is the replacement substrate: ONE loop thread per server
+multiplexes every connection over non-blocking sockets via
+``selectors``, and a small bounded worker pool runs the (blocking)
+request handlers — so thread count is O(workers), never O(connections).
+
+Division of labor:
+
+- the **loop thread** owns the selector, the listening socket's accept
+  path, every connection's reads, and the flushing of buffered writes.
+  Protocol callbacks (``data_received``) run here and must not block —
+  they parse bytes and hand complete requests to ``Transport.defer``;
+- **worker threads** run deferred handlers (scheduler waits, JSON
+  encoding) and respond through ``Transport.write``, which only appends
+  to the connection's out-buffer and wakes the loop via a self-pipe —
+  no worker ever touches a socket;
+- **write backpressure**: a connection whose out-buffer passes the
+  high-water mark stops being read (its peer is slow-reading; buffering
+  more responses for it is memory amplification) and resumes below the
+  low-water mark. The wire protocols' own flow control (HTTP/2 windows)
+  composes with this — this layer bounds kernel-buffer-refused bytes.
+
+The protocol object contract (sans-IO, asyncio-shaped but synchronous):
+``factory(transport)`` returns an object with ``data_received(bytes)``,
+``eof_received()``, and ``connection_lost(exc)``. The transport gives it
+``write``/``close``/``abort``/``defer``/``detach``.
+
+``detach()`` exists for the websocket upgrade path: a long-lived,
+rarely-used session leaves the loop and gets a dedicated thread, the
+same trade the reference makes for its websocket handlers.
+
+The listening socket is read through ``listener_ref()`` on EVERY accept
+attempt, and transient accept errors (ECONNABORTED) are absorbed — the
+same contract the threaded accept loop honored (a peer tearing off
+mid-handshake must not kill the server), pinned by the grpc suite.
+"""
+
+from __future__ import annotations
+
+import collections
+import selectors
+import socket
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Optional
+
+from tendermint_tpu_torch.libs import log
+from tendermint_tpu_torch.libs.metrics import EvloopMetrics
+
+DEFAULT_WORKERS = 16
+DEFAULT_HIGH_WATER = 1 << 20  # pause reads past 1MB of unflushed response
+DEFAULT_LOW_WATER = 1 << 18  # resume below 256KB
+RECV_SIZE = 65536
+
+
+class Transport:
+    """Per-connection handle, safe to drive from worker threads. All
+    socket I/O happens on the loop thread; this object only moves bytes
+    into the out-buffer and flags the loop."""
+
+    def __init__(self, server: "EvloopServer", sock: socket.socket, peer):
+        self._server = server
+        self.sock = sock
+        self.peername = peer
+        self._fd = sock.fileno()
+        self._wlock = threading.Lock()
+        self._outbuf: collections.deque = collections.deque()  # guarded-by: _wlock
+        self._outlen = 0  # guarded-by: _wlock
+        self._closing = False  # guarded-by: _wlock
+        self._aborted = False  # guarded-by: _wlock
+        self._detach_evt: Optional[threading.Event] = None  # guarded-by: _wlock
+        # loop-thread-only state (never touched off-loop):
+        self._paused = False  # guarded-by: none(loop thread only)
+        self._interest = 0  # guarded-by: none(loop thread only)
+        self._registered = False  # guarded-by: none(loop thread only)
+        self._gone = False  # guarded-by: none(loop thread only)
+        self.proto = None  # set once by the accept path before any event
+
+    # --- worker-facing API ---------------------------------------------------
+
+    def write(self, data: bytes) -> None:
+        """Queue bytes for the peer; returns immediately. Bytes queued
+        after ``close()``/``abort()`` are dropped (the connection is on
+        its way down)."""
+        if not data:
+            return
+        with self._wlock:
+            if self._closing or self._aborted or self._detach_evt is not None:
+                return
+            self._outbuf.append(bytes(data))
+            self._outlen += len(data)
+        self._server._mark_dirty(self)
+
+    def buffered(self) -> int:
+        with self._wlock:
+            return self._outlen
+
+    def close(self) -> None:
+        """Graceful close: flush the out-buffer, then close."""
+        with self._wlock:
+            self._closing = True
+        self._server._mark_dirty(self)
+
+    def abort(self) -> None:
+        """Immediate close: pending output is dropped."""
+        with self._wlock:
+            self._closing = True
+            self._aborted = True
+            self._outbuf.clear()
+            self._outlen = 0
+        self._server._mark_dirty(self)
+
+    def defer(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` on the server's worker pool."""
+        self._server.defer(fn)
+
+    def detach(self) -> socket.socket:
+        """Remove this socket from the loop and return it in blocking
+        mode. Call from a worker only; the caller owns the socket (and
+        its eventual close) from then on."""
+        evt = threading.Event()
+        with self._wlock:
+            self._detach_evt = evt
+        self._server._mark_dirty(self)
+        # loop dead or stopping: the unregister below already happened in
+        # teardown, or never will — the socket is still ours either way
+        evt.wait(timeout=5.0)
+        self.sock.setblocking(True)
+        return self.sock
+
+
+class EvloopServer:
+    """One selector loop + one bounded worker pool serving a listening
+    socket owned by the caller (the caller binds/closes it; this class
+    only accepts from it, via ``listener_ref()`` so operators and tests
+    can swap the listener object at runtime)."""
+
+    def __init__(
+        self,
+        proto_factory: Callable[[Transport], object],
+        listener_ref: Callable[[], Optional[socket.socket]],
+        name: str = "server",
+        workers: int = DEFAULT_WORKERS,
+        metrics: Optional[EvloopMetrics] = None,
+        logger=None,
+        high_water: int = DEFAULT_HIGH_WATER,
+        low_water: int = DEFAULT_LOW_WATER,
+    ):
+        self._proto_factory = proto_factory
+        self._listener_ref = listener_ref
+        self.name = name
+        self._workers = max(1, workers)
+        self.metrics = metrics or EvloopMetrics.nop()
+        self._logger = logger if logger is not None else log.NOP_LOGGER
+        self.high_water = high_water
+        self.low_water = min(low_water, high_water)
+        # written by start()/stop() under _life_mtx; the loop thread's
+        # lock-free reads are ordered by Thread.start/join instead, so
+        # the lock checker can't model it as a plain guarded field
+        self._sel: Optional[selectors.BaseSelector] = None  # guarded-by: none(start-before-loop, join-before-teardown)
+        self._conns: Dict[int, Transport] = {}  # guarded-by: none(loop thread only)
+        self._dirty_mtx = threading.Lock()
+        self._dirty: set = set()  # guarded-by: _dirty_mtx
+        self._stopping = threading.Event()
+        # Lifecycle state is touched from whatever threads call
+        # start()/stop() AND from every worker issuing a wake/defer, so
+        # it rides one mutex; the loop thread itself only reads it via
+        # locals captured at _run entry.
+        self._life_mtx = threading.Lock()
+        self._thread: Optional[threading.Thread] = None  # guarded-by: _life_mtx
+        self._pool: Optional[ThreadPoolExecutor] = None  # guarded-by: _life_mtx
+        self._wake_r: Optional[socket.socket] = None  # guarded-by: _life_mtx
+        self._wake_w: Optional[socket.socket] = None  # guarded-by: _life_mtx
+
+    # --- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        with self._life_mtx:
+            if self._thread is not None:
+                return
+            self._stopping.clear()
+            self._sel = selectors.DefaultSelector()
+            self._wake_r, self._wake_w = socket.socketpair()
+            self._wake_r.setblocking(False)
+            self._wake_w.setblocking(False)
+            self._sel.register(self._wake_r, selectors.EVENT_READ, "wake")
+            lsock = self._listener_ref()
+            if lsock is not None:
+                lsock.setblocking(False)
+                self._sel.register(lsock, selectors.EVENT_READ, "listener")
+            self._pool = ThreadPoolExecutor(
+                max_workers=self._workers,
+                thread_name_prefix=f"{self.name}-worker",
+            )
+            self._thread = threading.Thread(
+                target=self._run, name=f"{self.name}-evloop", daemon=True
+            )
+            self._thread.start()
+
+    def stop(self) -> None:
+        with self._life_mtx:
+            thread, self._thread = self._thread, None
+        if thread is None:
+            return
+        self._stopping.set()
+        self._wake()
+        # join OUTSIDE the mutex: workers must stay able to wake/defer
+        # while the loop drains its final pass
+        thread.join(timeout=5)
+        with self._life_mtx:
+            pool, self._pool = self._pool, None
+            # the loop thread is gone (or wedged past its join timeout);
+            # tear the wake pipe down here rather than in _run's finally
+            # so no thread but a stop() caller ever writes these fields
+            for s in (self._wake_r, self._wake_w):
+                if s is not None:
+                    try:
+                        s.close()
+                    except OSError:
+                        pass  # shutdown path: wake socket already gone
+            self._wake_r = self._wake_w = None
+            self._sel = None
+        if pool is not None:
+            pool.shutdown(wait=False)
+
+    def connection_count(self) -> int:
+        # racy read of a loop-owned dict: stats-grade only
+        return len(self._conns)
+
+    def defer(self, fn: Callable[[], None]) -> None:
+        with self._life_mtx:
+            pool = self._pool
+        if pool is None:
+            return
+        pool.submit(self._run_deferred, fn)
+
+    def _run_deferred(self, fn: Callable[[], None]) -> None:
+        try:
+            fn()
+        except Exception as exc:  # a handler bug never kills a worker
+            self._logger.debug(
+                "evloop deferred handler failed",
+                server=self.name,
+                error=type(exc).__name__,
+                detail=str(exc),
+            )
+
+    # --- loop-side machinery -------------------------------------------------
+
+    def _wake(self) -> None:
+        with self._life_mtx:
+            w = self._wake_w
+        if w is None:
+            return
+        try:
+            w.send(b"\x00")
+        except (BlockingIOError, OSError):
+            pass  # a pending wake byte already guarantees a loop pass
+
+    def _mark_dirty(self, t: Transport) -> None:
+        with self._dirty_mtx:
+            self._dirty.add(t)
+        self._wake()
+
+    def _gauge(self) -> None:
+        self.metrics.connections.labels(server=self.name).set(
+            len(self._conns)
+        )
+
+    def _set_interest(self, t: Transport, want: int) -> None:
+        if t._gone:
+            return
+        if want == t._interest and (t._registered or want == 0):
+            return
+        sel = self._sel
+        if want == 0:
+            if t._registered:
+                try:
+                    sel.unregister(t.sock)
+                except (KeyError, ValueError, OSError):
+                    pass  # already unregistered / fd closed under us
+                t._registered = False
+        elif t._registered:
+            try:
+                sel.modify(t.sock, want, t)
+            except (KeyError, ValueError, OSError):
+                self._drop(t, None)
+                return
+        else:
+            try:
+                sel.register(t.sock, want, t)
+                t._registered = True
+            except (KeyError, ValueError, OSError):
+                self._drop(t, None)
+                return
+        t._interest = want
+
+    def _drop(self, t: Transport, exc: Optional[BaseException]) -> None:
+        if t._gone:
+            return
+        t._gone = True
+        if t._registered:
+            try:
+                self._sel.unregister(t.sock)
+            except (KeyError, ValueError, OSError):
+                pass  # fd may already be dead; drop proceeds either way
+            t._registered = False
+        self._conns.pop(t._fd, None)
+        try:
+            t.sock.close()
+        except OSError:
+            pass  # best-effort close of an already-broken socket
+        self._gauge()
+        proto = t.proto
+        if proto is not None:
+            try:
+                proto.connection_lost(exc)
+            except Exception:
+                pass  # protocol teardown bugs never reach the loop
+
+    def _detach_now(self, t: Transport, evt: threading.Event) -> None:
+        t._gone = True
+        if t._registered:
+            try:
+                self._sel.unregister(t.sock)
+            except (KeyError, ValueError, OSError):
+                pass  # detach proceeds even if the fd vanished mid-poll
+            t._registered = False
+        self._conns.pop(t._fd, None)
+        self._gauge()
+        evt.set()
+
+    def _on_accept(self) -> None:
+        while not self._stopping.is_set():
+            lsock = self._listener_ref()
+            if lsock is None:
+                return
+            try:
+                conn, addr = lsock.accept()
+            except BlockingIOError:
+                return  # drained
+            except OSError:
+                # Transient accept errors (ECONNABORTED: the peer tore
+                # off mid-handshake) must not kill the server; the
+                # level-triggered selector retries on the next pass.
+                return
+            try:
+                conn.setblocking(False)
+                conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            except OSError:
+                pass  # non-TCP sockets (tests use socketpairs) lack NODELAY
+            t = Transport(self, conn, addr)
+            try:
+                t.proto = self._proto_factory(t)
+            except Exception:
+                try:
+                    conn.close()
+                except OSError:
+                    pass  # factory failed; close is best-effort cleanup
+                continue
+            self._conns[t._fd] = t
+            self._sel.register(conn, selectors.EVENT_READ, t)
+            t._registered = True
+            t._interest = selectors.EVENT_READ
+            self._gauge()
+
+    def _flush_writes(self, t: Transport) -> None:
+        while True:
+            with t._wlock:
+                if not t._outbuf:
+                    break
+                chunk = t._outbuf[0]
+            try:
+                n = t.sock.send(chunk)
+            except (BlockingIOError, InterruptedError):
+                break
+            except OSError as exc:
+                self._drop(t, exc)
+                return
+            with t._wlock:
+                if n >= len(chunk):
+                    t._outbuf.popleft()
+                else:
+                    t._outbuf[0] = chunk[n:]
+                t._outlen -= n
+
+    def _handle_read(self, t: Transport) -> None:
+        try:
+            data = t.sock.recv(RECV_SIZE)
+        except (BlockingIOError, InterruptedError):
+            return
+        except OSError as exc:
+            self._drop(t, exc)
+            return
+        if not data:
+            try:
+                t.proto.eof_received()
+            except Exception:
+                pass  # protocol EOF bugs degrade to a plain close
+            self._drop(t, None)
+            return
+        try:
+            t.proto.data_received(data)
+        except Exception as exc:
+            # protocol error (bad preface, malformed frame): this
+            # connection closes; every other connection keeps serving
+            self._logger.debug(
+                "evloop connection closed",
+                server=self.name,
+                peer=str(t.peername),
+                error=type(exc).__name__,
+                detail=str(exc),
+            )
+            self._drop(t, exc)
+
+    def _reconcile(self, t: Transport) -> None:
+        """Apply a transport's flags: detach, abort, interest, close."""
+        if t._gone:
+            return
+        with t._wlock:
+            evt = t._detach_evt
+            outlen = t._outlen
+            closing = t._closing
+            aborted = t._aborted
+        if evt is not None:
+            self._detach_now(t, evt)
+            return
+        if aborted:
+            self._drop(t, None)
+            return
+        if closing and outlen == 0:
+            self._drop(t, None)
+            return
+        # backpressure: a slow reader stops being read until its buffer
+        # drains below the low-water mark
+        if not t._paused and outlen > self.high_water:
+            t._paused = True
+        elif t._paused and outlen < self.low_water:
+            t._paused = False
+        want = 0
+        if not closing and not t._paused:
+            want |= selectors.EVENT_READ
+        if outlen:
+            want |= selectors.EVENT_WRITE
+        self._set_interest(t, want)
+
+    def _run(self) -> None:
+        # capture lifecycle state as locals: start() published these
+        # before spawning us, and stop() only tears them down after our
+        # join — going through self would race a concurrent stop()
+        with self._life_mtx:
+            sel = self._sel
+            wake_r = self._wake_r
+        try:
+            while not self._stopping.is_set():
+                try:
+                    events = sel.select(timeout=1.0)
+                except OSError:
+                    continue  # a closed listener fd mid-poll; re-select
+                for key, mask in events:
+                    data = key.data
+                    if data == "wake":
+                        try:
+                            while wake_r.recv(4096):
+                                pass
+                        except (BlockingIOError, OSError):
+                            pass  # wake pipe drained (or torn at stop)
+                        continue
+                    if data == "listener":
+                        self._on_accept()
+                        continue
+                    t: Transport = data
+                    if mask & selectors.EVENT_WRITE:
+                        self._flush_writes(t)
+                    if not t._gone and mask & selectors.EVENT_READ:
+                        self._handle_read(t)
+                    if not t._gone:
+                        self._reconcile(t)
+                with self._dirty_mtx:
+                    dirty, self._dirty = self._dirty, set()
+                for t in dirty:
+                    if not t._gone:
+                        # flush eagerly so small responses go out this
+                        # pass instead of waiting one extra select round
+                        self._flush_writes(t)
+                    if not t._gone:
+                        self._reconcile(t)
+        finally:
+            for t in list(self._conns.values()):
+                with t._wlock:
+                    evt = t._detach_evt
+                if evt is not None:
+                    self._detach_now(t, evt)
+                else:
+                    self._drop(t, None)
+            try:
+                sel.close()
+            except OSError:
+                pass  # shutdown path: selector may already be closed
+            # the wake pipe outlives us: stop() closes it after joining
+            # this thread, so in-flight _wake() calls never hit a
+            # half-closed socket pair

@@ -8,7 +8,8 @@ that renders the text exposition format (served by ``rpc/server.py`` at
 ``GET /metrics``), the shared no-op instance of a metrics struct
 (``nop()``), ``OpsMetrics`` (the verify path: the health machine, the
 caches, the resident store, the challenge hash, the stage timings and
-the device-byte ledger) and ``LightMetrics``. Family names, help texts
+the device-byte ledger), ``VerifydMetrics`` and ``EvloopMetrics`` (the
+verify service and its event loop) and ``LightMetrics``. Family names, help texts
 and label sets are the reference's, so both expositions compare line by
 line. The other subsystems' structs and the flight-recorder sink are
 left out.
@@ -482,6 +483,156 @@ class OpsMetrics(_NopMixin):
                 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
                 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
             ),
+        )
+
+
+class VerifydMetrics(_NopMixin):
+    """The verifyd verification service (verifyd/server.py): shared-
+    scheduler serving metrics — queue depth and sheds by priority
+    class, batch occupancy, flush reasons, wire latency. No reference
+    analog; the shape follows inference-serving practice. The ``shm_*``
+    families have no feeder in the port (its shm ingress is not ported)
+    and read zero."""
+
+    def __init__(self, reg: Optional[Registry]):
+        reg = reg or Registry()
+        s = "verifyd"
+        self.queue_depth = reg.gauge(
+            _name(s, "queue_depth"),
+            "Lanes pending in the shared scheduler, by priority class.",
+            labels=("klass",),
+        )
+        self.admission_rejections = reg.counter(
+            _name(s, "admission_rejections_total"),
+            "Requests shed by the admission controller.",
+            labels=("klass", "reason"),
+        )
+        self.requests = reg.counter(
+            _name(s, "requests_total"),
+            "Wire requests served, by request kind and response status.",
+            labels=("kind", "status"),
+        )
+        self.lanes = reg.counter(
+            _name(s, "lanes_total"),
+            "Signature lanes accepted into the scheduler, by class.",
+            labels=("klass",),
+        )
+        self.request_seconds = reg.histogram(
+            _name(s, "request_seconds"),
+            "Wire latency per request (decode to respond), seconds.",
+            labels=("kind",),
+        )
+        self.batch_occupancy = reg.histogram(
+            _name(s, "batch_occupancy"),
+            "Lanes per scheduler flush (cross-client batch size).",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
+        )
+        self.flushes = reg.counter(
+            _name(s, "flushes_total"),
+            "Scheduler flushes, by trigger reason (size/deadline/shutdown).",
+            labels=("reason",),
+        )
+        self.cross_client_flushes = reg.counter(
+            _name(s, "cross_client_flushes_total"),
+            "Flushes whose lanes came from more than one client connection.",
+            labels=("reason",),
+        )
+        self.dispatch_occupancy = reg.histogram(
+            _name(s, "dispatch_occupancy"),
+            "Outstanding dispatches (queued + in flight) at each"
+            " scheduler hand-off — the continuous-batching pipeline"
+            " depth.",
+            buckets=(1, 2, 3, 4, 6, 8),
+        )
+        self.brownout_level = reg.gauge(
+            _name(s, "brownout_level"),
+            "Current degradation-ladder rung (0=normal .."
+            " 5=host_consensus).",
+        )
+        self.brownout_transitions = reg.counter(
+            _name(s, "brownout_transitions_total"),
+            "Degradation-ladder moves, by direction (up/down).",
+            labels=("direction",),
+        )
+        # tenant labels are sanitized AND capped server-side (at most
+        # max_tenants distinct values, overflow collapses to "other"),
+        # so this family's cardinality is bounded by construction
+        self.tenant_lanes = reg.counter(
+            _name(s, "tenant_lanes_total"),
+            "Signature lanes admitted, by tenant namespace.",
+            labels=("tenant",),
+        )
+        self.tenant_rejections = reg.counter(
+            _name(s, "tenant_rejections_total"),
+            "Requests shed, by tenant namespace and shed reason.",
+            labels=("tenant", "reason"),
+        )
+        self.tenant_queue_depth = reg.gauge(
+            _name(s, "tenant_queue_depth"),
+            "Outstanding (admitted, unresolved) lanes, by tenant.",
+            labels=("tenant",),
+        )
+        self.tenant_request_seconds = reg.histogram(
+            _name(s, "tenant_request_seconds"),
+            "Wire latency per request, by tenant namespace.",
+            labels=("tenant",),
+        )
+        # Client-side end-to-end latency attribution (verifyd/client.py):
+        # the server's per-response stage-time vector observed one
+        # histogram sample per stage, with trace-ID exemplars linking a
+        # bucket back to the causal trace.
+        self.e2e_stage_seconds = reg.histogram(
+            _name(s, "e2e_stage_seconds"),
+            "Per-stage share of verifyd request latency as attributed"
+            " by the server's stage-time vector, seconds.",
+            labels=("stage",),
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
+                0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+            ),
+        )
+        self.host_direct_lanes = reg.counter(
+            _name(s, "host_direct_lanes_total"),
+            "Consensus lanes verified on the host oracle by the"
+            " brownout ladder's shrink_shares/host_consensus rungs.",
+        )
+        # shared-memory slab-ring ingress (verifyd/shm.py)
+        self.shm_lanes = reg.counter(
+            _name(s, "shm_lanes_total"),
+            "Signature lanes that arrived through the shared-memory"
+            " slab-ring transport (before admission).",
+        )
+        self.shm_fallbacks = reg.counter(
+            _name(s, "shm_fallbacks_total"),
+            "Shm attach/session failures that pushed a caller back onto"
+            " the TCP path.",
+        )
+        self.shm_torn_slabs = reg.counter(
+            _name(s, "shm_torn_slabs_total"),
+            "Committed slabs rejected by the seqlock generation check"
+            " (writer died or raced mid-write); each one is answered"
+            " with an explicit INVALID, never dropped silently.",
+        )
+        self.shm_ring_occupancy = reg.gauge(
+            _name(s, "shm_ring_occupancy"),
+            "Lanes committed to slab rings and not yet drained into the"
+            " scheduler, summed over live shm sessions.",
+        )
+
+
+class EvloopMetrics(_NopMixin):
+    """The shared selector event loop (libs/evloop.py): connection
+    gauge per server so operators can see 10k sockets multiplexing onto
+    one loop thread. No reference analog — the reference is
+    thread-per-connection."""
+
+    def __init__(self, reg: Optional[Registry]):
+        reg = reg or Registry()
+        s = "evloop"
+        self.connections = reg.gauge(
+            _name(s, "connections"),
+            "Open connections multiplexed on the event loop, per server.",
+            labels=("server",),
         )
 
 

@@ -1,7 +1,7 @@
 """Stateless light-client verification (light/verifier.go).
 
-Counterpart of ``tendermint_tpu/light/verifier.py`` without the verifyd
-workload classes. Both the adjacent and the non-adjacent (skipping)
+Counterpart of ``tendermint_tpu/light/verifier.py``; its commit checks
+run under the light class of a verifyd remote. Both the adjacent and the non-adjacent (skipping)
 paths end in batched commit verification (types/validation.py), so a
 walk over a header chain rides the card's batch verifier. Every entry
 point takes ``device=`` (``None`` is
@@ -21,6 +21,8 @@ from tendermint_tpu_torch.types.validation import (
     verify_commit_light_trusting,
 )
 from tendermint_tpu_torch.types.validator_set import ValidatorSet
+from tendermint_tpu_torch.verifyd.client import classify
+from tendermint_tpu_torch.verifyd.protocol import CLASS_LIGHT
 
 DEFAULT_TRUST_LEVEL = Fraction(1, 3)
 
@@ -108,26 +110,29 @@ def verify_non_adjacent(
     _verify_new_header_and_vals(
         untrusted_header, untrusted_vals, trusted_header, now, max_clock_drift
     )
-    try:
-        verify_commit_light_trusting(
-            trusted_header.chain_id, trusted_vals, untrusted_header.commit, trust_level,
-            device=device,
-        )
-    except NotEnoughVotingPowerError as e:
-        raise NewValSetCantBeTrustedError(str(e)) from e
-    except ValueError as e:
-        raise InvalidHeaderError(str(e)) from e
-    try:
-        verify_commit_light(
-            trusted_header.chain_id,
-            untrusted_vals,
-            untrusted_header.commit.block_id,
-            untrusted_header.height,
-            untrusted_header.commit,
-            device=device,
-        )
-    except ValueError as e:
-        raise InvalidHeaderError(str(e)) from e
+    # light-client class for a verifyd remote (outermost wins over
+    # validation's blocksync)
+    with classify(CLASS_LIGHT):
+        try:
+            verify_commit_light_trusting(
+                trusted_header.chain_id, trusted_vals, untrusted_header.commit, trust_level,
+                device=device,
+            )
+        except NotEnoughVotingPowerError as e:
+            raise NewValSetCantBeTrustedError(str(e)) from e
+        except ValueError as e:
+            raise InvalidHeaderError(str(e)) from e
+        try:
+            verify_commit_light(
+                trusted_header.chain_id,
+                untrusted_vals,
+                untrusted_header.commit.block_id,
+                untrusted_header.height,
+                untrusted_header.commit,
+                device=device,
+            )
+        except ValueError as e:
+            raise InvalidHeaderError(str(e)) from e
 
 
 def verify_adjacent(
@@ -154,17 +159,18 @@ def verify_adjacent(
         raise InvalidHeaderError(
             "expected old header's next validators to match those from new header"
         )
-    try:
-        verify_commit_light(
-            trusted_header.chain_id,
-            untrusted_vals,
-            untrusted_header.commit.block_id,
-            untrusted_header.height,
-            untrusted_header.commit,
-            device=device,
-        )
-    except ValueError as e:
-        raise InvalidHeaderError(str(e)) from e
+    with classify(CLASS_LIGHT):
+        try:
+            verify_commit_light(
+                trusted_header.chain_id,
+                untrusted_vals,
+                untrusted_header.commit.block_id,
+                untrusted_header.height,
+                untrusted_header.commit,
+                device=device,
+            )
+        except ValueError as e:
+            raise InvalidHeaderError(str(e)) from e
 
 
 def verify(

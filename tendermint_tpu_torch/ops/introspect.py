@@ -9,7 +9,9 @@ process-wide instance each:
     Device-resident bytes by owner. ``resident_tables`` is the resident
     store's ``(8, 4, 32, K)`` uint8 tensor, set to its exact ``nbytes``
     by ``ops/resident.py`` when it installs a store and to 0 when it
-    drops one. Owners are *set*, not incremented, by the subsystem that
+    drops one; ``resident_tables/<tenant>`` splits those bytes among
+    the verify service's tenants by their hot-key pins
+    (:func:`set_tenant_bytes`). Owners are *set*, not incremented, by the subsystem that
     knows the size, so the ledger cannot drift from the allocation.
     Compile events ride along: a kernel's first launch in the process
     (its library's nvcc build or load included), counted per engine
@@ -234,6 +236,20 @@ class DeviceMemAccountant:
         with self._lock:
             return self._bytes.get(owner, 0)
 
+    def set_tenant_bytes(self, total: int, pins: Dict[str, int]) -> None:
+        """``resident_tables/<tenant>`` rows from the pin table: the
+        store's ``total`` bytes split in proportion to each tenant's
+        pins. Tenants that no longer hold pins are zeroed."""
+        total = max(0, int(total))
+        pinned = sum(pins.values())
+        with self._lock:
+            stale = [o for o in self._bytes
+                     if o.startswith("resident_tables/") and o.split("/", 1)[1] not in pins]
+        for owner in stale:
+            self.set_bytes(owner, 0)
+        for tenant, count in pins.items():
+            self.set_bytes("resident_tables/%s" % tenant, total * count // pinned if pinned else 0)
+
     def note_compile(self, engine: str) -> None:
         """One compile event on ``engine``."""
         engine = str(engine)
@@ -286,6 +302,10 @@ def set_bytes(owner: str, nbytes: int) -> None:
 
 def add_bytes(owner: str, delta: int) -> None:
     accountant.add_bytes(owner, delta)
+
+
+def set_tenant_bytes(total: int, pins: Dict[str, int]) -> None:
+    accountant.set_tenant_bytes(total, pins)
 
 
 def note_compile(engine: str) -> None:

@@ -1,7 +1,7 @@
 """Validator-set-aware precompute and result caches for the verify path.
 
 Counterpart of ``tendermint_tpu/ops/precompute.py`` without its env
-knobs and key pins. ``bind_metrics`` mirrors both caches' counters into
+knobs. ``bind_metrics`` mirrors both caches' counters into
 an ``OpsMetrics`` (table hits, misses, builds, evictions, invalidations
 and build seconds; verdict-cache hits and misses), and a table gather
 runs in a ``gather_tables`` span.
@@ -16,9 +16,12 @@ runs in a ``gather_tables`` span.
   digest, sig)`` verdicts, so a vote verified once is not verified
   again.
 
-Only keys of an *activated* validator set get host-built tables, so
-one-off keys from ad-hoc batches cannot thrash the cache; activating a
-new set drops entries of keys that left every active set.
+Only keys of an *activated* validator set, or keys pinned with
+:func:`pin_pubkeys` (the verify service pins repeat signers of set-less
+traffic, ``ops/resident.py`` ``note_hot_keys``), get host-built tables,
+so one-off keys from ad-hoc batches cannot thrash the cache; activating
+a new set drops entries of keys that left every active set and are not
+pinned.
 
 Observers (:func:`register_observer`) hear of every entry that leaves
 the cache: ``fn(kind, payload)`` with kind ``"rotation"`` (keys that left
@@ -118,6 +121,7 @@ class PrecomputeCache:
         self._lock = threading.Lock()
         self._entries: "OrderedDict[bytes, Entry]" = OrderedDict()  # guarded-by: _lock
         self._active_sets: "OrderedDict[bytes, FrozenSet[bytes]]" = OrderedDict()  # guarded-by: _lock
+        self._pinned: set = set()  # guarded-by: _lock
         self._eligible: FrozenSet[bytes] = frozenset()  # guarded-by: _lock
         self._pending_events: List[Tuple[str, tuple]] = []  # guarded-by: _lock
         self._metrics = None  # guarded-by: _lock
@@ -169,8 +173,15 @@ class PrecomputeCache:
         self._flush_events()
         return True
 
+    def pin(self, pubkeys) -> None:
+        """Make specific keys table-eligible outside any validator set."""
+        with self._lock:
+            self._pinned.update(bytes(pk) for pk in pubkeys)
+            self._recompute_eligible_locked()
+        self._flush_events()
+
     def _recompute_eligible_locked(self) -> None:
-        self._eligible = frozenset().union(*self._active_sets.values())
+        self._eligible = frozenset(self._pinned).union(*self._active_sets.values())
         stale = tuple(pk for pk in self._entries if pk not in self._eligible)
         for pk in stale:
             del self._entries[pk]
@@ -272,6 +283,7 @@ class PrecomputeCache:
             return {
                 "entries": len(self._entries),
                 "active_sets": len(self._active_sets),
+                "pinned": len(self._pinned),
                 "hits": self.hits,
                 "misses": self.misses,
                 "builds": self.builds,
@@ -281,10 +293,11 @@ class PrecomputeCache:
             }
 
     def clear(self) -> None:
-        """Drop every entry and set (a ``"clear"`` event)."""
+        """Drop every entry, set and pin (a ``"clear"`` event)."""
         with self._lock:
             self._entries.clear()
             self._active_sets.clear()
+            self._pinned.clear()
             self._eligible = frozenset()
             self._zero_counts()
             self._pending_events.append(("clear", ()))
@@ -355,6 +368,10 @@ results = ResultCache()
 
 def activate_validator_set(vset) -> bool:
     return tables.activate_validator_set(vset)
+
+
+def pin_pubkeys(pubkeys) -> None:
+    tables.pin(pubkeys)
 
 
 def bind_metrics(metrics) -> None:

@@ -1,7 +1,7 @@
 """Device-resident table store for the verify path.
 
 Counterpart of ``tendermint_tpu/ops/resident.py`` for one CUDA device,
-without mesh keys and hot-key and tenant pins.
+without mesh keys.
 
 The precompute cache (ops/precompute.py) keeps each live validator's
 ``(8, 4, 32)`` uint8 table column on the host. Without this store every
@@ -33,6 +33,15 @@ An upload runs in a ``resident_upload`` span. The installed tensor's
 as ``resident_tables`` when it is installed, and 0 when it is dropped.
 ``bind_metrics`` mirrors the store's hits and misses and the table
 bytes it ships (uploads and gathered chunks) into an ``OpsMetrics``.
+
+Hot keys (:func:`note_hot_keys`): the verify service's traffic has no
+validator set to activate, so it reports each flush's signers here. A
+key seen :data:`HOT_PIN_THRESHOLD` times is pinned in the host cache
+(``precompute.pin_pubkeys``) and joins the next upload. A tenant may
+hold at most ``quota`` pins; past it a hot key is counted in
+``pin_quota_denials`` instead. Each upload splits the store's bytes
+among the tenants in proportion to their pins, as the ledger rows
+``resident_tables/<tenant>`` (``introspect.set_tenant_bytes``).
 """
 
 from __future__ import annotations
@@ -51,6 +60,11 @@ from tendermint_tpu_torch.ops import introspect, precompute
 # verdicts by column, and the store tensor.
 Acquired = Tuple[np.ndarray, np.ndarray, np.ndarray, torch.Tensor]
 
+# Keys seen this many times through note_hot_keys are pinned in the host
+# cache; at most HOT_TRACK_CAP keys are counted at once.
+HOT_PIN_THRESHOLD = 2
+HOT_TRACK_CAP = 4096
+
 
 class ResidentTableStore:
     """Thread-safe device mirror of the host precompute cache."""
@@ -64,9 +78,13 @@ class ResidentTableStore:
         self._device: Optional[torch.device] = None  # guarded-by: _lock
         self._version = 0  # guarded-by: _lock
         self._metrics = None  # guarded-by: _lock
+        self._hot_counts: Dict[bytes, int] = {}  # guarded-by: _lock
+        self._tenant_pins: Dict[str, int] = {}  # guarded-by: _lock
+        self._pinned: set = set()  # keys this process pinned; guarded-by: _lock
         self._zero_counts()
 
     def _zero_counts(self) -> None:
+        self.pin_quota_denials = 0  # guarded-by: _lock
         self.hits = 0  # guarded-by: _lock
         self.misses = 0  # guarded-by: _lock
         self.uploads = 0  # guarded-by: _lock
@@ -138,6 +156,7 @@ class ResidentTableStore:
             # leaf), so a drop racing this install cannot leave the
             # ledger holding a store that is gone, or the reverse.
             introspect.set_bytes("resident_tables", tab_dev.nbytes)
+            introspect.set_tenant_bytes(tab_dev.nbytes, self._tenant_pins)
         if metrics is not None:
             metrics.table_h2d_bytes.inc(nbytes)
         return True
@@ -152,13 +171,18 @@ class ResidentTableStore:
         snapshot may hold them is not installed."""
         keys = [bytes(pk) for pk in pubkeys]
         with self._lock:
+            self._pinned.difference_update(keys)
             self._version += 1
             if self._tab_dev is not None and any(pk in self._index for pk in keys):
                 self._drop_locked()
 
     def clear(self) -> None:
+        """The host cache was cleared: the device copy, the hot-key
+        counts and the pinned slice go with it."""
         with self._lock:
             self._drop_locked()
+            self._hot_counts.clear()
+            self._pinned.clear()
 
     def _drop_locked(self) -> None:
         if self._tab_dev is not None:
@@ -169,6 +193,7 @@ class ResidentTableStore:
         self._device = None
         self._version += 1
         introspect.set_bytes("resident_tables", 0)
+        introspect.set_tenant_bytes(0, {})
 
     # --- lookup -------------------------------------------------------------
 
@@ -231,6 +256,45 @@ class ResidentTableStore:
             self.declined[reason] += 1
         return None
 
+    def note_hot_keys(self, pubkeys: Iterable[bytes], tenant: Optional[str] = None,
+                      quota: int = 0) -> None:
+        """Count repeat signers of set-less traffic: a key seen
+        :data:`HOT_PIN_THRESHOLD` times is pinned in the host cache, so
+        it joins the next upload. With ``tenant`` and ``quota`` > 0, a
+        tenant holding ``quota`` pins has its further hot keys counted
+        in ``pin_quota_denials`` instead."""
+        to_pin = []
+        with self._lock:
+            for pk in pubkeys:
+                pk = bytes(pk)
+                if len(pk) != 32:
+                    continue
+                c = self._hot_counts.get(pk, 0) + 1
+                if c >= HOT_PIN_THRESHOLD:
+                    self._hot_counts.pop(pk, None)
+                    if tenant is not None and quota > 0:
+                        used = self._tenant_pins.get(tenant, 0)
+                        if used >= quota:
+                            self.pin_quota_denials += 1
+                            continue
+                        self._tenant_pins[tenant] = used + 1
+                    to_pin.append(pk)
+                elif len(self._hot_counts) < HOT_TRACK_CAP:
+                    self._hot_counts[pk] = c
+            self._pinned.update(to_pin)
+        if to_pin:
+            precompute.pin_pubkeys(to_pin)
+
+    def pinned_keys(self) -> list:
+        """Hex keys this process pinned through note_hot_keys, sorted."""
+        with self._lock:
+            return sorted(pk.hex() for pk in self._pinned)
+
+    def tenant_pins(self) -> Dict[str, int]:
+        """Pins held per tenant."""
+        with self._lock:
+            return dict(self._tenant_pins)
+
     def note_table_h2d(self, nbytes: int) -> None:
         """Count the bytes of a gathered (per-chunk) table tensor."""
         with self._lock:
@@ -256,12 +320,17 @@ class ResidentTableStore:
                 "h2d_bytes": self.h2d_bytes,
                 "gathered_h2d_bytes": self.gathered_h2d_bytes,
                 "invalidations": self.invalidations,
+                "pin_quota_denials": self.pin_quota_denials,
+                "pinned_keys": len(self._pinned),
                 **{f"declined_{k}": v for k, v in self.declined.items()},
             }
 
     def reset(self) -> None:
         with self._lock:
             self._drop_locked()
+            self._hot_counts.clear()
+            self._tenant_pins.clear()
+            self._pinned.clear()
             self._zero_counts()
 
 
@@ -295,6 +364,18 @@ def configure(mode: Optional[str]) -> None:
 
 def note_table_h2d(nbytes: int) -> None:
     store.note_table_h2d(nbytes)
+
+
+def note_hot_keys(pubkeys: Iterable[bytes], tenant: Optional[str] = None, quota: int = 0) -> None:
+    store.note_hot_keys(pubkeys, tenant=tenant, quota=quota)
+
+
+def pinned_keys() -> list:
+    return store.pinned_keys()
+
+
+def tenant_pins() -> Dict[str, int]:
+    return store.tenant_pins()
 
 
 def stats() -> Dict[str, int]:

@@ -13,7 +13,10 @@ sub-batch per key type (ed25519, sr25519), so one commit is verified by
 the CUDA kernels in a few chunked launches; a key type without batch
 support sends the commit to single verification. ``verify_commit`` and
 ``verify_commit_light`` run in a ``verify_commit`` span tagged
-``height``, ``round`` and ``sigs`` (the light one also ``mode="light"``).
+``height``, ``round`` and ``sigs`` (the light one also ``mode="light"``),
+and classify their work for a verifyd remote (``verifyd/client.py``
+``classify``, the outermost wins): consensus for ``verify_commit``,
+blocksync for ``verify_commit_light``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Callable, NamedTuple, Optional
 from tendermint_tpu_torch import resolve_device
 from tendermint_tpu_torch.crypto import batch as crypto_batch
 from tendermint_tpu_torch.libs import tracing
+from tendermint_tpu_torch.verifyd.client import classify
+from tendermint_tpu_torch.verifyd.protocol import CLASS_BLOCKSYNC, CLASS_CONSENSUS
 from tendermint_tpu_torch.types.block import (
     BLOCK_ID_FLAG_ABSENT,
     BLOCK_ID_FLAG_COMMIT,
@@ -81,7 +86,8 @@ def verify_commit(
 ) -> None:
     """validation.go:28-54: +2/3 signed; checks ALL signatures."""
     dev = resolve_device(device)
-    with tracing.span("verify_commit", height=height, round=commit.round, sigs=len(commit.signatures)):
+    with classify(CLASS_CONSENSUS), tracing.span("verify_commit", height=height, round=commit.round,
+                                                   sigs=len(commit.signatures)):
         _verify_basic_vals_and_commit(vals, commit, height, block_id)
         needed = vals.total_voting_power() * 2 // 3
         ignore = lambda c: c.block_id_flag == BLOCK_ID_FLAG_ABSENT
@@ -100,8 +106,8 @@ def verify_commit_light(
 ) -> None:
     """validation.go:58-87: light-client/blocksync variant; stops at +2/3."""
     dev = resolve_device(device)
-    with tracing.span("verify_commit", mode="light", height=height, round=commit.round,
-                      sigs=len(commit.signatures)):
+    with classify(CLASS_BLOCKSYNC), tracing.span("verify_commit", mode="light", height=height,
+                                                   round=commit.round, sigs=len(commit.signatures)):
         _verify_basic_vals_and_commit(vals, commit, height, block_id)
         needed = vals.total_voting_power() * 2 // 3
         ignore = lambda c: c.block_id_flag != BLOCK_ID_FLAG_COMMIT

@@ -254,3 +254,31 @@ def test_the_light_and_blocksync_modules_are_checked_and_default_to_cuda(no_cuda
         with pytest.raises(RuntimeError, match="cuda"):
             entry(*[None] * n_args)
     assert tpipe.verify_commits_pipelined([], device="cpu") == []
+
+
+def test_the_verify_service_modules_are_checked_and_default_to_cuda(no_cuda):
+    """The verify service, its transport and its command line stand
+    alone too; the server, and so the CLI, raise without CUDA unless
+    asked for the CPU. No module of the service reads an environment
+    knob."""
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch.verifyd.server import VerifydServer
+
+    mods = _port_modules()
+    for mod in ("libs.log", "libs.evloop", "libs.grpc", "verifyd.protocol", "verifyd.server",
+                "verifyd.client", "cli", "__main__"):
+        assert f"tendermint_tpu_torch.{mod}" in mods
+    with pytest.raises(RuntimeError, match="cuda"):
+        VerifydServer()
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["verifyd", "--port", "0"])
+    srv = VerifydServer(device="cpu")
+    try:
+        assert srv.device == torch.device("cpu") and srv.dyn_batch
+    finally:
+        srv.stop()
+    for rel in ("libs/evloop.py", "libs/grpc.py", "libs/log.py", "verifyd/protocol.py",
+                "verifyd/server.py", "verifyd/client.py", "cli.py"):
+        with open(os.path.join(PKG, rel)) as fh:
+            src = fh.read()
+        assert "os.environ" not in src and "getenv" not in src, rel
