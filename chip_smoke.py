@@ -60,6 +60,13 @@ and, in order:
    time budget at the Merlin rate measured there), the Merlin share of
    the host time, a host profile, and a copy with one bad sr25519
    signature, which must be rejected at its index;
+5c. the three-type commit: 1,000 validators whose keys alternate
+   ed25519, sr25519 and secp256k1 (BASELINE config 5 with its third key
+   type), through ``verify_commit``: secp256k1 has no batch verifier, so
+   the whole commit is verified on the host one signature at a time, as
+   in the reference, with no launch; the p50 of 3, and a copy with one
+   bad secp256k1 signature, whose message must be the same on the card's
+   device and on the CPU;
 7. blocksync: a 32-block window under 500 validators through
    ``verify_commits_pipelined`` (K3), every verdict checked, then a small
    mixed window (K5);
@@ -154,6 +161,23 @@ and, in order:
    process: phase 8's header commits (its verdicts equal the in-process
    ones) and one ``verify_commit`` from this process, its STATS_PATH
    snapshot (with its own launch counts), ``/metrics`` and SIGTERM;
+14. a node syncing (BASELINE config 4 as a node runs it): a source chain
+   of 65 heights under 500 validators (powers from the seed in [1, 100],
+   200 kvstore txs a block, 10 powers changed at height 33, each commit
+   signed by the first 90% of the set), built and signed height by
+   height in the set-up; then fresh followers (state from the genesis
+   JSON, fresh stores and app) sync 64 blocks through
+   ``BlockSyncer(device=)`` and ``BlockExecutor`` onto the kvstore app:
+   one cold run, 3 timed runs (blocks/s against 90, the split across the
+   pipeline, ``validate_block`` and its ``verify_commit`` with its
+   verdict-cache hits, FinalizeBlock and the saves, launches a block),
+   each checked against the source (block IDs, the app hash, validator
+   sets and proposers from height 33), and a run with two faulty peers,
+   each of which must be banned while the follower still converges: one
+   corrupts a signature of block 20's LastCommit (the window refuses
+   it), the other serves block 40 with a forged AppHash that its set
+   signed (the window passes it; ``validate_block`` refuses it, and it
+   is never saved);
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -169,10 +193,10 @@ and, in order:
 
 Kernel launch counts are reset just before phase 3 and read just after
 phase 4b (K1-K4), and again around each of phases 5 (K5, and the
-ed25519 kernels of the mixed commit), 7, 8, 9, 10, 11, 12 and 13 (whose
+ed25519 kernels of the mixed commit), 5c, 7, 8, 9, 10, 11, 12, 13 (whose
 count is that of the served requests only: each sub-phase's deltas around
 what a server answered, without the in-process references, plus the
-daemon's own of 13e). After each of these the health machine
+daemon's own of 13e) and 14. After each of these the health machine
 must show no host fallback, no transition and the healthy state (in
 phase 13 after 13b, and after 13c has reset it). Each phase prints one JSON line; then the kernel table,
 the card's ``nvidia-smi`` name and power limit, and last
@@ -269,6 +293,35 @@ LIGHTD_BAD_INDEX = 300  # inside the +2/3 pass of every mode
 LIGHTD_HERD = 8  # threads asking for one cold height at once
 LIGHTD_HIT_THREADS = 8
 LIGHTD_HIT_REQUESTS = 2000
+
+# Phase 5c: BASELINE config 5 with its third key type, a commit of
+# THREE_TYPE_VALIDATORS validators whose keys alternate ed25519, sr25519
+# and secp256k1. secp256k1 has no batch verifier, so the whole commit is
+# verified on the host, one signature at a time, as in the reference.
+THREE_TYPE_VALIDATORS = 1000
+THREE_TYPE_REPS = 3
+THREE_TYPE_BAD_FROM = 100  # the bad copy's secp256k1 signature, early so its run stops soon
+# Phase 14: BASELINE config 4 as a node runs it, through BlockSyncer and
+# BlockExecutor onto the kvstore app: NODE_VALIDATORS validators, powers
+# from the seed in [1, 100], a source chain of NODE_HEIGHTS heights (so
+# NODE_SYNC_TO blocks can be synced), NODE_TXS kvstore txs a block of 45
+# bytes over NODE_ACCOUNTS keys, a val: tx for each of NODE_CHANGED
+# validators at NODE_CHANGE_HEIGHT, each commit signed by the first
+# NODE_SIGN_SHARE of the set by index. Cut from 10,000 blocks.
+NODE_VALIDATORS = 500
+NODE_HEIGHTS = 65
+NODE_SYNC_TO = NODE_HEIGHTS - 1
+NODE_TXS = 200
+NODE_ACCOUNTS = 4096
+NODE_CHANGE_HEIGHT = 33
+NODE_CHANGED = 10
+NODE_SIGN_SHARE = 0.9
+NODE_REPS = 3
+NODE_CORRUPT_HEIGHT = 20  # a peer corrupts signature 0 of this block's LastCommit
+NODE_FORK_HEIGHT = 40  # a peer serves this block with a forged AppHash, signed by its set
+NODE_GENESIS_NS = 1_700_000_000_000_000_000
+NODE_BLOCKS_PER_S_LIMIT = 90.0  # phase 7's limit, the Go CPU rate
+NODE_MAX_STEPS = 20_000
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -411,6 +464,21 @@ def _sr_challenge(job):
     return tsb._challenge_row(msg, pub, r).tobytes()
 
 
+def _secp_keypair(seed: bytes):
+    """A secp256k1 secret from 32 seed bytes, and its compressed key."""
+    from tendermint_tpu_torch.crypto import secp256k1
+
+    secret = int.from_bytes(seed, "big") % (secp256k1.N - 1) + 1
+    return secret, secp256k1.public_key(secret)
+
+
+def _sign_secp(job):
+    from tendermint_tpu_torch.crypto import secp256k1
+
+    secret, msg = job
+    return secp256k1.sign(secret, msg)
+
+
 def _table(pk: bytes):
     from tendermint_tpu_torch.ops import precompute
 
@@ -443,6 +511,13 @@ class Signer:
     def sr_challenges(self, msgs, pks, rs):
         """The Merlin challenge rows k of sr25519 lanes, as 32 bytes each."""
         return self.pool.map(_sr_challenge, list(zip(msgs, pks, rs)), chunksize=64)
+
+    def secp_keys(self, rng, n):
+        seeds = [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(n)]
+        return self.pool.map(_secp_keypair, seeds, chunksize=64)
+
+    def secp_sign(self, secrets, msgs):
+        return self.pool.map(_sign_secp, list(zip(secrets, msgs)), chunksize=64)
 
     def tables(self, vset):
         """The host tables ``(pk, table, ok)`` of ``vset``'s keys, built as
@@ -713,6 +788,208 @@ def chain_workload(rng, signer, n_heights, n_vals, mixed=False):
         return sigs
 
     return carry.build_header_chain(n_heights, keys, sign_many, chain_id=CHAIN_ID)
+
+
+def three_type_workload(rng, signer):
+    """BASELINE config 5 with secp256k1: THREE_TYPE_VALIDATORS validators
+    whose keys alternate ed25519, sr25519 and secp256k1 in the order they
+    are made, one commit signed by all, and a copy of it with a bad
+    signature at the first secp256k1 validator from THREE_TYPE_BAD_FROM
+    on. Returns the set, the block id, the commit, the bad copy and its
+    bad index."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey, Secp256k1PubKey
+    from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.types.block import (
+        BLOCK_ID_FLAG_COMMIT,
+        BlockID,
+        Commit,
+        CommitSig,
+        PartSetHeader,
+    )
+    from tendermint_tpu_torch.types.validator import Validator
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    n = THREE_TYPE_VALIDATORS
+    made = {
+        "ed25519": (signer.keys(rng, (n + 2) // 3), Ed25519PubKey, signer.sign),
+        "sr25519": (signer.sr_keys(rng, (n + 1) // 3), Sr25519PubKey,
+                    lambda e, m: signer.sr_sign(rng, e, m)),
+        "secp256k1": (signer.secp_keys(rng, n // 3), Secp256k1PubKey, signer.secp_sign),
+    }
+    order = ("ed25519", "sr25519", "secp256k1")
+    secret_of = {}
+    vals = []
+    for i in range(n):
+        keys, cls, _ = made[order[i % 3]]
+        secret, raw = keys[i // 3]
+        pub = cls(raw)
+        secret_of[pub.address()] = secret
+        vals.append(Validator(pub, 10))
+    vset = ValidatorSet(vals)
+    block_id = BlockID(hashlib.sha256(b"three-type-block").digest(),
+                       PartSetHeader(1, hashlib.sha256(b"three-type-parts").digest()))
+    commit = Commit(height=1, round=0, block_id=block_id)
+    commit.signatures = [
+        CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, Timestamp.from_unix_ns(NODE_GENESIS_NS + i), b"")
+        for i, v in enumerate(vset.validators)
+    ]
+    msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(n)]
+    for key_type in order:
+        idx = [i for i, v in enumerate(vset.validators) if v.pub_key.type == key_type]
+        sigs = made[key_type][2]([secret_of[vset.validators[i].address] for i in idx], [msgs[i] for i in idx])
+        for i, sig in zip(idx, sigs):
+            commit.signatures[i].signature = sig
+    bad_index = next(i for i in range(THREE_TYPE_BAD_FROM, n)
+                     if vset.validators[i].pub_key.type == "secp256k1")
+    bad = copy.deepcopy(commit)
+    sig = bad.signatures[bad_index].signature
+    bad.signatures[bad_index].signature = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+    return vset, block_id, commit, bad, bad_index
+
+
+class _TxSource:
+    """The mempool contract BlockExecutor reaps a block's txs from
+    (``state/execution.py`` ``Mempool``): one height's txs."""
+
+    def __init__(self, txs):
+        self.txs = txs
+
+    def lock(self):
+        pass
+
+    def unlock(self):
+        pass
+
+    def reap_max_bytes_max_gas(self, max_bytes, max_gas):
+        return self.txs
+
+    def update(self, *args, **kwargs):
+        pass
+
+    def remove_tx_by_key(self, key):
+        pass
+
+
+def node_env(genesis_json, dev):
+    """A node from a genesis document: its state, fresh ``MemDB`` block and
+    state stores, a fresh kvstore app behind ``LocalClient`` (InitChain
+    run), and a ``BlockExecutor`` on ``dev`` whose block times step one
+    second from the genesis time."""
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.state import StateStore, state_from_genesis
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.storage.blockstore import BlockStore
+    from tendermint_tpu_torch.storage.kv import MemDB
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    state = state_from_genesis(GenesisDoc.from_json(genesis_json))
+    client = LocalClient(KVStoreApplication())
+    client.start()
+    state.app_hash = client.init_chain(abci.RequestInitChain(chain_id=state.chain_id, initial_height=1)).app_hash
+    state_store = StateStore(MemDB())
+    state_store.save(state)
+    clock = [state.last_block_time.to_unix_ns()]
+
+    def now():
+        clock[0] += 10**9
+        return Timestamp.from_unix_ns(clock[0])
+
+    return BlockExecutor(state_store, client, BlockStore(MemDB()), now=now, device=dev), state
+
+
+def node_chain_workload(rng, signer):
+    """Phase 14's source chain, built as a proposing node builds it and
+    signed in the pool, height by height (a block's hash covers the
+    previous commit's signatures): ``create_proposal_block`` from
+    NODE_TXS kvstore txs (plus the val: txs at NODE_CHANGE_HEIGHT),
+    ``apply_block`` onto the source's kvstore app (the source made the
+    block, so it marks it validated, as ``validate_block`` marks a block
+    it checked: nothing is verified here, before CUDA), and a commit
+    signed by the first NODE_SIGN_SHARE of the height's set by index, the
+    rest absent. Beside it, a fork: block NODE_FORK_HEIGHT with a forged
+    AppHash, committed by the same signers, and the next block carrying
+    that commit, so the pair passes the window and only
+    ``validate_block`` can refuse it. Returns the genesis JSON, the
+    source's executor, its state at NODE_SYNC_TO, the changed validators
+    and the fork's blocks as proto bytes by height."""
+    import base64
+
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.types.block import (
+        BLOCK_ID_FLAG_COMMIT,
+        BLOCK_PART_SIZE_BYTES,
+        Block,
+        BlockID,
+        Commit,
+        CommitSig,
+        ExtendedCommit,
+    )
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.part_set import PartSet
+
+    keys = signer.keys(rng, NODE_VALIDATORS)
+    powers = [int(p) for p in rng.integers(1, 101, NODE_VALIDATORS)]
+    priv_of = {Ed25519PubKey(pub).address(): priv for priv, pub in keys}
+    genesis_json = GenesisDoc(
+        chain_id=CHAIN_ID,
+        genesis_time=Timestamp.from_unix_ns(NODE_GENESIS_NS),
+        validators=[GenesisValidator(Ed25519PubKey(pub), p) for (_, pub), p in zip(keys, powers)],
+    ).to_json()
+    changed = {int(i): (powers[i] + int(rng.integers(1, 99))) % 100 + 1
+               for i in rng.choice(NODE_VALIDATORS, NODE_CHANGED, replace=False)}
+    val_txs = [b"val:%s!%d" % (base64.b64encode(keys[i][1]), p) for i, p in changed.items()]
+    executor, state = node_env(genesis_json, "cpu")
+
+    def signed_commit(h, block_id, vset, ns):
+        n_sign = int(len(vset) * NODE_SIGN_SHARE)
+        commit = Commit(height=h, round=0, block_id=block_id, signatures=[
+            CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, Timestamp.from_unix_ns(ns + 1 + i), b"")
+            if i < n_sign else CommitSig.absent()
+            for i, v in enumerate(vset.validators)
+        ])
+        msgs = [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(n_sign)]
+        sigs = signer.sign([priv_of[v.address] for v in vset.validators[:n_sign]], msgs)
+        for cs, sig in zip(commit.signatures, sigs):
+            cs.signature = sig
+        return commit
+
+    ec = ExtendedCommit()
+    state_at = None
+    fork = {}
+    for h in range(1, NODE_HEIGHTS + 1):
+        accts = rng.integers(0, NODE_ACCOUNTS, NODE_TXS)
+        txs = [b"acct-%05d=%s" % (a, rng.bytes(17).hex().encode()) for a in accts]
+        if h == NODE_CHANGE_HEIGHT:
+            txs[:len(val_txs)] = val_txs
+        executor.mempool = _TxSource(txs)
+        block = executor.create_proposal_block(h, state, ec, state.validators.get_proposer().address)
+        parts = PartSet.from_data(block.to_proto_bytes(), BLOCK_PART_SIZE_BYTES)
+        block_id = BlockID(block.hash(), parts.header())
+        executor._validate_cache.add(block.hash())
+        state = executor.apply_block(state, block_id, block)
+        vset = state.last_validators
+        ns = block.header.time.to_unix_ns()
+        commit = signed_commit(h, block_id, vset, ns)
+        if h == NODE_FORK_HEIGHT:
+            forged = Block.from_proto_bytes(block.to_proto_bytes())
+            forged.header.app_hash = hashlib.sha256(b"forged" + forged.header.app_hash).digest()
+            forged_parts = PartSet.from_data(forged.to_proto_bytes(), BLOCK_PART_SIZE_BYTES)
+            forged_commit = signed_commit(h, BlockID(forged.hash(), forged_parts.header()), vset, ns)
+            fork[h] = forged.to_proto_bytes()
+        elif h == NODE_FORK_HEIGHT + 1:
+            successor = Block.from_proto_bytes(block.to_proto_bytes())
+            successor.last_commit = forged_commit
+            fork[h] = successor.to_proto_bytes()
+        executor.block_store.save_block(block, parts, commit)
+        ec = ExtendedCommit.wrap_commit(commit)
+        if h == NODE_SYNC_TO:
+            state_at = state
+    return genesis_json, executor, state_at, changed, fork
 
 
 def round_workload(rng, signer):
@@ -1463,6 +1740,51 @@ def phase_mixed_commit(workload, dev):
           "bad_signature_index": bad_index, "launches": counts, "store": resident.stats(),
           "phase_s": time.perf_counter() - t_phase, "host_profile": profile})
     precompute.reset()
+    return counts
+
+
+# --- phase 5c ------------------------------------------------------------------
+
+
+def phase_three_type(workload, dev):
+    """BASELINE config 5 with secp256k1: the three-type commit through
+    ``verify_commit`` on the card's device. secp256k1 has no batch
+    verifier, so ``MultiBatchVerifier.add`` raises and the commit goes to
+    single verification on the host, the reference's own path: no kernel
+    launches. Returns the phase's launch counts (which start at 0)."""
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.types.validation import InvalidCommitError, verify_commit
+
+    vset, block_id, commit, bad, bad_index = workload
+    by_type = {}
+    for v in vset.validators:
+        by_type[v.pub_key.type] = by_type.get(v.pub_key.type, 0) + 1
+    before = launches()
+    times = []
+    for _ in range(THREE_TYPE_REPS):
+        precompute.results.clear()
+        t = time.perf_counter()
+        verify_commit(CHAIN_ID, vset, block_id, commit.height, commit, device=dev)
+        times.append(time.perf_counter() - t)
+    got = []
+    for where in (dev, "cpu"):
+        try:
+            verify_commit(CHAIN_ID, vset, block_id, bad.height, bad, device=where)
+        except InvalidCommitError as exc:
+            got.append(str(exc))
+        else:
+            raise SmokeFailure(f"three-type commit with a bad secp256k1 signature accepted on {where}")
+    check(got[0] == got[1] and got[0].startswith(f"wrong signature (#{bad_index})"),
+          f"bad three-type commit rejected differently on {dev} and the CPU: {got}")
+    d = delta(before)
+    check(d == {}, f"three-type commit launched kernels {d}; the reference's path verifies it on the host")
+    counts = launches()
+    emit({"phase": "three_type_commit", "validators": THREE_TYPE_VALIDATORS, "by_key_type": by_type,
+          "ms": [x * 1e3 for x in times], "p50_ms": statistics.median(times) * 1e3,
+          "ms_per_signature_p50": statistics.median(times) * 1e3 / THREE_TYPE_VALIDATORS,
+          "bad_index": bad_index, "rejection": got[0][:40], "launches": d,
+          "expected_launches": "none: MultiBatchVerifier.add raises for secp256k1, so the commit is "
+                               "verified one signature at a time on the host, as in the reference"})
     return counts
 
 
@@ -3670,6 +3992,241 @@ def phase_verifyd(commit_wl, commit_tables, batch, sync, mixed_sync, light, dev)
     return total
 
 
+# --- phase 14 ------------------------------------------------------------------
+
+
+def _timed(totals, key, fn):
+    """``fn`` with its host-clock seconds added to ``totals[key]``."""
+
+    def run(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            totals[key] += time.perf_counter() - t
+
+    return run
+
+
+def node_follow(source, dev, split=None, faults=None):
+    """One fresh follower (state from genesis, fresh stores, a fresh app)
+    syncing NODE_SYNC_TO blocks through ``BlockSyncer`` from the source's
+    block store, each block loaded and decoded as a peer's message would
+    be. With ``split``, the host seconds of each stage are added there.
+    With ``faults`` ({peer: fn(height, block) -> the block it serves}),
+    those peers serve in turn, each joining once the one before it is
+    banned, and a good peer joins last. Returns the syncer, its executor,
+    the wall seconds and a log: the (peer, height) requests served, the
+    (height, error) of each block ``validate_block`` refused, and the
+    hashes of the blocks saved (the last two with ``faults`` only)."""
+    from tendermint_tpu_torch.blocksync import syncer as syncer_mod
+    from tendermint_tpu_torch.blocksync.syncer import BlockSyncer, PeerTransport
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.types import validation
+
+    genesis_json, src_exec = source[:2]
+    executor, state = node_env(genesis_json, dev)
+    syncer = BlockSyncer(state, executor, executor.block_store, transport=None, device=dev)
+    faults = faults or {}
+    log = {"served": [], "rejected": [], "saved": set()}
+
+    class StoreTransport(PeerTransport):
+        def request_block(self, peer_id, height):
+            block = src_exec.block_store.load_block(height)
+            if block is None:
+                return
+            if peer_id in faults:
+                block = faults[peer_id](height, block)
+            log["served"].append((peer_id, height))
+            syncer.pool.add_block(peer_id, block)
+
+    syncer.transport = StoreTransport()
+    peers = [*faults, "good"] if faults else ["p1"]
+    syncer.pool.set_peer_range(peers[0], 1, NODE_HEIGHTS)
+    joined = {peers[0]}
+    if faults:
+        real_validate, real_save = executor.validate_block, executor.block_store.save_block
+
+        def validate_logged(state, block):
+            try:
+                return real_validate(state, block)
+            except Exception as e:
+                log["rejected"].append((block.header.height, str(e)))
+                raise
+
+        def save_logged(block, parts, seen_commit):
+            log["saved"].add(block.hash())
+            return real_save(block, parts, seen_commit)
+
+        executor.validate_block = validate_logged
+        executor.block_store.save_block = save_logged
+    patches = []
+    if split is not None:
+        cache = {"hits": 0, "misses": 0}
+        real_verify_commit = validation.verify_commit
+
+        def verify_commit_counted(*args, **kwargs):
+            before = precompute.results.stats()
+            try:
+                return real_verify_commit(*args, **kwargs)
+            finally:
+                after = precompute.results.stats()
+                cache["hits"] += after["hits"] - before["hits"]
+                cache["misses"] += after["misses"] - before["misses"]
+
+        split["verify_commit_cache"] = cache
+        for mod, name, key in ((syncer_mod, "verify_commits_pipelined", "pipeline"),
+                               (execution, "validate_block", "validate_block"),
+                               (validation, "verify_commit", "verify_commit")):
+            fn = verify_commit_counted if name == "verify_commit" else getattr(mod, name)
+            patches.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, _timed(split, key, fn))
+        executor.apply_block = _timed(split, "apply_block", executor.apply_block)
+        executor.app.finalize_block = _timed(split, "finalize_block", executor.app.finalize_block)
+        executor.block_store.save_block = _timed(split, "save_block", executor.block_store.save_block)
+        executor.state_store.save = _timed(split, "save_state", executor.state_store.save)
+    try:
+        t = time.perf_counter()
+        for _ in range(NODE_MAX_STEPS):
+            syncer.step()
+            if syncer.state.last_block_height >= NODE_SYNC_TO:
+                break
+            for banned, nxt in zip(peers, peers[1:]):
+                if banned in syncer.pool._banned and nxt not in joined:
+                    joined.add(nxt)
+                    syncer.pool.set_peer_range(nxt, 1, NODE_HEIGHTS)
+        wall = time.perf_counter() - t
+    finally:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+    check(syncer.state.last_block_height == NODE_SYNC_TO,
+          f"the follower stopped at height {syncer.state.last_block_height}")
+    return syncer, executor, wall, log
+
+
+def check_converged(source, executor, state, where):
+    """The follower's block IDs at 1..NODE_SYNC_TO, its app hash at
+    NODE_SYNC_TO, and its validator sets (hash and proposer) from
+    NODE_CHANGE_HEIGHT to NODE_HEIGHTS equal the source's."""
+    _, src_exec, src_state = source[:3]
+    for h in range(1, NODE_SYNC_TO + 1):
+        check(executor.block_store.load_block_meta(h).block_id
+              == src_exec.block_store.load_block_meta(h).block_id, f"{where}: block ID at {h} differs")
+    check(state.app_hash == src_state.app_hash, f"{where}: app hash at {NODE_SYNC_TO} differs")
+    for h in range(NODE_CHANGE_HEIGHT, NODE_HEIGHTS + 1):
+        got, want = executor.state_store.load_validators(h), src_exec.state_store.load_validators(h)
+        check(got.hash() == want.hash() and got.get_proposer().address == want.get_proposer().address,
+              f"{where}: validator set or proposer at {h} differs")
+
+
+def phase_node_blocksync(source, dev):
+    """BASELINE config 4 as a node runs it: fresh followers sync
+    NODE_SYNC_TO blocks of NODE_VALIDATORS validators through
+    ``BlockSyncer(device=)``: each window's commits verified in one
+    pipeline call (K3), each block applied by ``BlockExecutor`` (its
+    ``validate_block`` verifies the LastCommit again, the verdict cache
+    answering the lanes the window checked), FinalizeBlock on the kvstore
+    app, and the block and state saved. One cold run (host table builds,
+    the store's upload), NODE_REPS timed runs from fresh followers with
+    the verdict cache emptied, and a run with two faulty peers: one that
+    corrupts a signature (the window refuses the block) and one that
+    serves a signed block with a forged AppHash (the window passes it,
+    ``validate_block`` refuses it before it is saved). Returns the
+    phase's launch counts (which start at 0)."""
+    from tendermint_tpu_torch.ops import precompute, resident
+    from tendermint_tpu_torch.types.block import Block
+
+    genesis_json, src_exec, src_state, changed, fork = source
+    vals_before = src_exec.state_store.load_validators(NODE_CHANGE_HEIGHT)
+    vals_after = src_exec.state_store.load_validators(NODE_CHANGE_HEIGHT + 2)
+    check(vals_before.hash() != vals_after.hash() and len(vals_after) == NODE_VALIDATORS,
+          "the val: txs did not change the set two heights on")
+    precompute.reset()
+    builds = precompute.tables.builds
+    invalidations = precompute.tables.invalidations
+    uploads = resident.stats()["uploads"]
+    before = launches()
+    syncer, executor, cold_s, _ = node_follow(source, dev)
+    cold_launches = delta(before)
+    check_converged(source, executor, syncer.state, "cold run")
+    cold = {"s": cold_s, "table_builds": precompute.tables.builds - builds,
+            "store_uploads": resident.stats()["uploads"] - uploads, "launches": cold_launches}
+    before = launches()
+    walls, splits = [], []
+    for _ in range(NODE_REPS):
+        precompute.results.clear()
+        split = dict.fromkeys(("pipeline", "validate_block", "verify_commit", "apply_block",
+                               "finalize_block", "save_block", "save_state"), 0.0)
+        syncer, executor, wall, _ = node_follow(source, dev, split)
+        check_converged(source, executor, syncer.state, "timed run")
+        walls.append(wall)
+        splits.append(split)
+    timed_launches = delta(before)
+    check(timed_launches.get("verify_resident", 0) > 0, f"phase 14 launched no K3: {timed_launches}")
+    check(precompute.tables.builds - builds == cold["table_builds"], "table builds after the cold run")
+
+    # "bad" corrupts a signature of block NODE_CORRUPT_HEIGHT's LastCommit:
+    # the window fails at NODE_CORRUPT_HEIGHT - 1, both heights are asked
+    # again, and "bad" is banned. "fork" then serves the forged block
+    # NODE_FORK_HEIGHT and its successor: the window passes the pair,
+    # validate_block refuses the block before it is saved, both heights
+    # are asked again, and "fork" is banned. The good peer serves the rest.
+    def corrupt(height, block):
+        if height == NODE_CORRUPT_HEIGHT:
+            sig = block.last_commit.signatures[0].signature
+            block.last_commit.signatures[0].signature = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+            block.last_commit._hash = None
+        return block
+
+    def forked(height, block):
+        return Block.from_proto_bytes(fork[height]) if height in fork else block
+
+    precompute.results.clear()
+    syncer, executor, corrupt_s, log = node_follow(source, dev, faults={"bad": corrupt, "fork": forked})
+    served, rejected = log["served"], log["rejected"]
+    check({"bad", "fork"} <= syncer.pool._banned, f"faulty peers not banned: {syncer.pool._banned}")
+    check(("fork", NODE_CORRUPT_HEIGHT - 1) in served and ("fork", NODE_CORRUPT_HEIGHT) in served,
+          f"heights {NODE_CORRUPT_HEIGHT - 1} and {NODE_CORRUPT_HEIGHT} not asked again of the next peer")
+    check(("good", NODE_FORK_HEIGHT) in served and ("good", NODE_FORK_HEIGHT + 1) in served,
+          f"heights {NODE_FORK_HEIGHT} and {NODE_FORK_HEIGHT + 1} not asked again of the good peer")
+    check(rejected == [(NODE_FORK_HEIGHT, "wrong Block.Header.AppHash")],
+          f"validate_block refused {rejected}, not the forged block alone")
+    check(Block.from_proto_bytes(fork[NODE_FORK_HEIGHT]).hash() not in log["saved"],
+          "the forged block was saved")
+    check_converged(source, executor, syncer.state, "faulty-peers run")
+
+    i = walls.index(statistics.median(walls))
+    split = splits[i]
+    blocks = NODE_SYNC_TO
+    n_runs = NODE_REPS * blocks
+    blocks_per_s = blocks / statistics.median(walls)
+    cache = split.pop("verify_commit_cache")
+    stages = {k: v * 1e3 for k, v in split.items()}
+    # validate_block runs before apply_block (whose own call finds the
+    # block in the executor's cache), so the stages do not nest.
+    stages["other_ms"] = (walls[i] - split["pipeline"] - split["validate_block"] - split["apply_block"]) * 1e3
+    counts = launches()
+    emit({"phase": "node_blocksync", "blocks": blocks, "validators": NODE_VALIDATORS,
+          "txs_per_block": NODE_TXS, "changed_validators_at": NODE_CHANGE_HEIGHT,
+          "changed": len(changed), "signers_per_commit": int(NODE_VALIDATORS * NODE_SIGN_SHARE),
+          "cold": cold, "seconds": walls, "blocks_per_s_median": blocks_per_s,
+          "limit_blocks_per_s": NODE_BLOCKS_PER_S_LIMIT,
+          "limit": "met" if blocks_per_s >= NODE_BLOCKS_PER_S_LIMIT else "missed",
+          "split_ms_of_median_run": stages,
+          "verify_commit_share_of_wall": split["verify_commit"] / walls[i],
+          "verify_commit_cache_of_median_run": cache,
+          "launches_timed_runs": timed_launches,
+          "launches_per_block": {k: v / n_runs for k, v in timed_launches.items()},
+          "table_invalidations": precompute.tables.invalidations - invalidations,
+          "faulty_peers": {"corrupt_height": NODE_CORRUPT_HEIGHT, "fork_height": NODE_FORK_HEIGHT,
+                           "s": corrupt_s, "banned": sorted(syncer.pool._banned),
+                           "validate_block_refused": rejected},
+          "launches": counts, "store": resident.stats()})
+    precompute.reset()
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3701,11 +4258,17 @@ def main(argv=None) -> int:
         round_wl = round_workload(rng, signer)
         lightd_wl = lightd_workload(rng, signer)
         commit_tables = signer.tables(commit[0])  # phase 12 starts from them
+        three_type = three_type_workload(rng, signer)
+        t_node = time.perf_counter()
+        node_source = node_chain_workload(rng, signer)
+        node_setup_s = time.perf_counter() - t_node
     emit({"phase": "setup", "seconds": time.perf_counter() - t0, "workers": workers,
           "signatures": 2 * KERNEL_LANES + BATCH_LANES + len(COMMIT_HEIGHTS) * COMMIT_VALIDATORS
           + MIXED_VALIDATORS + SYNC_BLOCKS * SYNC_VALIDATORS
           + MIXED_SYNC_BLOCKS * MIXED_SYNC_VALIDATORS + LIGHT_HEADERS * LIGHT_VALIDATORS
-          + 3 * ROUND_VALIDATORS + (LIGHTD_HEADERS + 1) * LIGHTD_VALIDATORS})
+          + 3 * ROUND_VALIDATORS + (LIGHTD_HEADERS + 1) * LIGHTD_VALIDATORS
+          + THREE_TYPE_VALIDATORS + (NODE_HEIGHTS + 1) * int(NODE_VALIDATORS * NODE_SIGN_SHARE),
+          "node_source_chain_s": node_setup_s})
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi("name,power.limit")
@@ -3729,6 +4292,10 @@ def main(argv=None) -> int:
     cuda_hash.reset_launches()
     mixed_counts = phase_mixed_commit(mixed, dev)
     health["phase_5"] = check_healthy("phase 5")
+    cuda_verify.reset_launches()  # the three-type commit's path starts here
+    cuda_hash.reset_launches()
+    three_type_counts = phase_three_type(three_type, dev)
+    health["phase_5c"] = check_healthy("phase 5c")
     cuda_verify.reset_launches()  # the blocksync path starts here
     cuda_hash.reset_launches()
     sync_counts = phase_blocksync(sync, mixed_sync, dev)
@@ -3758,6 +4325,10 @@ def main(argv=None) -> int:
     for name in ("verify", "verify_resident", "verify_sr"):
         check(verifyd_counts[name] > 0, f"kernel {name} never launched through verifyd")
     health["phase_13"] = check_healthy("phase 13")
+    cuda_verify.reset_launches()  # the node's block sync starts here
+    cuda_hash.reset_launches()
+    node_counts = phase_node_blocksync(node_source, dev)
+    health["phase_14"] = check_healthy("phase 14")
     crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
@@ -3773,6 +4344,8 @@ def main(argv=None) -> int:
         row["launches_lightd"] = lightd_counts[name]
         row["launches_observed"] = observed_counts[name]
         row["launches_verifyd"] = verifyd_counts[name]
+        row["launches_three_type"] = three_type_counts[name]
+        row["launches_node_blocksync"] = node_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

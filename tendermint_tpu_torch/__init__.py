@@ -16,7 +16,8 @@ Entry points (``ops.verify_batch``, ``ops.sr25519_batch.verify_batch_sr``,
 ``types.validation.verify_commit`` and its light variants,
 ``parallel.pipeline.verify_commits_pipelined``, the ``light.verifier``
 entry points, ``light.batch.evaluate_candidates`` and
-``light.client.LightClient``, which ``light.lightd.LightServer`` serves)
+``light.client.LightClient``, which ``light.lightd.LightServer`` serves,
+``state.execution.BlockExecutor`` and ``blocksync.syncer.BlockSyncer``)
 take ``device=``.
 Without it they use :data:`DEFAULT_DEVICE`, which is ``"cuda"``: where
 CUDA is absent they raise rather than run on the CPU. Tests set

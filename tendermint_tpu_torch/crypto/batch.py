@@ -111,7 +111,14 @@ def note_validator_set(vals) -> None:
     rotated-out sets are dropped. The reference also forwards the set's
     digest to a verifyd federation as a routing key; with one remote
     there is nothing to route, and the remote pins the set's keys from
-    its traffic (``ops/resident.note_hot_keys``)."""
+    its traffic (``ops/resident.note_hot_keys``).
+
+    Unlike the reference's (``tendermint_tpu/crypto/batch.py:69-97``),
+    which swallows every error of the warm-up, this raises an error of
+    the activation or of its observers (the resident store's drop or
+    upload): on the card that is a device error, and the port does not
+    hide one. Callers are ``verify_commit``, the blocksync pipeline, the
+    bisection round, the executor's ``validate_block`` and the syncer."""
     from tendermint_tpu_torch.ops import precompute
 
     precompute.activate_validator_set(vals)

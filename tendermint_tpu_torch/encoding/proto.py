@@ -1,7 +1,7 @@
 """Minimal protobuf wire-format codec.
 
 The subset of ``tendermint_tpu/encoding/proto.py`` that canonical vote
-sign-bytes and the light client's stored blocks need: varint, sfixed64
+sign-bytes and the stored blocks, states and params need: varint, sfixed64
 and length-delimited fields, with proto3 zero-value omission
 (reference: proto/tendermint/types/canonical.pb.go:590-640), and the
 :class:`Reader` the decoders walk a buffer with.
@@ -51,6 +51,13 @@ def encode_varint_field(field: int, n: int) -> bytes:
     return tag(field, WIRE_VARINT) + encode_varint(n)
 
 
+def encode_bool_field(field: int, v: bool) -> bytes:
+    """proto3 semantics: false omitted."""
+    if not v:
+        return b""
+    return tag(field, WIRE_VARINT) + b"\x01"
+
+
 def encode_sfixed64_field(field: int, n: int) -> bytes:
     """sfixed64; zero omitted (proto3)."""
     if n == 0:
@@ -75,6 +82,15 @@ def encode_message_field(field: int, payload: bytes) -> bytes:
     canonical.pb.go:602-609; the block, light-block and validator
     messages the reference writes with ``always=True``)."""
     return tag(field, WIRE_BYTES) + length_delimited(payload)
+
+
+def encode_optional_message_field(field: int, payload: bytes) -> bytes:
+    """Embedded message, omitted when empty: a nullable field, as the
+    reference writes a message without ``always=True`` (the consensus
+    params' durations)."""
+    if not payload:
+        return b""
+    return encode_message_field(field, payload)
 
 
 # --- decoding ---------------------------------------------------------------

@@ -9,7 +9,8 @@ that renders the text exposition format (served by ``rpc/server.py`` at
 (``nop()``), ``OpsMetrics`` (the verify path: the health machine, the
 caches, the resident store, the challenge hash, the stage timings and
 the device-byte ledger), ``VerifydMetrics`` and ``EvloopMetrics`` (the
-verify service and its event loop) and ``LightMetrics``. Family names, help texts
+verify service and its event loop), ``LightMetrics`` and ``StateMetrics``
+(the block executor). Family names, help texts
 and label sets are the reference's, so both expositions compare line by
 line. The other subsystems' structs and the flight-recorder sink are
 left out.
@@ -664,4 +665,24 @@ class LightMetrics(_NopMixin):
             _name(s, "serve_latency_seconds"),
             "End-to-end light_header serve latency, seconds.",
             labels=("outcome",),
+        )
+
+
+class StateMetrics(_NopMixin):
+    """internal/state/metrics.gen.go."""
+
+    def __init__(self, reg: Optional[Registry]):
+        reg = reg or Registry()
+        s = "state"
+        self.block_processing_time = reg.histogram(
+            _name(s, "block_processing_time"),
+            "Time spent processing FinalizeBlock, seconds.",
+        )
+        self.consensus_param_updates = reg.counter(
+            _name(s, "consensus_param_updates"),
+            "Number of consensus parameter updates by the application.",
+        )
+        self.validator_set_updates = reg.counter(
+            _name(s, "validator_set_updates"),
+            "Number of validator set updates by the application.",
         )

@@ -141,16 +141,30 @@ class PrecomputeCache:
             self._metrics = metrics
 
     def _flush_events(self) -> None:
-        """Deliver the queued events to the observers, outside the lock."""
+        """Deliver the queued events to the observers, outside the lock.
+
+        Every event reaches every observer, as in the reference
+        (``tendermint_tpu/ops/precompute.py:207-229``); an observer that
+        raises does not stop the others. The reference then swallows the
+        error; the port raises the first one once all are delivered, so
+        a resident store that failed to drop or upload its columns is
+        not hidden."""
         with self._lock:
             events, self._pending_events = self._pending_events, []
         if not events:
             return
         with _observers_lock:
             observers = list(_observers)
+        first_error = None
         for kind, payload in events:
             for fn in observers:
-                fn(kind, payload)
+                try:
+                    fn(kind, payload)
+                except Exception as exc:  # delivered to the rest, raised below
+                    if first_error is None:
+                        first_error = exc
+        if first_error is not None:
+            raise first_error
 
     def activate_validator_set(self, vset) -> bool:
         """Mark a validator set live: its keys become table-eligible.

@@ -12,10 +12,12 @@ signatures, stop adding once the tallied power exceeds 2/3, every
 included signature must verify, and the tally must exceed 2/3.
 
 Divergence from the reference: its pipeline hands every key to the
-ed25519 verifier, so a valid commit of a mixed ed25519 + sr25519 set
-fails there. The port routes each lane by its key type through one
+ed25519 verifier, so a valid commit of a mixed ed25519 + sr25519 set, or
+one with a secp256k1 key, fails there. The port routes each lane by its
+key type through one
 :class:`~tendermint_tpu_torch.crypto.batch.MultiBatchVerifier` for the
-window, one sub-batch a type.
+window, one sub-batch a type, and answers a secp256k1 lane by its key's
+host check.
 """
 
 from __future__ import annotations
@@ -124,14 +126,21 @@ def verify_commits_pipelined(
 def _verify_lanes(lanes, use_device: Optional[bool], device) -> List[bool]:
     """One verdict a lane: the host check of each key's type when
     ``use_device`` is False, else one batch, sub-batched per key type. A
-    lane its key type's batch verifier refuses (a malformed signature)
-    is false, as the reference's ``verify_batch`` answers it."""
+    lane of a key type with no batch verifier (secp256k1) is answered by
+    its key's host check, as ``verify_commit`` answers such a commit
+    (the reference's pipeline sends it to the ed25519 verifier, which
+    fails the window). A lane its key type's batch verifier refuses (a
+    malformed signature) is false, as the reference's ``verify_batch``
+    answers it."""
     if use_device is False:
         return [pk.verify_signature(msg, sig) for pk, msg, sig in lanes]
     oks = [False] * len(lanes)
     added: List[int] = []
     bv = crypto_batch.MultiBatchVerifier(device=device)
     for i, (pk, msg, sig) in enumerate(lanes):
+        if not crypto_batch.supports_batch_verifier(pk):
+            oks[i] = pk.verify_signature(msg, sig)
+            continue
         try:
             bv.add(pk, msg, sig)
         except ValueError:

@@ -1,2 +1,4 @@
-"""Key-value storage; counterpart of :mod:`tendermint_tpu.storage`,
-reduced to the store seam and the in-memory store the light store uses."""
+"""Key-value storage and the block store; counterpart of
+:mod:`tendermint_tpu.storage`, reduced to the store seam, the in-memory
+store and the block store (the file-backed stores are ROADMAP §A item
+8f)."""

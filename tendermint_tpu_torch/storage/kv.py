@@ -1,10 +1,11 @@
 """Key-value store abstraction (the tm-db seam).
 
-The part of ``tendermint_tpu/storage/kv.py`` the light store uses: the
-``KVStore`` interface and ``MemDB``, its sorted in-memory store, with
-``prefix_end`` and ``ordered_key``. Keys iterate in ascending byte
-order; iterators see a snapshot of the keys at creation. Write batches
-are left out: the light store writes one key at a time.
+The part of ``tendermint_tpu/storage/kv.py`` the light, block and state
+stores use: the ``KVStore`` interface with its write ``Batch``, applied
+at once on ``write()`` (the block store saves a block in one batch), and
+``MemDB``, its sorted in-memory store, with ``prefix_end`` and
+``ordered_key``. Keys iterate in ascending byte order; iterators see a
+snapshot of the keys at creation.
 """
 
 from __future__ import annotations
@@ -36,6 +37,36 @@ class KVStore:
         """Descending iteration over [start, end)."""
         raise NotImplementedError
 
+    def new_batch(self) -> "Batch":
+        return Batch(self)
+
+    def apply_batch(self, ops) -> None:
+        for op, key, value in ops:
+            if op == "set":
+                self.set(key, value)
+            else:
+                self.delete(key)
+
+
+class Batch:
+    """Write batch applied at once on write() (tm-db Batch)."""
+
+    def __init__(self, db: KVStore):
+        self._db = db
+        self._ops: List[Tuple[str, bytes, Optional[bytes]]] = []
+
+    def set(self, key: bytes, value: bytes) -> "Batch":
+        self._ops.append(("set", bytes(key), bytes(value)))
+        return self
+
+    def delete(self, key: bytes) -> "Batch":
+        self._ops.append(("del", bytes(key), None))
+        return self
+
+    def write(self) -> None:
+        self._db.apply_batch(self._ops)
+        self._ops = []
+
 
 class MemDB(KVStore):
     """Sorted in-memory store (tm-db memdb)."""
@@ -62,6 +93,10 @@ class MemDB(KVStore):
                 del self._data[key]
                 idx = bisect.bisect_left(self._keys, key)
                 del self._keys[idx]
+
+    def apply_batch(self, ops) -> None:
+        with self._lock:
+            super().apply_batch(ops)
 
     def _range(self, start: Optional[bytes], end: Optional[bytes]) -> List[bytes]:
         with self._lock:

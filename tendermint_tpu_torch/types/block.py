@@ -1,14 +1,17 @@
 """Block types: Consensus, PartSetHeader, BlockID, CommitSig, Commit,
-Vote and Header.
+ExtendedCommit, Vote, Header, Data and Block.
 
 The part of ``tendermint_tpu/types/block.py`` (types/block.go,
-types/vote.go) that commit verification, the light client and the vote
-set read: the block-ID flags, the commit signatures and
-``Commit.vote_sign_bytes``, the ``validate_basic`` checks, the proto
-encodings the hashes and the light store read and their decoders
-(``from_proto_bytes``), ``Header.hash``, and ``Vote`` with its
-sign-bytes, its checks and the pre-verification tag of the vote
-pre-verifier (``consensus/reactor.py``). Wire
+types/vote.go) that commit verification, the light client, the vote set
+and block sync read: the block-ID flags, the commit signatures and
+``Commit.vote_sign_bytes`` and ``hash``, the extended commit a block
+store keeps, the ``validate_basic`` checks, the proto encodings the
+hashes and the stores read and their decoders (``from_proto_bytes``),
+``Header.hash``, ``Block`` with its hash and ``make_block``, and ``Vote``
+with its sign-bytes, its checks and the pre-verification tag of the vote
+pre-verifier (``consensus/reactor.py``). A block that carries evidence
+raises: the evidence decoders and checks come with the evidence pool
+(ROADMAP §A item 8c). Proposals are left out. Wire
 encoding is gogoproto-compatible (ascending fields, proto3 zero
 omission, non-nullable embedded messages always written), so hashes are
 byte-exact with the reference.
@@ -38,6 +41,7 @@ from tendermint_tpu_torch.encoding.proto import (
 
 HASH_SIZE = 32
 MAX_CHAIN_ID_LEN = 50
+BLOCK_PART_SIZE_BYTES = 65536  # types/params.go:21
 MAX_SIGNATURE_SIZE = 64  # ed25519/sr25519
 MAX_VOTE_EXTENSION_SIZE = 1024 * 1024  # types/vote.go:20
 
@@ -278,6 +282,10 @@ class Commit:
     round: int = 0
     block_id: BlockID = dc_field(default_factory=BlockID)
     signatures: List[CommitSig] = dc_field(default_factory=list)
+    _hash: Optional[bytes] = dc_field(default=None, repr=False, compare=False)
+
+    def size(self) -> int:
+        return len(self.signatures)
 
     def vote_sign_bytes(self, chain_id: str, val_idx: int) -> bytes:
         """types/block.go:851-868: canonical sign-bytes for signature i."""
@@ -310,6 +318,14 @@ class Commit:
                 except ValueError as e:
                     raise ValueError(f"wrong CommitSig #{i}: {e}") from e
 
+    def hash(self) -> bytes:
+        """Merkle root of the proto-encoded CommitSigs (types/block.go:901);
+        kept once computed (a caller that edits a signature clears
+        ``_hash``)."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices([cs.to_proto_bytes() for cs in self.signatures])
+        return self._hash
+
     def to_proto_bytes(self) -> bytes:
         out = encode_varint_field(1, self.height)
         out += encode_varint_field(2, self.round)
@@ -331,6 +347,127 @@ class Commit:
                 out.block_id = BlockID.from_proto_bytes(r.read_bytes())
             elif f == 4 and w == 2:
                 out.signatures.append(CommitSig.from_proto_bytes(r.read_bytes()))
+            else:
+                r.skip(w)
+        return out
+
+
+# --- ExtendedCommit (ABCI++ vote extensions) --------------------------------
+
+
+@dataclass
+class ExtendedCommitSig:
+    """types/block.go:728-744: CommitSig + extension + extension sig."""
+
+    commit_sig: CommitSig = dc_field(default_factory=CommitSig)
+    extension: bytes = b""
+    extension_signature: bytes = b""
+
+    def validate_basic(self) -> None:
+        self.commit_sig.validate_basic()
+        if self.commit_sig.block_id_flag == BLOCK_ID_FLAG_COMMIT:
+            if len(self.extension) > MAX_VOTE_EXTENSION_SIZE:
+                raise ValueError("vote extension is too big")
+            if not self.extension_signature:
+                raise ValueError("vote extension signature is missing")
+            if len(self.extension_signature) > MAX_SIGNATURE_SIZE:
+                raise ValueError("vote extension signature is too big")
+        elif self.extension_signature or self.extension:
+            raise ValueError("vote extension and signature must be empty for non-commit sig")
+
+    def ensure_extension(self) -> None:
+        """types/block.go:766-779: commit sigs must carry an extension sig."""
+        if self.commit_sig.block_id_flag == BLOCK_ID_FLAG_COMMIT and not self.extension_signature:
+            raise ValueError("vote extension data is missing")
+
+    def to_proto_bytes(self) -> bytes:
+        cs = self.commit_sig
+        return (
+            encode_varint_field(1, cs.block_id_flag)
+            + encode_bytes_field(2, cs.validator_address)
+            + _encode_time_field(3, cs.timestamp)
+            + encode_bytes_field(4, cs.signature)
+            + encode_bytes_field(5, self.extension)
+            + encode_bytes_field(6, self.extension_signature)
+        )
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "ExtendedCommitSig":
+        r = Reader(data)
+        cs = CommitSig()
+        ext = ext_sig = b""
+        for f, w in r.fields():
+            if f == 1 and w == 0:
+                cs.block_id_flag = r.read_varint()
+            elif f == 2 and w == 2:
+                cs.validator_address = r.read_bytes()
+            elif f == 3 and w == 2:
+                cs.timestamp = _decode_time(r.read_bytes())
+            elif f == 4 and w == 2:
+                cs.signature = r.read_bytes()
+            elif f == 5 and w == 2:
+                ext = r.read_bytes()
+            elif f == 6 and w == 2:
+                ext_sig = r.read_bytes()
+            else:
+                r.skip(w)
+        return cls(cs, ext, ext_sig)
+
+
+@dataclass
+class ExtendedCommit:
+    """types/block.go ExtendedCommit: commit + vote extensions."""
+
+    height: int = 0
+    round: int = 0
+    block_id: BlockID = dc_field(default_factory=BlockID)
+    extended_signatures: List[ExtendedCommitSig] = dc_field(default_factory=list)
+
+    def size(self) -> int:
+        return len(self.extended_signatures)
+
+    def to_commit(self) -> Commit:
+        return Commit(
+            height=self.height,
+            round=self.round,
+            block_id=self.block_id,
+            signatures=[e.commit_sig for e in self.extended_signatures],
+        )
+
+    @classmethod
+    def wrap_commit(cls, commit: Commit) -> "ExtendedCommit":
+        return cls(
+            height=commit.height,
+            round=commit.round,
+            block_id=commit.block_id,
+            extended_signatures=[ExtendedCommitSig(s) for s in commit.signatures],
+        )
+
+    def ensure_extensions(self) -> None:
+        for e in self.extended_signatures:
+            e.ensure_extension()
+
+    def to_proto_bytes(self) -> bytes:
+        out = encode_varint_field(1, self.height)
+        out += encode_varint_field(2, self.round)
+        out += encode_message_field(3, self.block_id.to_proto_bytes())
+        for e in self.extended_signatures:
+            out += encode_message_field(4, e.to_proto_bytes())
+        return out
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "ExtendedCommit":
+        r = Reader(data)
+        out = cls()
+        for f, w in r.fields():
+            if f == 1 and w == 0:
+                out.height = r.read_svarint()
+            elif f == 2 and w == 0:
+                out.round = r.read_svarint()
+            elif f == 3 and w == 2:
+                out.block_id = BlockID.from_proto_bytes(r.read_bytes())
+            elif f == 4 and w == 2:
+                out.extended_signatures.append(ExtendedCommitSig.from_proto_bytes(r.read_bytes()))
             else:
                 r.skip(w)
         return out
@@ -586,3 +723,143 @@ class Header:
             else:
                 r.skip(w)
         return out
+
+
+# --- Data / Block -----------------------------------------------------------
+
+
+def tx_hash(tx: bytes) -> bytes:
+    """types/tx.go Tx.Hash: SHA256 of the raw bytes."""
+    return hashlib.sha256(tx).digest()
+
+
+@dataclass
+class Data:
+    """types/block.go Data: the transactions."""
+
+    txs: List[bytes] = dc_field(default_factory=list)
+    _hash: Optional[bytes] = dc_field(default=None, repr=False, compare=False)
+
+    def hash(self) -> bytes:
+        """Merkle root over per-tx SHA-256 hashes (types/tx.go Txs.Hash:
+        leaf_i = sha256(tx_i), then HashFromByteSlices)."""
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices([tx_hash(tx) for tx in self.txs])
+        return self._hash
+
+    def to_proto_bytes(self) -> bytes:
+        # every tx is written, an empty one too (repeated bytes)
+        return b"".join(encode_message_field(1, tx) for tx in self.txs)
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "Data":
+        r = Reader(data)
+        txs: List[bytes] = []
+        for f, w in r.fields():
+            if f == 1 and w == 2:
+                txs.append(r.read_bytes())
+            else:
+                r.skip(w)
+        return cls(txs)
+
+
+def _no_evidence(evidence) -> None:
+    if evidence:
+        raise ValueError(
+            "a block that carries evidence is not ported: the evidence decoders and "
+            "checks come with the evidence pool (ROADMAP §A item 8c)"
+        )
+
+
+@dataclass
+class Block:
+    """types/block.go Block = Header + Data + EvidenceList + LastCommit.
+
+    ``evidence`` stays empty in the port: every method that would read
+    an evidence item raises (ROADMAP §A item 8c)."""
+
+    header: Header = dc_field(default_factory=Header)
+    data: Data = dc_field(default_factory=Data)
+    evidence: List[object] = dc_field(default_factory=list)
+    last_commit: Optional[Commit] = None
+    _hash: Optional[bytes] = dc_field(default=None, repr=False, compare=False)
+
+    def hash(self) -> bytes:
+        if self._hash is None:
+            self.fill_header()
+            self._hash = self.header.hash()
+        return self._hash
+
+    def evidence_hash(self) -> bytes:
+        _no_evidence(self.evidence)
+        return merkle.empty_hash()
+
+    def fill_header(self) -> None:
+        """types/block.go:133-148: derive the data-dependent header hashes."""
+        if not self.header.last_commit_hash and self.last_commit is not None:
+            self.header.last_commit_hash = self.last_commit.hash()
+        if not self.header.data_hash:
+            self.header.data_hash = self.data.hash()
+        if not self.header.evidence_hash:
+            self.header.evidence_hash = self.evidence_hash()
+
+    def validate_basic(self) -> None:
+        """types/block.go:55-93."""
+        self.header.validate_basic()
+        if self.last_commit is None:
+            raise ValueError("nil LastCommit")
+        try:
+            self.last_commit.validate_basic()
+        except ValueError as e:
+            raise ValueError(f"wrong LastCommit: {e}") from e
+        if self.header.last_commit_hash != self.last_commit.hash():
+            raise ValueError("wrong Header.LastCommitHash")
+        if self.header.data_hash != self.data.hash():
+            raise ValueError("wrong Header.DataHash")
+        if self.header.evidence_hash != self.evidence_hash():
+            raise ValueError("wrong Header.EvidenceHash")
+
+    def make_block_id(self, part_set_header: Optional[PartSetHeader] = None) -> BlockID:
+        return BlockID(self.hash(), part_set_header or PartSetHeader())
+
+    def to_proto_bytes(self) -> bytes:
+        _no_evidence(self.evidence)
+        out = encode_message_field(1, self.header.to_proto_bytes())
+        out += encode_message_field(2, self.data.to_proto_bytes())
+        out += encode_message_field(3, b"")  # the empty EvidenceList
+        if self.last_commit is not None:
+            out += encode_message_field(4, self.last_commit.to_proto_bytes())
+        return out
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "Block":
+        r = Reader(data)
+        out = cls()
+        for f, w in r.fields():
+            if f == 1 and w == 2:
+                out.header = Header.from_proto_bytes(r.read_bytes())
+            elif f == 2 and w == 2:
+                out.data = Data.from_proto_bytes(r.read_bytes())
+            elif f == 3 and w == 2:
+                er = Reader(r.read_bytes())
+                for ef, ew in er.fields():
+                    _no_evidence(ef == 1 and ew == 2)
+                    er.skip(ew)
+            elif f == 4 and w == 2:
+                out.last_commit = Commit.from_proto_bytes(r.read_bytes())
+            else:
+                r.skip(w)
+        return out
+
+
+def make_block(
+    height: int,
+    txs: List[bytes],
+    last_commit: Optional[Commit],
+    evidence: Optional[List[object]] = None,
+) -> Block:
+    """types/block.go MakeBlock."""
+    _no_evidence(evidence)
+    block = Block(header=Header(height=height), data=Data(txs=list(txs)), last_commit=last_commit)
+    block.fill_header()
+    return block

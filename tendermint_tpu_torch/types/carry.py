@@ -23,7 +23,7 @@ from __future__ import annotations
 import hashlib
 from typing import Callable, List, Optional, Sequence, Tuple
 
-from tendermint_tpu_torch.crypto.keys import ED25519_KEY_TYPE, SR25519_KEY_TYPE, Ed25519PubKey, PubKey
+from tendermint_tpu_torch.crypto.keys import PubKey, pubkey_from_type_and_bytes
 from tendermint_tpu_torch.encoding.canonical import Timestamp
 from tendermint_tpu_torch.types.block import (
     BLOCK_ID_FLAG_COMMIT,
@@ -45,13 +45,7 @@ BASE_NS = 1_700_000_000_000_000_000  # the fixture's genesis time
 
 def pub_key(obj) -> PubKey:
     """A public key of type ``obj.type`` with bytes ``obj.bytes()``."""
-    if obj.type == ED25519_KEY_TYPE:
-        return Ed25519PubKey(obj.bytes())
-    if obj.type == SR25519_KEY_TYPE:
-        from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
-
-        return Sr25519PubKey(obj.bytes())
-    raise ValueError(f"unknown key type {obj.type}")
+    return pubkey_from_type_and_bytes(obj.type, obj.bytes())
 
 
 def timestamp(obj) -> Timestamp:

@@ -407,7 +407,7 @@ class VerifydServer:
     ):
         if shm != "off":
             raise ValueError(
-                f"shm={shm!r}: the shared-memory ingress is not ported (ROADMAP §A item 6); "
+                f"shm={shm!r}: the shared-memory ingress is not ported (ROADMAP §A item 12); "
                 "only 'off' is accepted"
             )
         self.device = resolve_device(device)

@@ -153,11 +153,18 @@ def test_priorities_of_a_new_set_equal_the_reference():
 
 
 def test_key_types_the_port_does_not_have_raise():
-    secp = b"\x12\x21" + b"\x02" * 33  # field 2: a compressed secp256k1 key
-    with pytest.raises(ValueError, match="unknown key type secp256k1"):
-        tkeys.pubkey_from_proto(secp)
+    # field 2, a compressed secp256k1 key, decodes since the port has the
+    # key type; a field the proto does not define is skipped, as in the
+    # reference, and leaves no key
+    secp = b"\x12\x21" + b"\x02" * 33
+    got, want = tkeys.pubkey_from_proto(secp), jkeys.pubkey_from_proto(secp)
+    assert (got.type, got.bytes()) == (want.type, want.bytes()) == ("secp256k1", b"\x02" * 33)
+    with pytest.raises(ValueError, match="empty PublicKey proto"):
+        tkeys.pubkey_from_proto(b"\x22\x20" + bytes(32))
     with pytest.raises(ValueError, match="empty PublicKey proto"):
         tkeys.pubkey_from_proto(b"")
+    with pytest.raises(ValueError, match="unknown key type bls12_381"):
+        tkeys.pubkey_from_type_and_bytes("bls12_381", bytes(48))
 
 
 def test_rotating_chain_twin_is_the_reference_chain():

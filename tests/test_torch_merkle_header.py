@@ -131,8 +131,17 @@ def test_pubkey_proto_fields_and_no_secp256k1():
         def bytes(self):
             return b"\x02" * 33
 
-    with pytest.raises(ValueError, match="unknown key type secp256k1"):
-        tkeys.pubkey_to_proto(Secp())
+    # field 2 since the port has the key type, as the reference writes it
+    assert tkeys.pubkey_to_proto(Secp()) == jproto(Secp()) == b"\x12\x21" + b"\x02" * 33
+
+    class Bls:
+        type = "bls12_381"
+
+        def bytes(self):
+            return bytes(48)
+
+    with pytest.raises(ValueError, match="unknown key type bls12_381"):
+        tkeys.pubkey_to_proto(Bls())
 
 
 @pytest.fixture(scope="module")
