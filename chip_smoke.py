@@ -178,6 +178,31 @@ and, in order:
    it), the other serves block 40 with a forged AppHash that its set
    signed (the window passes it; ``validate_block`` refuses it, and it
    is never saved);
+15. a validator of BASELINE config 2 committing blocks: 150 ed25519
+   validators of power 10 on the kvstore app, Tendermint's default
+   timeouts, vote extensions from height 1, 200 kvstore txs a block. The
+   node under test (a ``FilePV`` and a ``WAL`` in a temporary directory,
+   ``MemDB`` stores, ``LocalClient`` over ``KVStoreApplication``,
+   ``BlockExecutor(device=)``, ``ConsensusState`` behind a
+   ``VotePreverifier``) proposes height 2; a harness plays the other 149
+   as honest, reactive peers: it proposes their rounds from the node's
+   committed state, answers each of the node's votes with 134 votes of
+   the same type and block (signed in a spawn pool of its own, submitted
+   through the pre-verifier over 100 ms in a seeded order, precommits
+   with the app's extension), leaves 15 validators silent, sends a
+   corrupted precommit every height, and withholds the proposal of
+   height 9's round 0, which then commits in round 1. 16 heights, a
+   restart from the stores, the WAL and the ``FilePV`` with the caches
+   emptied (the ``Handshaker`` replaying the blocks to a fresh app), and
+   2 more. Checked: the commit rounds, every stored commit on the card,
+   a fresh executor replaying the chain to the same app and validator
+   hashes, no corrupted precommit in a vote set or a commit, the WAL's
+   end-height markers, no second signature at an (height, round, step),
+   the device tier and K3 or K1 after the restart. It prints per height
+   the commit round, the decision time and the launches and tiers, and
+   the block interval, the finalize split, the vote latencies, the
+   pre-verifier's and the scheduler's counts, the step durations and the
+   harness's signing seconds;
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -196,7 +221,7 @@ phase 4b (K1-K4), and again around each of phases 5 (K5, and the
 ed25519 kernels of the mixed commit), 5c, 7, 8, 9, 10, 11, 12, 13 (whose
 count is that of the served requests only: each sub-phase's deltas around
 what a server answered, without the in-process references, plus the
-daemon's own of 13e) and 14. After each of these the health machine
+daemon's own of 13e), 14 and 15. After each of these the health machine
 must show no host fallback, no transition and the healthy state (in
 phase 13 after 13b, and after 13c has reset it). Each phase prints one JSON line; then the kernel table,
 the card's ``nvidia-smi`` name and power limit, and last
@@ -211,6 +236,8 @@ import hashlib
 import json
 import multiprocessing
 import os
+import queue
+import shutil
 import statistics
 import subprocess
 import sys
@@ -322,6 +349,26 @@ NODE_FORK_HEIGHT = 40  # a peer serves this block with a forged AppHash, signed 
 NODE_GENESIS_NS = 1_700_000_000_000_000_000
 NODE_BLOCKS_PER_S_LIMIT = 90.0  # phase 7's limit, the Go CPU rate
 NODE_MAX_STEPS = 20_000
+# Phase 15: BASELINE config 2 as a validator runs it: CONSENSUS_VALIDATORS
+# ed25519 validators of power 10 on the kvstore app, ConsensusParams()
+# defaults (Tendermint's timeouts) with vote extensions from height 1,
+# CONSENSUS_TXS kvstore txs a block over CONSENSUS_ACCOUNTS keys. The node
+# under test proposes height 2; the harness plays the rest, the last
+# CONSENSUS_SILENT by index silent, one sending a corrupted precommit
+# every height, and the proposer of CONSENSUS_NIL_HEIGHT's round 0
+# withholding its proposal. CONSENSUS_HEIGHTS heights, a restart, then
+# CONSENSUS_RESTART_HEIGHTS more. Cut from an open-ended chain.
+CONSENSUS_VALIDATORS = 150
+CONSENSUS_SILENT = 15
+CONSENSUS_HEIGHTS = 16
+CONSENSUS_RESTART_HEIGHTS = 2
+CONSENSUS_NIL_HEIGHT = 9
+CONSENSUS_TXS = 200
+CONSENSUS_ACCOUNTS = 4096
+CONSENSUS_SPREAD_S = ROUND_SPREAD_S  # a step's votes arrive over this, as in 9b
+CONSENSUS_SIGNERS = 4  # the harness's spawn pool
+CONSENSUS_TIMEOUTS = None  # a TimeoutParams, or None for the defaults
+CONSENSUS_HEIGHT_WAIT_S = 120.0  # the longest a height may take
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -3995,24 +4042,72 @@ def phase_verifyd(commit_wl, commit_tables, batch, sync, mixed_sync, light, dev)
 # --- phase 14 ------------------------------------------------------------------
 
 
-def _timed(totals, key, fn):
-    """``fn`` with its host-clock seconds added to ``totals[key]``."""
+class StageClock:
+    """Host seconds by stage, the one stage clock of phases 14 and 15.
+    :meth:`wrap` adds a callable's seconds to its stage; in phase 15
+    :meth:`step` names the consensus step the node's receive thread is
+    in, and the stages are kept under it. :meth:`counted` adds the
+    verdict-cache hits and misses during a call to ``cache``."""
 
-    def run(*args, **kwargs):
-        t = time.perf_counter()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            totals[key] += time.perf_counter() - t
+    def __init__(self, where=None):
+        self.seconds = {}  # stage, or (step, stage) -> seconds
+        self.where = where
+        self.cache = {"hits": 0, "misses": 0}
 
-    return run
+    def add(self, key, s):
+        k = key if self.where is None else (self.where, key)
+        self.seconds[k] = self.seconds.get(k, 0.0) + s
+
+    def wrap(self, key, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.add(key, time.perf_counter() - t)
+
+        return run
+
+    def step(self, where, fn):
+        def run(*args, **kwargs):
+            outer, self.where = self.where, where
+            try:
+                return self.wrap("total", fn)(*args, **kwargs)
+            finally:
+                self.where = outer
+
+        return run
+
+    def counted(self, fn):
+        from tendermint_tpu_torch.ops import precompute
+
+        def run(*args, **kwargs):
+            before = precompute.results.stats()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                after = precompute.results.stats()
+                for k in self.cache:
+                    self.cache[k] += after[k] - before[k]
+
+        return run
+
+    def ms(self):
+        """{step: {stage: ms}} (phase 15) or {stage: ms} (phase 14)."""
+        out = {}
+        for k, s in sorted(self.seconds.items(), key=lambda kv: str(kv[0])):
+            if isinstance(k, tuple):
+                out.setdefault(k[0], {})[k[1]] = s * 1e3
+            else:
+                out[k] = s * 1e3
+        return out
 
 
-def node_follow(source, dev, split=None, faults=None):
+def node_follow(source, dev, clock=None, faults=None):
     """One fresh follower (state from genesis, fresh stores, a fresh app)
     syncing NODE_SYNC_TO blocks through ``BlockSyncer`` from the source's
     block store, each block loaded and decoded as a peer's message would
-    be. With ``split``, the host seconds of each stage are added there.
+    be. With ``clock`` (a :class:`StageClock`), each stage is timed.
     With ``faults`` ({peer: fn(height, block) -> the block it serves}),
     those peers serve in turn, each joining once the one before it is
     banned, and a good peer joins last. Returns the syncer, its executor,
@@ -4021,7 +4116,6 @@ def node_follow(source, dev, split=None, faults=None):
     hashes of the blocks saved (the last two with ``faults`` only)."""
     from tendermint_tpu_torch.blocksync import syncer as syncer_mod
     from tendermint_tpu_torch.blocksync.syncer import BlockSyncer, PeerTransport
-    from tendermint_tpu_torch.ops import precompute
     from tendermint_tpu_torch.state import execution
     from tendermint_tpu_torch.types import validation
 
@@ -4062,30 +4156,17 @@ def node_follow(source, dev, split=None, faults=None):
         executor.validate_block = validate_logged
         executor.block_store.save_block = save_logged
     patches = []
-    if split is not None:
-        cache = {"hits": 0, "misses": 0}
-        real_verify_commit = validation.verify_commit
-
-        def verify_commit_counted(*args, **kwargs):
-            before = precompute.results.stats()
-            try:
-                return real_verify_commit(*args, **kwargs)
-            finally:
-                after = precompute.results.stats()
-                cache["hits"] += after["hits"] - before["hits"]
-                cache["misses"] += after["misses"] - before["misses"]
-
-        split["verify_commit_cache"] = cache
+    if clock is not None:
         for mod, name, key in ((syncer_mod, "verify_commits_pipelined", "pipeline"),
                                (execution, "validate_block", "validate_block"),
                                (validation, "verify_commit", "verify_commit")):
-            fn = verify_commit_counted if name == "verify_commit" else getattr(mod, name)
-            patches.append((mod, name, getattr(mod, name)))
-            setattr(mod, name, _timed(split, key, fn))
-        executor.apply_block = _timed(split, "apply_block", executor.apply_block)
-        executor.app.finalize_block = _timed(split, "finalize_block", executor.app.finalize_block)
-        executor.block_store.save_block = _timed(split, "save_block", executor.block_store.save_block)
-        executor.state_store.save = _timed(split, "save_state", executor.state_store.save)
+            fn = getattr(mod, name)
+            patches.append((mod, name, fn))
+            setattr(mod, name, clock.wrap(key, clock.counted(fn) if key == "verify_commit" else fn))
+        executor.apply_block = clock.wrap("apply_block", executor.apply_block)
+        executor.app.finalize_block = clock.wrap("finalize_block", executor.app.finalize_block)
+        executor.block_store.save_block = clock.wrap("save_block", executor.block_store.save_block)
+        executor.state_store.save = clock.wrap("save_state", executor.state_store.save)
     try:
         t = time.perf_counter()
         for _ in range(NODE_MAX_STEPS):
@@ -4153,15 +4234,14 @@ def phase_node_blocksync(source, dev):
     cold = {"s": cold_s, "table_builds": precompute.tables.builds - builds,
             "store_uploads": resident.stats()["uploads"] - uploads, "launches": cold_launches}
     before = launches()
-    walls, splits = [], []
+    walls, clocks = [], []
     for _ in range(NODE_REPS):
         precompute.results.clear()
-        split = dict.fromkeys(("pipeline", "validate_block", "verify_commit", "apply_block",
-                               "finalize_block", "save_block", "save_state"), 0.0)
-        syncer, executor, wall, _ = node_follow(source, dev, split)
+        clock = StageClock()
+        syncer, executor, wall, _ = node_follow(source, dev, clock)
         check_converged(source, executor, syncer.state, "timed run")
         walls.append(wall)
-        splits.append(split)
+        clocks.append(clock)
     timed_launches = delta(before)
     check(timed_launches.get("verify_resident", 0) > 0, f"phase 14 launched no K3: {timed_launches}")
     check(precompute.tables.builds - builds == cold["table_builds"], "table builds after the cold run")
@@ -4197,11 +4277,13 @@ def phase_node_blocksync(source, dev):
     check_converged(source, executor, syncer.state, "faulty-peers run")
 
     i = walls.index(statistics.median(walls))
-    split = splits[i]
+    split = {k: clocks[i].seconds.get(k, 0.0) for k in ("pipeline", "validate_block", "verify_commit",
+                                                         "apply_block", "finalize_block", "save_block",
+                                                         "save_state")}
     blocks = NODE_SYNC_TO
     n_runs = NODE_REPS * blocks
     blocks_per_s = blocks / statistics.median(walls)
-    cache = split.pop("verify_commit_cache")
+    cache = clocks[i].cache
     stages = {k: v * 1e3 for k, v in split.items()}
     # validate_block runs before apply_block (whose own call finds the
     # block in the executor's cache), so the stages do not nest.
@@ -4225,6 +4307,560 @@ def phase_node_blocksync(source, dev):
           "launches": counts, "store": resident.stats()})
     precompute.reset()
     return counts
+
+
+# --- phase 15 ------------------------------------------------------------------
+
+
+class ConsensusTxs(_TxSource):
+    """The mempool stand-in of phase 15's node: it hands
+    ``reap_max_bytes_max_gas`` the seeded txs of the height it proposes,
+    the height after the last ``update``."""
+
+    def __init__(self, by_height, next_height=1):
+        super().__init__(None)
+        self.by_height = by_height
+        self.next_height = next_height
+
+    def reap_max_bytes_max_gas(self, max_bytes, max_gas):
+        return self.by_height[self.next_height]
+
+    def update(self, height, *args, **kwargs):
+        self.next_height = height + 1
+
+
+class ConsensusHarness:
+    """The other validators of phase 15, as the node's peers: the node's
+    ``Broadcaster``. It is honest and reactive. On the node's first
+    PROPOSE step of a (height, round) whose proposer is one of its keys,
+    it builds the block from the node's committed state (read from the
+    node's state store) with ``make_block`` and ``PartSet``, the height's
+    seeded txs and the previous height's commit made from the precommits
+    it holds plus the node's own, stamped with the wall clock, and
+    delivers the signed proposal and its parts. When the node broadcasts
+    a prevote or precommit for (h, r, id or nil), the active validators
+    answer with a vote of that type for that id (a non-nil precommit with
+    the app's ``ExtendVote`` extension and its signature), signed in the
+    harness's spawn pool and submitted through the node's
+    ``VotePreverifier`` spread over ``spread`` seconds in a seeded order,
+    beside a copy of one validator's precommit with a corrupted
+    signature. The proposer of (``nil_height``, 0) withholds its
+    proposal. It never calls the node's executor."""
+
+    def __init__(self, genesis, privs, node_addr, silent, nil_height, txs, pool, spread, rng):
+        from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+        from tendermint_tpu_torch.state import state_from_genesis
+
+        self.vset = state_from_genesis(genesis).validators
+        self.privs = privs  # address -> 64-byte private key
+        self.node_addr = node_addr
+        self.active = [i for i, v in enumerate(self.vset.validators)
+                       if v.address != node_addr and v.address not in silent]
+        self.bad_index = self.active[0]
+        self.nil_height = nil_height
+        self.txs = txs
+        self.pool = pool
+        self.spread = spread
+        self.rng = rng
+        self.app = KVStoreApplication()  # asked for the extensions, as a peer's app would be
+        self.events = queue.Queue()
+        self.lock = threading.Lock()
+        self.stop_flag = threading.Event()
+        self.paused = threading.Event()
+        self.thread = None
+        self.node = self.pv = None
+        self.errors = []
+        self.proposed, self.answered, self.withheld = set(), set(), []
+        self.precommits = {}  # (h, r) -> {index: Vote}, the non-nil precommits sent
+        self.bad_sigs = {}  # h -> the corrupted signatures sent at h
+        self.node_votes = {}  # (type, h, r) -> the node's vote
+        self.node_signed = []  # (kind, h, r) of everything the node signed, in order
+        self.submitted = {}  # (h, r, type, index) -> perf_counter at submit  # guarded-by: lock
+        self.latency = {1: [], 2: []}  # type -> seconds, submit to the node's vote set
+        self.sign_s = {1: [], 2: []}  # type -> seconds the pool took a step
+        self.committed = {}  # h -> {"round", "t", "counters", "bad_in_vote_set"}
+        self.t_complete = {}  # (h, r) -> perf_counter of the node's complete proposal
+
+    # --- the node's broadcaster (called on the node's receive thread) ---
+
+    def broadcast_proposal(self, proposal):
+        self.node_signed.append(("proposal", proposal.height, proposal.round))
+
+    def broadcast_block_part(self, height, round_, part):
+        pass
+
+    def broadcast_vote(self, vote):
+        self.node_signed.append((vote.type, vote.height, vote.round))
+        self.node_votes[(vote.type, vote.height, vote.round)] = vote
+        if not self.paused.is_set():
+            self.events.put(("vote", vote))
+
+    def broadcast_has_vote(self, height, round_, type_, index):
+        t = time.perf_counter()
+        with self.lock:
+            sent = self.submitted.pop((height, round_, type_, index), None)
+        if sent is not None:
+            self.latency[type_].append(t - sent)
+
+    def broadcast_new_round_step(self, rs):
+        from tendermint_tpu_torch.consensus.cstypes import RoundStep
+
+        if rs.step == RoundStep.PROPOSE and not self.paused.is_set():
+            self.events.put(("propose", rs.height, rs.round))
+
+    def on_committed(self, height):
+        node = self.node
+        seen = node.block_store.load_seen_commit()
+        bad = node.rs.last_commit.get_by_index(self.bad_index)
+        self.committed[height] = {"round": seen.round, "t": time.perf_counter(),
+                                  "counters": ingest_counters(),
+                                  "bad_in_vote_set": bad is not None
+                                  and bad.signature in self.bad_sigs.get(height, ())}
+
+    # --- the harness's own thread ---
+
+    def attach(self, node, pv):
+        """Serve ``node`` behind its pre-verifier ``pv``, and time its
+        complete proposals."""
+        self.node, self.pv = node, pv
+        real = node._handle_complete_proposal
+
+        def complete():
+            self.t_complete.setdefault((node.rs.height, node.rs.round), time.perf_counter())
+            return real()
+
+        node._handle_complete_proposal = complete
+
+    def start(self):
+        self.thread = threading.Thread(target=self._run, name="consensus-harness", daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        self.stop_flag.set()
+        self.thread.join(timeout=10)
+
+    def _run(self):
+        while not self.stop_flag.is_set():
+            try:
+                event = self.events.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            if self.paused.is_set():
+                continue
+            try:
+                if event[0] == "propose":
+                    self._propose(*event[1:])
+                else:
+                    self._answer(event[1])
+            except Exception as exc:  # failed by the phase
+                self.errors.append(repr(exc))
+
+    def _propose(self, height, round_):
+        from tendermint_tpu_torch.crypto import ed25519_ref
+        from tendermint_tpu_torch.encoding.canonical import Timestamp
+        from tendermint_tpu_torch.types.block import BLOCK_PART_SIZE_BYTES, BlockID, Commit, Proposal, make_block
+        from tendermint_tpu_torch.types.part_set import PartSet
+
+        if (height, round_) in self.proposed:
+            return
+        state = self.node.block_exec.state_store.load()  # the node's committed state
+        if state.last_block_height + 1 != height:
+            return
+        self.proposed.add((height, round_))
+        vals = state.validators.copy()
+        if round_:
+            vals.increment_proposer_priority(round_)
+        proposer = vals.get_proposer().address
+        if proposer == self.node_addr:
+            return
+        if height == self.nil_height and round_ == 0:
+            self.withheld.append((height, round_))
+            return
+        last_commit = self._last_commit(height - 1, state) if height > state.initial_height else Commit()
+        block = make_block(height, self.txs[height], last_commit)
+        h = block.header
+        h.version, h.chain_id = state.version, state.chain_id
+        h.time = Timestamp.from_unix_ns(time.time_ns())
+        h.last_block_id = state.last_block_id
+        h.validators_hash = state.validators.hash()
+        h.next_validators_hash = state.next_validators.hash()
+        h.consensus_hash = state.consensus_params.hash()
+        h.app_hash, h.last_results_hash = state.app_hash, state.last_results_hash
+        h.proposer_address = proposer
+        parts = PartSet.from_data(block.to_proto_bytes(), BLOCK_PART_SIZE_BYTES)
+        proposal = Proposal(height=height, round=round_, pol_round=-1,
+                            block_id=BlockID(block.hash(), parts.header()), timestamp=h.time)
+        proposal.signature = ed25519_ref.sign(self.privs[proposer], proposal.sign_bytes(state.chain_id))
+        peer = f"peer{self.vset.get_by_address(proposer)[0]}"
+        self.node.add_proposal_from_peer(proposal, peer)
+        for i in range(parts.total):
+            self.node.add_block_part_from_peer(height, round_, parts.get_part(i), peer)
+
+    def _last_commit(self, height, state):
+        """Height ``height``'s commit for the next block: the precommits
+        the harness sent in the round the node precommitted a block in,
+        and the node's own."""
+        from tendermint_tpu_torch.encoding.canonical import SIGNED_MSG_TYPE_PRECOMMIT
+        from tendermint_tpu_torch.types.block import ExtendedCommit, ExtendedCommitSig
+
+        rounds = [r for (h, r) in self.precommits if h == height
+                  and (SIGNED_MSG_TYPE_PRECOMMIT, h, r) in self.node_votes
+                  and not self.node_votes[(SIGNED_MSG_TYPE_PRECOMMIT, h, r)].block_id.is_nil()]
+        r = max(rounds)
+        own = self.node_votes[(SIGNED_MSG_TYPE_PRECOMMIT, height, r)]
+        votes = {**self.precommits[(height, r)], own.validator_index: own}
+        sigs = [votes[i].extended_commit_sig() if i in votes else ExtendedCommitSig()
+                for i in range(len(state.last_validators))]
+        return ExtendedCommit(height=height, round=r, block_id=own.block_id,
+                              extended_signatures=sigs).to_commit()
+
+    def _answer(self, vote):
+        from tendermint_tpu_torch.abci import types as abci
+        from tendermint_tpu_torch.encoding.canonical import SIGNED_MSG_TYPE_PRECOMMIT, Timestamp
+        from tendermint_tpu_torch.types.block import Vote
+
+        key = (vote.type, vote.height, vote.round)
+        if key in self.answered:
+            return
+        self.answered.add(key)
+        chain_id = self.node.state.chain_id
+        extend = vote.type == SIGNED_MSG_TYPE_PRECOMMIT and not vote.block_id.is_nil()
+        ext = (self.app.extend_vote(abci.RequestExtendVote(hash=vote.block_id.hash, height=vote.height))
+               .vote_extension if extend else b"")
+        ts = Timestamp.from_unix_ns(time.time_ns())
+        votes = [Vote(type=vote.type, height=vote.height, round=vote.round, block_id=vote.block_id,
+                      timestamp=ts, validator_address=self.vset.validators[i].address, validator_index=i,
+                      extension=ext)
+                 for i in self.active]
+        privs = [self.privs[v.validator_address] for v in votes]
+        msgs = [v.sign_bytes(chain_id) for v in votes]
+        if extend:
+            privs, msgs = privs * 2, msgs + [v.extension_sign_bytes(chain_id) for v in votes]
+        t = time.perf_counter()
+        sigs = self.pool.map(_sign, list(zip(privs, msgs)), chunksize=16)
+        self.sign_s[vote.type].append(time.perf_counter() - t)
+        n = len(votes)
+        for i, v in enumerate(votes):
+            v.signature = sigs[i]
+            if extend:
+                v.extension_signature = sigs[n + i]
+        deliveries = list(votes)
+        if vote.type == SIGNED_MSG_TYPE_PRECOMMIT:
+            bad = copy.copy(votes[0])  # the validator of self.bad_index
+            bad.signature = bad.signature[:40] + bytes([bad.signature[40] ^ 1]) + bad.signature[41:]
+            self.bad_sigs.setdefault(vote.height, set()).add(bad.signature)
+            deliveries.append(bad)
+            if extend:
+                self.precommits[(vote.height, vote.round)] = {v.validator_index: v for v in votes}
+        at = np.sort(self.rng.uniform(0.0, self.spread, len(deliveries)))
+        order = self.rng.permutation(len(deliveries))
+        start = time.perf_counter()
+        for when, j in zip(at, order):
+            if self.stop_flag.is_set() or self.paused.is_set():
+                return
+            wait = start + when - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            v = deliveries[int(j)]
+            if j < n:
+                with self.lock:
+                    self.submitted[(v.height, v.round, v.type, v.validator_index)] = time.perf_counter()
+            self.pv.submit(copy.copy(v), f"peer{v.validator_index}")
+
+
+def consensus_node(genesis, home, txs, dev, harness, metrics, clock, stores=None):
+    """Phase 15's node, assembled as a node assembles it: the ``FilePV``
+    and the ``WAL`` under ``home``, ``MemDB`` stores, ``LocalClient``
+    over a fresh ``KVStoreApplication`` and ``BlockExecutor(device=dev)``,
+    then ``ConsensusState`` with the harness as its broadcaster. A fresh
+    node runs InitChain; a restarted one (``stores`` given) runs the
+    ``Handshaker``, which replays the stored blocks to the fresh app.
+    ``clock`` times the node's stages, each on the node's own objects.
+    Returns the node, its pre-verifier (started and warm), the warm-up's
+    launches and the blocks the handshake replayed."""
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.consensus.replay import Handshaker
+    from tendermint_tpu_torch.consensus.state import ConsensusState
+    from tendermint_tpu_torch.consensus.wal import WAL
+    from tendermint_tpu_torch.privval import FilePV
+    from tendermint_tpu_torch.state import StateStore, state_from_genesis
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.storage.blockstore import BlockStore
+    from tendermint_tpu_torch.storage.kv import MemDB
+
+    client = LocalClient(KVStoreApplication())
+    client.start()
+    if stores is None:
+        state = state_from_genesis(genesis)
+        state.app_hash = client.init_chain(
+            abci.RequestInitChain(chain_id=genesis.chain_id, initial_height=genesis.initial_height)).app_hash
+        state_store, block_store = StateStore(MemDB()), BlockStore(MemDB())
+        state_store.save(state)
+        replayed = 0
+    else:
+        state_store, block_store = stores
+        state = state_store.load()
+    executor = BlockExecutor(state_store, client, block_store,
+                             mempool=ConsensusTxs(txs, state.last_block_height + 1), device=dev)
+    if stores is not None:
+        handshaker = Handshaker(state_store, block_store, executor, genesis)
+        state = handshaker.handshake(client, state)
+        replayed = handshaker.n_blocks_replayed
+    pv = FilePV.load(os.path.join(home, "priv_validator_key.json"), os.path.join(home, "priv_validator_state.json"))
+    node = ConsensusState(state, executor, block_store, priv_validator=pv, wal=WAL(os.path.join(home, "cs.wal")),
+                          broadcaster=harness, on_committed=harness.on_committed, metrics=metrics)
+    node._finalize_commit = clock.step("finalize", node._finalize_commit)
+    node._do_prevote = clock.step("prevote", node._do_prevote)
+    executor.validate_block = clock.wrap("validate_block", clock.counted(executor.validate_block))
+    executor.apply_block = clock.wrap("apply_block", executor.apply_block)
+    client.finalize_block = clock.wrap("finalize_block", client.finalize_block)
+    block_store.save_block_with_extended_commit = clock.wrap("save_block", block_store.save_block_with_extended_commit)
+    state_store.save = clock.wrap("save_state", state_store.save)
+    preverifier, warm_launches = start_preverifier(node)
+    harness.attach(node, preverifier)
+    return node, preverifier, warm_launches, replayed
+
+
+def run_heights(node, harness, last):
+    """Wait until ``node`` has committed ``last``, failing on a node or
+    harness error or a height that takes over CONSENSUS_HEIGHT_WAIT_S."""
+    height, since = node.block_store.height(), time.perf_counter()
+    while node.block_store.height() < last:
+        check(node.error is None, f"phase 15: the node stopped: {node.error!r}")
+        check(not harness.errors, f"phase 15: harness errors {harness.errors[:3]}")
+        if node.block_store.height() != height:
+            height, since = node.block_store.height(), time.perf_counter()
+        check(time.perf_counter() - since < CONSENSUS_HEIGHT_WAIT_S,
+              f"phase 15: stuck at height {height + 1} (step {node.rs.height_round_step()})")
+        time.sleep(0.005)
+
+
+def histogram_by_label(hist, label):
+    """{label value: {"count", "sum_s"}} from a histogram's exposition."""
+    out = {}
+    for line in hist.collect():
+        name, _, value = line.rpartition(" ")
+        for suffix, key in (("_count{", "count"), ("_sum{", "sum_s")):
+            if suffix in name:
+                lv = name.split(f'{label}="', 1)[1].split('"', 1)[0]
+                out.setdefault(lv, {})[key] = float(value)
+    return out
+
+
+def phase_consensus(keys, dev):
+    """BASELINE config 2 as a validator runs it: one node of
+    CONSENSUS_VALIDATORS commits CONSENSUS_HEIGHTS heights with the
+    harness playing its peers, every peer vote batch-verified on the card
+    by the ``VotePreverifier`` in front of its ``ConsensusState`` and each
+    block's LastCommit by ``validate_block``; then it stops, restarts from
+    its stores, WAL and ``FilePV`` with the caches emptied (the
+    ``Handshaker`` replaying its blocks to a fresh app), and commits
+    CONSENSUS_RESTART_HEIGHTS more. Checked: every height's round, every
+    stored commit on the card, a fresh executor replaying the blocks to
+    the same app and validator hashes, no corrupted precommit in a vote
+    set or a commit, the WAL's end-height markers, no second signature at
+    an (height, round, step), the device tier and K3 or K1 after the
+    restart. Returns the node's launch counts (from 0, read before the
+    checks launch their own) and the node's stores and genesis."""
+    import tempfile
+
+    from tendermint_tpu_torch.consensus.wal import WAL, EndHeightMessage
+    from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey, Ed25519PubKey
+    from tendermint_tpu_torch.encoding.canonical import (
+        SIGNED_MSG_TYPE_PRECOMMIT,
+        SIGNED_MSG_TYPE_PREVOTE,
+        Timestamp,
+    )
+    from tendermint_tpu_torch.libs import tracing
+    from tendermint_tpu_torch.libs.metrics import ConsensusMetrics, Registry
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.privval import FilePV
+    from tendermint_tpu_torch.state import state_from_genesis
+    from tendermint_tpu_torch.types import validation
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.params import ConsensusParams
+
+    rng = np.random.default_rng(SEED + 15)
+    params = ConsensusParams()
+    if CONSENSUS_TIMEOUTS is not None:
+        params.timeout = CONSENSUS_TIMEOUTS
+    params.abci.vote_extensions_enable_height = 1
+    genesis = GenesisDoc(chain_id=CHAIN_ID, genesis_time=Timestamp.from_unix_ns(time.time_ns()),
+                         consensus_params=params,
+                         validators=[GenesisValidator(Ed25519PubKey(pub), 10) for _, pub in keys])
+    gstate = state_from_genesis(genesis)
+    privs = {Ed25519PubKey(pub).address(): priv for priv, pub in keys}
+    node_addr = gstate.next_validators.get_proposer().address  # height 2's proposer
+    silent = {v.address for v in gstate.validators.validators[-CONSENSUS_SILENT:]}
+    total = CONSENSUS_HEIGHTS + CONSENSUS_RESTART_HEIGHTS
+    vals, proposers = gstate.validators.copy(), {}
+    for h in range(1, total + 1):
+        rv = vals.copy()
+        proposers[(h, 0)] = rv.get_proposer().address
+        if h == CONSENSUS_NIL_HEIGHT:
+            rv.increment_proposer_priority(1)
+            proposers[(h, 1)] = rv.get_proposer().address
+        vals.increment_proposer_priority(1)
+    check(not silent & set(proposers.values()) and node_addr not in silent,
+          "phase 15: a silent validator proposes a round of the phase")
+    check([k for k, a in proposers.items() if a == node_addr] == [(2, 0)],
+          "phase 15: the node proposes other rounds than (2, 0)")
+    txs = {h: [b"acct-%05d=%s" % (a, rng.bytes(17).hex().encode())
+               for a in rng.integers(0, CONSENSUS_ACCOUNTS, CONSENSUS_TXS)]
+           for h in range(1, total + 1)}
+    home = tempfile.mkdtemp(prefix="chip_smoke_consensus_")
+    FilePV(Ed25519PrivKey(privs[node_addr]), os.path.join(home, "priv_validator_key.json"),
+           os.path.join(home, "priv_validator_state.json")).save()
+
+    metrics = ConsensusMetrics(Registry())
+    intervals = []
+    real_observe = metrics.block_interval_seconds.observe
+
+    def observe(v, exemplar=None):
+        intervals.append(v)
+        real_observe(v, exemplar)
+
+    metrics.block_interval_seconds.observe = observe
+    clock = StageClock(where="other")
+    step_observer = tracing.metrics_observer(consensus=metrics)
+
+    def observer(name, args, seconds):
+        step_observer(name, args, seconds)
+        if name == "verify_commit":  # its span, inside validate_block
+            clock.add("verify_commit", seconds)
+
+    saved_observer = tracing.tracer.metrics_observer
+    tracing.tracer.set_metrics_observer(observer)
+    precompute.reset()
+    pool = multiprocessing.get_context("spawn").Pool(CONSENSUS_SIGNERS)
+    harness = ConsensusHarness(genesis, privs, node_addr, silent, CONSENSUS_NIL_HEIGHT, txs, pool,
+                               CONSENSUS_SPREAD_S, rng)
+    try:
+        pool.map(_keypair, [b"\0" * 32] * CONSENSUS_SIGNERS)  # the workers are up
+        harness.start()
+        node, pv, warm1, _ = consensus_node(genesis, home, txs, dev, harness, metrics, clock)
+        first = ingest_counters()
+        t0 = time.perf_counter()
+        node.start()
+        run_heights(node, harness, CONSENSUS_HEIGHTS)
+        harness.paused.set()  # the peers wait for the restart
+        node.stop()
+        pv.stop()
+        first_wall = time.perf_counter() - t0
+        before = (pv.batched, pv.passthrough, list(harness.node_signed))
+        stores = (node.block_exec.state_store, node.block_store)
+        state_at_stop = stores[0].load()
+
+        # The restart, with the caches of a new process.
+        precompute.reset()
+        t = time.perf_counter()
+        node2, pv2, warm2, replayed = consensus_node(genesis, home, txs, dev, harness, metrics, clock, stores)
+        restart_s = time.perf_counter() - t
+        check(replayed == CONSENSUS_HEIGHTS, f"phase 15: the handshake replayed {replayed} blocks")
+        restart = ingest_counters()
+        harness.paused.clear()
+        node2.start()
+        run_heights(node2, harness, total)
+        node2.stop()
+        pv2.stop()
+        wall = time.perf_counter() - t0
+        # The node's launches, read before the checks below launch their own.
+        counts = launches()
+        everything = ingest_delta(first)
+        after_restart = ingest_delta(restart)
+    finally:
+        harness.stop()
+        pool.terminate()
+        pool.join()
+        tracing.tracer.set_metrics_observer(saved_observer)
+    signed_after = harness.node_signed[len(before[2]):]
+
+    # The checks.
+    rounds = {h: harness.committed[h]["round"] for h in range(1, total + 1)}
+    check(rounds == {h: int(h == CONSENSUS_NIL_HEIGHT) for h in range(1, total + 1)},
+          f"phase 15: commit rounds {rounds}")
+    check(harness.withheld == [(CONSENSUS_NIL_HEIGHT, 0)], f"phase 15: withheld {harness.withheld}")
+    check(not set(before[2]) & set(signed_after) and len(set(harness.node_signed)) == len(harness.node_signed),
+          "phase 15: the node signed twice at an (height, round, step)")
+    check(("proposal", 2, 0) in harness.node_signed, "phase 15: the node never proposed height 2")
+    block_store, state_store = stores[1], stores[0]
+    precompute.results.clear()  # every stored commit verified anew on the card
+    bad = harness.bad_index
+    for h in range(1, total + 1):
+        meta = block_store.load_block_meta(h)
+        vset = state_store.load_validators(h)
+        ext = block_store.load_block_extended_commit(h)
+        commits = [ext.to_commit()] + ([block_store.load_block_commit(h)] if h < total else [])
+        for c in commits:
+            validation.verify_commit(CHAIN_ID, vset, meta.block_id, h, c, device=dev)
+            check(c.signatures[bad].signature not in harness.bad_sigs[h],
+                  f"phase 15: a corrupted precommit is in height {h}'s commit")
+        check(not harness.committed[h]["bad_in_vote_set"], f"phase 15: a corrupted precommit in {h}'s vote set")
+    executor, st = node_env(genesis.to_json(), dev)
+    for h in range(1, total + 1):
+        st = executor.apply_block(st, block_store.load_block_meta(h).block_id, block_store.load_block(h))
+        want = state_store.load() if h == total else None
+        app_hash = want.app_hash if want else block_store.load_block(h + 1).header.app_hash
+        check(st.app_hash == app_hash, f"phase 15: the replayed app hash differs at {h}")
+        check(st.validators.hash() == state_store.load_validators(h + 1).hash(),
+              f"phase 15: the replayed validator set differs at {h + 1}")
+        if h == CONSENSUS_HEIGHTS:
+            check(st.app_hash == state_at_stop.app_hash, "phase 15: the app hash at the restart differs")
+    ends = {m.height for _, m in WAL(os.path.join(home, "cs.wal")).iter_messages()
+            if isinstance(m, EndHeightMessage)}
+    check(set(range(1, total + 1)) <= ends, f"phase 15: WAL end-height markers {sorted(ends)}")
+    restart_launches = after_restart["launches"]
+    check(after_restart["tiers"]["device"] > 0
+          and restart_launches.get("verify_resident", 0) + restart_launches.get("verify", 0) > 0,
+          f"phase 15: after the restart, device tier {after_restart['tiers']}, launches {restart_launches}")
+
+    # The numbers.
+    counters = [first] + [harness.committed[h]["counters"] for h in range(1, total + 1)]
+    per_height = []
+    for h in range(1, total + 1):
+        prev = restart if h == CONSENSUS_HEIGHTS + 1 else counters[h - 1]
+        cur = counters[h]
+        c = harness.committed[h]
+        per_height.append({
+            "height": h, "round": c["round"],
+            "decision_ms": (c["t"] - harness.t_complete[(h, c["round"])]) * 1e3,
+            "launches": {k: v - prev["launches"][k] for k, v in cur["launches"].items()
+                         if v != prev["launches"][k]},
+            "tiers": {k: v - prev["tiers"][k] for k, v in cur["tiers"].items()},
+        })
+    sched = everything["sched"]
+    lat = {name: harness.latency[t] for name, t in (("prevote", SIGNED_MSG_TYPE_PREVOTE),
+                                                     ("precommit", SIGNED_MSG_TYPE_PRECOMMIT))}
+    decisions = [r["decision_ms"] for r in per_height]
+    emit({"phase": "consensus", "validators": CONSENSUS_VALIDATORS, "silent": CONSENSUS_SILENT,
+          "heights": CONSENSUS_HEIGHTS, "restart_heights": CONSENSUS_RESTART_HEIGHTS,
+          "nil_height": CONSENSUS_NIL_HEIGHT, "txs_per_block": CONSENSUS_TXS,
+          "spread_ms": CONSENSUS_SPREAD_S * 1e3, "timeouts": vars(params.timeout),
+          "wall_s": wall, "first_run_s": first_wall, "restart_s": restart_s,
+          "per_height": per_height,
+          "decision_ms_p50": statistics.median(decisions), "decision_ms_max": max(decisions),
+          "block_interval_s_p50": statistics.median(intervals), "block_intervals": len(intervals),
+          "finalize_split_ms": clock.ms(), "verify_commit_cache": clock.cache,
+          "vote_latency_ms": {k: {"n": len(v), "p50": percentile(v, 0.5) * 1e3, "p99": percentile(v, 0.99) * 1e3}
+                              for k, v in lat.items()},
+          "preverifier": {"batched": before[0] + pv2.batched, "passthrough": before[1] + pv2.passthrough},
+          "scheduler": {"flushes": sched["flushes"], "lanes": sched["entries_verified"],
+                        "mean_lanes_per_flush": sched["entries_verified"] / max(1, sched["flushes"]),
+                        "flush_errors": sched["flush_errors"], "fallback_flushes": sched["fallback_flushes"]},
+          "tiers": everything["tiers"], "tier_s": everything["tier_s"],
+          "warmup_launches": [warm1, warm2], "after_restart": {"tiers": after_restart["tiers"],
+                                                              "launches": restart_launches},
+          "step_duration": histogram_by_label(metrics.step_duration_seconds, "step"),
+          "signing_s_per_step": {name: {"mean": statistics.mean(harness.sign_s[t]), "max": max(harness.sign_s[t]),
+                                        "steps": len(harness.sign_s[t])}
+                                 for name, t in (("prevote", SIGNED_MSG_TYPE_PREVOTE),
+                                                 ("precommit", SIGNED_MSG_TYPE_PRECOMMIT))},
+          "launches": everything["launches"]})
+    precompute.reset()
+    shutil.rmtree(home)
+    return counts, (genesis, state_store, block_store, harness)
 
 
 def main(argv=None) -> int:
@@ -4262,6 +4898,7 @@ def main(argv=None) -> int:
         t_node = time.perf_counter()
         node_source = node_chain_workload(rng, signer)
         node_setup_s = time.perf_counter() - t_node
+        consensus_keys = signer.keys(rng, CONSENSUS_VALIDATORS)
     emit({"phase": "setup", "seconds": time.perf_counter() - t0, "workers": workers,
           "signatures": 2 * KERNEL_LANES + BATCH_LANES + len(COMMIT_HEIGHTS) * COMMIT_VALIDATORS
           + MIXED_VALIDATORS + SYNC_BLOCKS * SYNC_VALIDATORS
@@ -4329,6 +4966,10 @@ def main(argv=None) -> int:
     cuda_hash.reset_launches()
     node_counts = phase_node_blocksync(node_source, dev)
     health["phase_14"] = check_healthy("phase 14")
+    cuda_verify.reset_launches()  # the consensus node starts here
+    cuda_hash.reset_launches()
+    consensus_counts, _ = phase_consensus(consensus_keys, dev)
+    health["phase_15"] = check_healthy("phase 15")
     crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
@@ -4346,6 +4987,7 @@ def main(argv=None) -> int:
         row["launches_verifyd"] = verifyd_counts[name]
         row["launches_three_type"] = three_type_counts[name]
         row["launches_node_blocksync"] = node_counts[name]
+        row["launches_consensus"] = consensus_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

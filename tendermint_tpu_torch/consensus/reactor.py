@@ -5,10 +5,11 @@ The ``VotePreverifier`` of ``tendermint_tpu/consensus/reactor.py``
 (``crypto/batch.py`` ``get_shared_scheduler``) to the device engine, is
 tagged ``Vote.mark_pre_verified`` when its batch verdict is good, and is
 then forwarded to the consensus state, whose ``VoteSet.add_vote`` skips
-the inline verify for a tagged vote. The rest of the reactor (gossip,
-peer state, the wire) is not part of the port; neither is
-``ConsensusState``. The pre-verifier reads only the slice of it that
-:class:`ConsensusView` documents.
+the inline verify for a tagged vote. In a node it runs in front of
+``consensus/state.py``'s ``ConsensusState``, and reads only the slice of
+it that :class:`ConsensusView` documents. The rest of the reactor
+(gossip, peer state, the wire) needs ``p2p.router`` and comes with it
+(ROADMAP §A item 8d).
 
 Two divergences from the reference:
 

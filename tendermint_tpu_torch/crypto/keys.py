@@ -101,6 +101,10 @@ class Ed25519PrivKey:
         self._bytes = bytes(data)
 
     @classmethod
+    def generate(cls) -> "Ed25519PrivKey":
+        return cls(secrets.token_bytes(32))
+
+    @classmethod
     def from_seed(cls, seed: bytes) -> "Ed25519PrivKey":
         return cls(seed)
 
@@ -221,4 +225,17 @@ def pubkey_from_type_and_bytes(key_type: str, data: bytes) -> PubKey:
         from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
 
         return Sr25519PubKey(data)
+    raise ValueError(f"unknown key type {key_type}")
+
+
+def privkey_from_type_and_bytes(key_type: str, data: bytes):
+    """The private key of a key file (``privval/file_pv.py``)."""
+    if key_type == ED25519_KEY_TYPE:
+        return Ed25519PrivKey(data)
+    if key_type == SECP256K1_KEY_TYPE:
+        return Secp256k1PrivKey(data)
+    if key_type == SR25519_KEY_TYPE:
+        from tendermint_tpu_torch.crypto.sr25519 import Sr25519PrivKey
+
+        return Sr25519PrivKey(data)
     raise ValueError(f"unknown key type {key_type}")

@@ -1,11 +1,11 @@
-"""Canonical vote and vote-extension sign-bytes.
+"""Canonical vote, proposal and vote-extension sign-bytes.
 
-The vote part of ``tendermint_tpu/encoding/canonical.py`` (reference
-types/canonical.go, types/vote.go:141-170): sign-bytes are the
-varint-length-prefixed protobuf encoding of the CanonicalVote (or the
-CanonicalVoteExtension). The non-nullable Timestamp and the
-PartSetHeader inside CanonicalBlockID are always serialized; other zero
-values are omitted.
+A copy of ``tendermint_tpu/encoding/canonical.py`` (reference
+types/canonical.go, types/vote.go:141-170, types/proposal.go): sign-bytes
+are the varint-length-prefixed protobuf encoding of the CanonicalVote,
+the CanonicalProposal or the CanonicalVoteExtension. The non-nullable
+Timestamp and the PartSetHeader inside CanonicalBlockID are always
+serialized; other zero values are omitted.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from tendermint_tpu_torch.encoding.proto import (
 # SignedMsgType (proto/tendermint/types/types.proto)
 SIGNED_MSG_TYPE_PREVOTE = 1
 SIGNED_MSG_TYPE_PRECOMMIT = 2
+SIGNED_MSG_TYPE_PROPOSAL = 32
 
 
 class Timestamp(NamedTuple):
@@ -92,6 +93,30 @@ def vote_sign_bytes(
     return length_delimited(
         canonical_vote_bytes(chain_id, msg_type, height, round_, bid, timestamp)
     )
+
+
+def proposal_sign_bytes(
+    chain_id: str,
+    height: int,
+    round_: int,
+    pol_round: int,
+    block_id_hash: bytes,
+    psh_total: int,
+    psh_hash: bytes,
+    timestamp: Timestamp,
+) -> bytes:
+    """types.ProposalSignBytes: the delimited CanonicalProposal
+    (canonical.proto); ``pol_round`` -1 is a ten-byte varint."""
+    bid = encode_canonical_block_id(block_id_hash, psh_total, psh_hash)
+    out = encode_varint_field(1, SIGNED_MSG_TYPE_PROPOSAL)
+    out += encode_sfixed64_field(2, height)
+    out += encode_sfixed64_field(3, round_)
+    out += encode_varint_field(4, pol_round)
+    if bid is not None:
+        out += encode_message_field(5, bid)
+    out += encode_message_field(6, timestamp.encode())
+    out += encode_string_field(7, chain_id)
+    return length_delimited(out)
 
 
 def vote_extension_sign_bytes(chain_id: str, extension: bytes, height: int, round_: int) -> bytes:

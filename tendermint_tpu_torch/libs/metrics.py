@@ -9,8 +9,9 @@ that renders the text exposition format (served by ``rpc/server.py`` at
 (``nop()``), ``OpsMetrics`` (the verify path: the health machine, the
 caches, the resident store, the challenge hash, the stage timings and
 the device-byte ledger), ``VerifydMetrics`` and ``EvloopMetrics`` (the
-verify service and its event loop), ``LightMetrics`` and ``StateMetrics``
-(the block executor). Family names, help texts
+verify service and its event loop), ``LightMetrics``, ``StateMetrics``
+(the block executor) and ``ConsensusMetrics`` (the consensus state
+machine). Family names, help texts
 and label sets are the reference's, so both expositions compare line by
 line. The other subsystems' structs and the flight-recorder sink are
 left out.
@@ -665,6 +666,42 @@ class LightMetrics(_NopMixin):
             _name(s, "serve_latency_seconds"),
             "End-to-end light_header serve latency, seconds.",
             labels=("outcome",),
+        )
+
+
+class ConsensusMetrics(_NopMixin):
+    """internal/consensus/metrics.gen.go (the reference's subset)."""
+
+    def __init__(self, reg: Optional[Registry]):
+        reg = reg or Registry()
+        s = "consensus"
+        self.height = reg.gauge(_name(s, "height"), "Height of the chain.")
+        self.rounds = reg.gauge(_name(s, "rounds"), "Number of rounds at the latest height.")
+        self.validators = reg.gauge(_name(s, "validators"), "Number of validators.")
+        self.missing_validators = reg.gauge(
+            _name(s, "missing_validators"),
+            "Number of validators who did not sign the last block.",
+        )
+        self.byzantine_validators = reg.gauge(
+            _name(s, "byzantine_validators"),
+            "Number of validators who tried to double sign.",
+        )
+        self.block_interval_seconds = reg.histogram(
+            _name(s, "block_interval_seconds"),
+            "Time between this and the last block.",
+        )
+        self.num_txs = reg.gauge(_name(s, "num_txs"), "Number of transactions in the latest block.")
+        self.block_size_bytes = reg.gauge(
+            _name(s, "block_size_bytes"), "Size of the latest block in bytes."
+        )
+        self.total_txs = reg.counter(_name(s, "total_txs"), "Total number of transactions committed.")
+        self.wal_writes = reg.counter(_name(s, "wal_writes"), "Consensus WAL records written.")
+        # Fed by the tracer's metrics observer (libs/tracing.py): one
+        # observation a consensus step span, on the trace's clock.
+        self.step_duration_seconds = reg.histogram(
+            _name(s, "step_duration_seconds"),
+            "Wall-clock duration of consensus step transitions, seconds.",
+            labels=("step",),
         )
 
 

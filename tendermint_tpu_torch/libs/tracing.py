@@ -20,8 +20,10 @@ process-wide :class:`Tracer`. Completed spans and zero-duration
 
 Two sink slots see every completed span, in any mode:
 ``set_metrics_observer`` (:func:`metrics_observer` feeds spans tagged
-``stage`` and ``engine`` into ``tendermint_ops_verify_stage_seconds``,
-so the histogram and the trace count the same spans on one clock) and
+``stage`` and ``engine`` into ``tendermint_ops_verify_stage_seconds``
+and the consensus state machine's spans tagged ``step`` into
+``tendermint_consensus_step_duration_seconds``, so the histograms and
+the trace count the same spans on one clock) and
 ``set_profile_sink`` (the kernel profiler of ``ops/introspect.py``). A
 sink that raises never fails the traced operation.
 
@@ -495,16 +497,18 @@ class Tracer:
 
 def metrics_observer(ops=None, consensus=None) -> Sink:
     """The span-to-histogram bridge: spans tagged ``stage`` and
-    ``engine`` feed ``ops.verify_stage_seconds``. The consensus half
-    (spans tagged ``step``) waits for the port's consensus state."""
-    if consensus is not None:
-        raise NotImplementedError("the consensus step histogram has no port yet")
+    ``engine`` feed ``ops.verify_stage_seconds``, spans tagged ``step``
+    feed ``consensus.step_duration_seconds``. One clock for the trace and
+    the histograms."""
 
     def observe(name: str, args: Dict[str, Any], seconds: float) -> None:
         stage = args.get("stage")
         engine = args.get("engine")
         if ops is not None and stage and engine:
             ops.verify_stage_seconds.labels(stage=str(stage), engine=str(engine)).observe(seconds)
+        step = args.get("step")
+        if consensus is not None and step:
+            consensus.step_duration_seconds.labels(step=str(step)).observe(seconds)
 
     return observe
 

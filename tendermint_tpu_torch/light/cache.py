@@ -87,6 +87,12 @@ class HeaderCache:
             self.metrics.cache_hits.inc()
         return hit
 
+    def peek(self, chain_id: str, height: int) -> Optional[CacheEntry]:
+        """The entry at (chain, height), or None, counted neither as a
+        hit nor as a miss and left where it is in the LRU order."""
+        with self._mtx:
+            return self._entries.get((chain_id, height))
+
     def put(self, chain_id: str, block, trust_path: Tuple[int, ...] = (),
             payload=None) -> CacheEntry:
         entry = CacheEntry(

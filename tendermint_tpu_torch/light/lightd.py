@@ -17,7 +17,7 @@ cache. On fork evidence (``DivergedHeaderError``) every cached entry for
 the chain is invalidated before the error surfaces: a proven attack
 poisons all memoized trust paths.
 
-Two divergences from the reference:
+Three divergences from the reference:
 
 - Verifications run one at a time. The reference allows one leader per
   height, so leaders of two cold heights run the client at once; the
@@ -32,6 +32,10 @@ Two divergences from the reference:
   as a device error or a round whose flush failed closed, propagates,
   and the RPC server answers it ``INTERNAL_ERROR``; the reference turns
   every error into ``INVALID_PARAMS``.
+- A new leader reads the cache once more after its claim. In the
+  reference a request whose miss comes just before the height's leader
+  fills the cache and leaves claims the height after it and verifies
+  it a second time.
 """
 
 from __future__ import annotations
@@ -159,6 +163,11 @@ class LightServer:
             if entry is not None:
                 return entry.payload, "hit"
         try:
+            # A leader that filled the cache between our miss and our
+            # claim has left already: serve its entry, uncounted.
+            entry = self.cache.peek(chain, h)
+            if entry is not None:
+                return entry.payload, "hit"
             entry = self._verify_and_fill(chain, h)
             return entry.payload, "miss"
         finally:

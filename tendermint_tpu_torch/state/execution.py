@@ -4,8 +4,9 @@ A copy of ``tendermint_tpu/state/execution.py``, mirroring
 internal/state/execution.go:53-420: CreateProposalBlock (reap mempool +
 evidence, ABCI PrepareProposal), ProcessProposal, ValidateBlock
 (header/state linkage + LastCommit batch verification on the card),
-ApplyBlock (FinalizeBlock -> state.Update -> Commit -> save); ExtendVote
-and VerifyVoteExtension come with consensus (ROADMAP §A item 8b).
+ApplyBlock (FinalizeBlock -> state.Update -> Commit -> save), ExtendVote
+and VerifyVoteExtension (the consensus state machine's calls). The event
+publisher is left out until the event bus (ROADMAP §A item 8e).
 ``BlockExecutor(device=)`` and
 :func:`validate_block` take the device the LastCommit is verified on
 (``validation.verify_commit``). The mempool and evidence pool are the
@@ -34,6 +35,7 @@ from tendermint_tpu_torch.types.block import (
     BlockID,
     Commit,
     ExtendedCommit,
+    Vote,
     make_block,
     tx_hash,
 )
@@ -285,6 +287,26 @@ class BlockExecutor:
             return res.retain_height
         finally:
             self.mempool.unlock()
+
+    # --- vote extensions ----------------------------------------------------
+
+    def extend_vote(self, vote: Vote) -> bytes:
+        resp = self.app.extend_vote(
+            abci.RequestExtendVote(hash=vote.block_id.hash, height=vote.height)
+        )
+        return resp.vote_extension
+
+    def verify_vote_extension(self, vote: Vote) -> None:
+        resp = self.app.verify_vote_extension(
+            abci.RequestVerifyVoteExtension(
+                hash=vote.block_id.hash,
+                validator_address=vote.validator_address,
+                height=vote.height,
+                vote_extension=vote.extension,
+            )
+        )
+        if not resp.is_accepted():
+            raise InvalidBlockError("invalid vote extension")
 
     # --- commit info builders ------------------------------------------------
 

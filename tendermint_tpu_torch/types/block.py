@@ -1,20 +1,20 @@
 """Block types: Consensus, PartSetHeader, BlockID, CommitSig, Commit,
-ExtendedCommit, Vote, Header, Data and Block.
+ExtendedCommit, Vote, Proposal, Header, Data and Block.
 
 The part of ``tendermint_tpu/types/block.py`` (types/block.go,
-types/vote.go) that commit verification, the light client, the vote set
-and block sync read: the block-ID flags, the commit signatures and
-``Commit.vote_sign_bytes`` and ``hash``, the extended commit a block
-store keeps, the ``validate_basic`` checks, the proto encodings the
-hashes and the stores read and their decoders (``from_proto_bytes``),
-``Header.hash``, ``Block`` with its hash and ``make_block``, and ``Vote``
+types/vote.go, types/proposal.go) that commit verification, the light
+client, the vote set, block sync and the consensus state machine read:
+the block-ID flags, the commit signatures and ``Commit.vote_sign_bytes``,
+``get_vote`` and ``hash``, the extended commit a block store keeps and
+its votes, the ``validate_basic`` checks, the proto encodings the hashes,
+the stores and the WAL read and their decoders (``from_proto_bytes``),
+``Header.hash``, ``Block`` with its hash and ``make_block``, ``Vote``
 with its sign-bytes, its checks and the pre-verification tag of the vote
-pre-verifier (``consensus/reactor.py``). A block that carries evidence
-raises: the evidence decoders and checks come with the evidence pool
-(ROADMAP §A item 8c). Proposals are left out. Wire
-encoding is gogoproto-compatible (ascending fields, proto3 zero
-omission, non-nullable embedded messages always written), so hashes are
-byte-exact with the reference.
+pre-verifier (``consensus/reactor.py``), and ``Proposal``. A block that
+carries evidence raises: the evidence decoders and checks come with the
+evidence pool (ROADMAP §A item 8c). Wire encoding is gogoproto-compatible
+(ascending fields, proto3 zero omission, non-nullable embedded messages
+always written), so hashes are byte-exact with the reference.
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ from tendermint_tpu_torch.crypto.keys import ADDRESS_LEN, PubKey
 from tendermint_tpu_torch.encoding.canonical import (
     SIGNED_MSG_TYPE_PRECOMMIT,
     SIGNED_MSG_TYPE_PREVOTE,
+    SIGNED_MSG_TYPE_PROPOSAL,
     Timestamp,
+    proposal_sign_bytes,
     vote_extension_sign_bytes,
     vote_sign_bytes,
 )
@@ -287,6 +289,21 @@ class Commit:
     def size(self) -> int:
         return len(self.signatures)
 
+    def get_vote(self, val_idx: int) -> "Vote":
+        """types/block.go:836-849: the precommit signature ``val_idx``
+        came from (a commit carries no extensions)."""
+        cs = self.signatures[val_idx]
+        return Vote(
+            type=SIGNED_MSG_TYPE_PRECOMMIT,
+            height=self.height,
+            round=self.round,
+            block_id=cs.block_id(self.block_id),
+            timestamp=cs.timestamp,
+            validator_address=cs.validator_address,
+            validator_index=val_idx,
+            signature=cs.signature,
+        )
+
     def vote_sign_bytes(self, chain_id: str, val_idx: int) -> bytes:
         """types/block.go:851-868: canonical sign-bytes for signature i."""
         cs = self.signatures[val_idx]
@@ -443,9 +460,35 @@ class ExtendedCommit:
             extended_signatures=[ExtendedCommitSig(s) for s in commit.signatures],
         )
 
+    def get_extended_vote(self, val_idx: int) -> "Vote":
+        """The precommit entry ``val_idx`` came from, with its extension
+        (types/block.go ExtendedCommit.GetExtendedVote)."""
+        e = self.extended_signatures[val_idx]
+        cs = e.commit_sig
+        return Vote(
+            type=SIGNED_MSG_TYPE_PRECOMMIT,
+            height=self.height,
+            round=self.round,
+            block_id=cs.block_id(self.block_id),
+            timestamp=cs.timestamp,
+            validator_address=cs.validator_address,
+            validator_index=val_idx,
+            signature=cs.signature,
+            extension=e.extension,
+            extension_signature=e.extension_signature,
+        )
+
     def ensure_extensions(self) -> None:
         for e in self.extended_signatures:
             e.ensure_extension()
+
+    def strip_extensions(self) -> bool:
+        """Drop every extension and its signature; True if any was set."""
+        stripped = any(e.extension or e.extension_signature for e in self.extended_signatures)
+        for e in self.extended_signatures:
+            e.extension = b""
+            e.extension_signature = b""
+        return stripped
 
     def to_proto_bytes(self) -> bytes:
         out = encode_varint_field(1, self.height)
@@ -546,6 +589,16 @@ class Vote:
             raise ValueError(f"invalid vote BlockID {self.block_id}")
         return CommitSig(flag, self.validator_address, self.timestamp, self.signature)
 
+    def extended_commit_sig(self) -> ExtendedCommitSig:
+        return ExtendedCommitSig(self.commit_sig(), self.extension, self.extension_signature)
+
+    def strip_extension(self) -> bool:
+        """types/vote.go StripExtension: True if there was one."""
+        stripped = bool(self.extension or self.extension_signature)
+        self.extension = b""
+        self.extension_signature = b""
+        return stripped
+
     def verify(self, chain_id: str, pub_key: PubKey) -> None:
         """types/vote.go Verify: address match + signature over sign-bytes."""
         if pub_key.address() != self.validator_address:
@@ -603,9 +656,111 @@ class Vote:
         if len(self.extension_signature) > MAX_SIGNATURE_SIZE:
             raise ValueError("vote extension signature is too big")
 
+    def to_proto_bytes(self) -> bytes:
+        out = encode_varint_field(1, self.type)
+        out += encode_varint_field(2, self.height)
+        out += encode_varint_field(3, self.round)
+        out += encode_message_field(4, self.block_id.to_proto_bytes())
+        out += _encode_time_field(5, self.timestamp)
+        out += encode_bytes_field(6, self.validator_address)
+        out += encode_varint_field(7, self.validator_index)
+        out += encode_bytes_field(8, self.signature)
+        out += encode_bytes_field(9, self.extension)
+        out += encode_bytes_field(10, self.extension_signature)
+        return out
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "Vote":
+        r = Reader(data)
+        out = cls()
+        for f, w in r.fields():
+            if f == 1 and w == 0:
+                out.type = r.read_varint()
+            elif f == 2 and w == 0:
+                out.height = r.read_svarint()
+            elif f == 3 and w == 0:
+                out.round = r.read_svarint()
+            elif f == 4 and w == 2:
+                out.block_id = BlockID.from_proto_bytes(r.read_bytes())
+            elif f == 5 and w == 2:
+                out.timestamp = _decode_time(r.read_bytes())
+            elif f == 6 and w == 2:
+                out.validator_address = r.read_bytes()
+            elif f == 7 and w == 0:
+                out.validator_index = r.read_svarint()
+            elif f == 8 and w == 2:
+                out.signature = r.read_bytes()
+            elif f == 9 and w == 2:
+                out.extension = r.read_bytes()
+            elif f == 10 and w == 2:
+                out.extension_signature = r.read_bytes()
+            else:
+                r.skip(w)
+        return out
+
 
 class VoteError(ValueError):
     pass
+
+
+@dataclass
+class Proposal:
+    """types/proposal.go: a proposed block at (height, round) with its
+    POL round."""
+
+    type: int = SIGNED_MSG_TYPE_PROPOSAL
+    height: int = 0
+    round: int = 0
+    pol_round: int = -1
+    block_id: BlockID = dc_field(default_factory=BlockID)
+    timestamp: Timestamp = GO_ZERO_TIME
+    signature: bytes = b""
+
+    def sign_bytes(self, chain_id: str) -> bytes:
+        return proposal_sign_bytes(
+            chain_id,
+            self.height,
+            self.round,
+            self.pol_round,
+            self.block_id.hash,
+            self.block_id.part_set_header.total,
+            self.block_id.part_set_header.hash,
+            self.timestamp,
+        )
+
+    def to_proto_bytes(self) -> bytes:
+        out = encode_varint_field(1, self.type)
+        out += encode_varint_field(2, self.height)
+        out += encode_varint_field(3, self.round)
+        # int32 pol_round: -1 is a ten-byte two's-complement varint
+        out += encode_varint_field(4, self.pol_round)
+        out += encode_message_field(5, self.block_id.to_proto_bytes())
+        out += _encode_time_field(6, self.timestamp)
+        out += encode_bytes_field(7, self.signature)
+        return out
+
+    @classmethod
+    def from_proto_bytes(cls, data: bytes) -> "Proposal":
+        r = Reader(data)
+        out = cls()
+        for f, w in r.fields():
+            if f == 1 and w == 0:
+                out.type = r.read_varint()
+            elif f == 2 and w == 0:
+                out.height = r.read_svarint()
+            elif f == 3 and w == 0:
+                out.round = r.read_svarint()
+            elif f == 4 and w == 0:
+                out.pol_round = r.read_svarint()
+            elif f == 5 and w == 2:
+                out.block_id = BlockID.from_proto_bytes(r.read_bytes())
+            elif f == 6 and w == 2:
+                out.timestamp = _decode_time(r.read_bytes())
+            elif f == 7 and w == 2:
+                out.signature = r.read_bytes()
+            else:
+                r.skip(w)
+        return out
 
 
 # Header fields 6-14, the hashes and the proposer address, in field order.

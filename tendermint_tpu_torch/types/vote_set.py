@@ -9,9 +9,9 @@ different threads).
 
 A vote the pre-verifier (``consensus/reactor.py``) tagged skips the
 inline signature check in ``add_vote``: ``Vote.verify`` honours the tag
-only for the exact key and sign-bytes it was issued for. ``make_commit``
-builds the plain commit directly; ``make_extended_commit`` and
-``vote_set_from_commit`` are not part of the port yet.
+only for the exact key and sign-bytes it was issued for. The consensus
+state machine reads ``make_extended_commit`` (the seen commit it stores)
+and ``vote_set_from_commit`` (its last commit after a restart).
 """
 
 from __future__ import annotations
@@ -21,7 +21,13 @@ from typing import Dict, List, Optional, Tuple
 
 from tendermint_tpu_torch.encoding.canonical import SIGNED_MSG_TYPE_PRECOMMIT
 from tendermint_tpu_torch.libs.bits import BitArray
-from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, Vote
+from tendermint_tpu_torch.types.block import (
+    BlockID,
+    Commit,
+    ExtendedCommit,
+    ExtendedCommitSig,
+    Vote,
+)
 from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
 
@@ -275,22 +281,40 @@ class VoteSet:
 
     # --- commit construction ------------------------------------------------
 
-    def make_commit(self) -> Commit:
-        """The plain commit of the +2/3 block (types/vote_set.go:658-690,
-        without the extensions): absent for a validator with no vote or a
-        vote for another block."""
+    def make_extended_commit(self) -> ExtendedCommit:
+        """types/vote_set.go:658-690: absent for a validator with no vote
+        or a vote for another block."""
         if self.signed_msg_type != SIGNED_MSG_TYPE_PRECOMMIT:
             raise VoteSetError("cannot MakeExtendedCommit unless VoteSet.Type is Precommit")
         with self._mtx:
             if self.maj23 is None:
                 raise VoteSetError("cannot MakeExtendedCommit unless a blockhash has +2/3")
-            sigs: List[CommitSig] = []
+            sigs: List[ExtendedCommitSig] = []
             for v in self.votes:
                 if v is None:
-                    sigs.append(CommitSig())
+                    sigs.append(ExtendedCommitSig())
                     continue
-                sig = v.commit_sig()
-                if sig.is_commit() and v.block_id != self.maj23:
-                    sig = CommitSig()
+                sig = v.extended_commit_sig()
+                if sig.commit_sig.is_commit() and v.block_id != self.maj23:
+                    sig = ExtendedCommitSig()
                 sigs.append(sig)
-            return Commit(height=self.height, round=self.round, block_id=self.maj23, signatures=sigs)
+            return ExtendedCommit(
+                height=self.height, round=self.round, block_id=self.maj23, extended_signatures=sigs
+            )
+
+    def make_commit(self) -> Commit:
+        """The plain commit (a network without extensions)."""
+        return self.make_extended_commit().to_commit()
+
+
+def vote_set_from_commit(chain_id: str, commit: Commit, val_set: ValidatorSet) -> VoteSet:
+    """The precommit VoteSet a commit came from (types/vote_set.go
+    CommitToVoteSet): the restart path's reconstructLastCommit. Each
+    signature is checked inline on the host, as in the reference."""
+    vs = VoteSet(chain_id, commit.height, commit.round, SIGNED_MSG_TYPE_PRECOMMIT, val_set)
+    for idx, cs in enumerate(commit.signatures):
+        if cs.is_absent():
+            continue
+        if not vs.add_vote(commit.get_vote(idx)):
+            raise VoteSetError(f"failed to reconstruct commit vote {idx}")
+    return vs

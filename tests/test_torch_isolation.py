@@ -282,3 +282,30 @@ def test_the_verify_service_modules_are_checked_and_default_to_cuda(no_cuda):
         with open(os.path.join(PKG, rel)) as fh:
             src = fh.read()
         assert "os.environ" not in src and "getenv" not in src, rel
+
+
+def test_the_consensus_modules_are_checked_and_default_to_cuda(no_cuda):
+    """The state machine, its WAL, ticker, replay and signer stand alone
+    too and read no environment knob; the state machine takes no device
+    of its own, and the executor under it raises without CUDA."""
+    from tendermint_tpu_torch.state import StateStore
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.storage.blockstore import BlockStore
+    from tendermint_tpu_torch.storage.kv import MemDB
+
+    mods = _port_modules()
+    for mod in ("consensus.state", "consensus.cstypes", "consensus.wal", "consensus.ticker", "consensus.replay",
+                "privval", "privval.base", "privval.file_pv", "libs.autofile"):
+        assert f"tendermint_tpu_torch.{mod}" in mods
+    for rel in ("consensus/state.py", "consensus/cstypes.py", "consensus/wal.py", "consensus/ticker.py",
+                "consensus/replay.py", "privval/file_pv.py", "libs/autofile.py"):
+        with open(os.path.join(PKG, rel)) as fh:
+            src = fh.read()
+        assert "os.environ" not in src and "getenv" not in src, rel
+    import inspect
+
+    from tendermint_tpu_torch.consensus.state import ConsensusState
+
+    assert "device" not in inspect.signature(ConsensusState).parameters
+    with pytest.raises(RuntimeError, match="cuda"):
+        BlockExecutor(StateStore(MemDB()), None, BlockStore(MemDB()))

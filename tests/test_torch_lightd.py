@@ -312,6 +312,52 @@ def test_concurrent_requests_stress(port, servers):
     assert srv.cache.stats()["entries"] == 11
 
 
+def _leader_fills_between_miss_and_claim(srv, height):
+    """One request misses ``height`` in the cache; before it claims the
+    height, a second request leads, verifies, fills the cache and
+    leaves. Returns the first request's answer and the heights the
+    client verified."""
+    calls = []
+    inner = srv.client.verify_light_block_at_height
+
+    def counting(h, now=None):
+        calls.append(h)
+        return inner(h, now)
+
+    srv.client.verify_light_block_at_height = counting
+    real_get, first = srv.cache.get, []
+
+    def get(chain_id, h, header_hash=None):
+        entry = real_get(chain_id, h, header_hash)
+        if not first:
+            first.append(h)
+            srv.light_header(height=h)  # the leader, start to end
+        return entry
+
+    srv.cache.get = get
+    got = srv.light_header(height=height)
+    return got, calls
+
+
+def test_a_leader_that_left_before_the_claim_is_not_repeated(port, servers):
+    """The port's new leader reads the cache once more after its claim:
+    the height is verified once, and the cache counts two misses."""
+    blocks, _, _ = build_light_chain(6)
+    srv = servers(LightServer(tclient(blocks)))
+    got, calls = _leader_fills_between_miss_and_claim(srv, 6)
+    assert got["hash"] == blocks[5].hash().hex().upper() and calls == [6]
+    assert (srv.cache.stats()["hits"], srv.cache.stats()["misses"]) == (0, 2)
+
+
+def test_a_leader_that_left_before_the_claim_is_repeated_on_the_reference(servers):
+    """The JAX server claims the height after its leader has filled the
+    cache and left, and verifies it a second time."""
+    blocks, _, _ = build_light_chain(6)
+    srv = servers(JLightServer(jclient(blocks), evloop=False))
+    got, calls = _leader_fills_between_miss_and_claim(srv, 6)
+    assert got["hash"] == blocks[5].hash().hex().upper() and calls == [6, 6]
+
+
 class HeldProvider:
     """A provider whose fetch of one height waits until it is released."""
 

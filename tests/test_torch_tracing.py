@@ -36,7 +36,7 @@ from tendermint_tpu.ops import precompute as jpc
 from tendermint_tpu.types import validation as jval
 from tendermint_tpu_torch.crypto import scheduler as tscheduler
 from tendermint_tpu_torch.libs import tracing
-from tendermint_tpu_torch.libs.metrics import OpsMetrics, Registry
+from tendermint_tpu_torch.libs.metrics import ConsensusMetrics, OpsMetrics, Registry
 from tendermint_tpu_torch.ops import ed25519_batch as teb, precompute as tpc
 from tendermint_tpu_torch.types import carry, validation as tval
 from tests import helpers
@@ -349,8 +349,15 @@ def test_metrics_observer_feeds_the_stage_histogram_and_refuses_consensus():
     obs("verify_batch", {"engine": "ed25519"}, 0.003)  # no stage: not observed
     assert 'tendermint_ops_verify_stage_seconds_count{engine="ed25519",stage="prep"} 1' in reg.expose()
     assert ops.verify_stage_seconds.count(stage="prep", engine="ed25519") == 1
-    with pytest.raises(NotImplementedError):
-        tracing.metrics_observer(ops=ops, consensus=object())
+    # the consensus half, once refused, is ported: spans tagged "step"
+    # feed the step histogram, as in the JAX package
+    cons = ConsensusMetrics(reg)
+    obs = tracing.metrics_observer(ops=ops, consensus=cons)
+    obs("prevote", {"step": "prevote", "height": 1}, 0.002)
+    obs("prep_chunk", {"stage": "prep", "engine": "ed25519"}, 0.001)
+    assert cons.step_duration_seconds.count(step="prevote") == 1
+    assert ops.verify_stage_seconds.count(stage="prep", engine="ed25519") == 2
+    assert 'tendermint_consensus_step_duration_seconds_count{step="prevote"} 1' in reg.expose()
 
 
 def test_file_mode_flush_writes_chrome_trace(tmp_path):
