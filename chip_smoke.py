@@ -182,27 +182,51 @@ and, in order:
    validators of power 10 on the kvstore app, Tendermint's default
    timeouts, vote extensions from height 1, 200 kvstore txs a block. The
    node under test (a ``FilePV`` and a ``WAL`` in a temporary directory,
-   ``MemDB`` stores, ``LocalClient`` over ``KVStoreApplication``,
+   ``MemDB`` stores, ``LocalClient`` over ``KVStoreApplication``, a
+   ``TxMempool`` a client thread feeds each height's txs at the block
+   rate, with a repeat and a tx the app refuses, an ``EvidencePool``,
    ``BlockExecutor(device=)``, ``ConsensusState`` behind a
-   ``VotePreverifier``) proposes height 2; a harness plays the other 149
-   as honest, reactive peers: it proposes their rounds from the node's
-   committed state, answers each of the node's votes with 134 votes of
-   the same type and block (signed in a spawn pool of its own, submitted
-   through the pre-verifier over 100 ms in a seeded order, precommits
-   with the app's extension), leaves 15 validators silent, sends a
+   ``VotePreverifier``) proposes height 2 from its mempool; a harness
+   plays the other 149 as honest, reactive peers: it proposes their
+   rounds from the node's committed state, answers each of the node's
+   votes with 134 votes of the same type and block (signed in a spawn
+   pool of its own, submitted through the pre-verifier over 100 ms in a
+   seeded order, precommits with the app's extension), leaves 15
+   validators silent, sends a
    corrupted precommit every height, and withholds the proposal of
-   height 9's round 0, which then commits in round 1. 16 heights, a
-   restart from the stores, the WAL and the ``FilePV`` with the caches
-   emptied (the ``Handshaker`` replaying the blocks to a fresh app), and
-   2 more. Checked: the commit rounds, every stored commit on the card,
+   height 9's round 0, which then commits in round 1. One validator
+   sends two prevotes at height 4: the node's pool builds and verifies
+   that evidence through the shared scheduler once 4 commits, and height
+   5's proposal carries it; height 6's carries an equivocation at 5 the
+   node never saw (``check_evidence`` verifies it); a round-0 proposal
+   from height 10 on repeats the committed evidence and draws a nil
+   prevote. 16 heights, a restart from the stores, the WAL and the
+   ``FilePV`` with the caches emptied (the ``Handshaker`` replaying the
+   blocks to a fresh app), and 2 more. Checked: the commit rounds, the
+   mempool's answers, the evidence carried, verified once each,
+   committed and given to FinalizeBlock, every stored commit on the card,
    a fresh executor replaying the chain to the same app and validator
    hashes, no corrupted precommit in a vote set or a commit, the WAL's
    end-height markers, no second signature at an (height, round, step),
    the device tier and K3 or K1 after the restart. It prints per height
    the commit round, the decision time and the launches and tiers, and
    the block interval, the finalize split, the vote latencies, the
-   pre-verifier's and the scheduler's counts, the step durations and the
-   harness's signing seconds;
+   pre-verifier's and the scheduler's counts, the step durations, the
+   harness's signing seconds, the client's check_tx latency and the
+   pool's verify times;
+16. evidence and the mempool: 16a, phase 11d's light client attack into
+   fresh ``EvidencePool``s over stores filled from phase 11's honest
+   light blocks (5 runs, the verdict cache emptied, 1,000-validator lanes
+   on K3 or K1; K4 declines their chunks, whose sign-bytes have two
+   lengths; three tampered copies refused; a second node's
+   pool passes a block carrying it); 16b, validators of just over 1/3 of
+   the power of phase 14's chain double-sign a precommit, their
+   evidence delivered to one pool from 8 threads (one more with a bad
+   signature, refused), then all of it in one block through a fresh
+   node's ``validate_block``; 16c, a ``TxMempool`` with the reference's
+   defaults filled with 5,000 45-byte kvstore txs from 4 threads, reaped
+   at the default block max_bytes, updated with 2,000 and the other
+   3,000 rechecked (no launch);
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -221,7 +245,8 @@ phase 4b (K1-K4), and again around each of phases 5 (K5, and the
 ed25519 kernels of the mixed commit), 5c, 7, 8, 9, 10, 11, 12, 13 (whose
 count is that of the served requests only: each sub-phase's deltas around
 what a server answered, without the in-process references, plus the
-daemon's own of 13e), 14 and 15. After each of these the health machine
+daemon's own of 13e), 14 and 15, and around 16a-c together. After each
+of these the health machine
 must show no host fallback, no transition and the healthy state (in
 phase 13 after 13b, and after 13c has reset it). Each phase prints one JSON line; then the kernel table,
 the card's ``nvidia-smi`` name and power limit, and last
@@ -357,7 +382,15 @@ NODE_MAX_STEPS = 20_000
 # CONSENSUS_SILENT by index silent, one sending a corrupted precommit
 # every height, and the proposer of CONSENSUS_NIL_HEIGHT's round 0
 # withholding its proposal. CONSENSUS_HEIGHTS heights, a restart, then
-# CONSENSUS_RESTART_HEIGHTS more. Cut from an open-ended chain.
+# CONSENSUS_RESTART_HEIGHTS more. Cut from an open-ended chain. The node
+# runs a TxMempool (a client thread submits each height's txs, one
+# repeat and one the app refuses) and an EvidencePool: a harness
+# validator sends two prevotes at CONSENSUS_EQUIVOCATION_HEIGHT and the
+# next height's proposal carries the evidence, made as the node's pool
+# makes it; the proposal of CONSENSUS_UNSEEN_HEIGHT carries an
+# equivocation at the height before that the node never saw; the first
+# height from CONSENSUS_REPEAT_FROM whose rounds 0 and 1 a harness
+# validator proposes repeats the committed evidence in round 0.
 CONSENSUS_VALIDATORS = 150
 CONSENSUS_SILENT = 15
 CONSENSUS_HEIGHTS = 16
@@ -369,6 +402,28 @@ CONSENSUS_SPREAD_S = ROUND_SPREAD_S  # a step's votes arrive over this, as in 9b
 CONSENSUS_SIGNERS = 4  # the harness's spawn pool
 CONSENSUS_TIMEOUTS = None  # a TimeoutParams, or None for the defaults
 CONSENSUS_HEIGHT_WAIT_S = 120.0  # the longest a height may take
+CONSENSUS_EQUIVOCATION_HEIGHT = 4
+CONSENSUS_UNSEEN_HEIGHT = 6
+CONSENSUS_REPEAT_FROM = 10
+
+# Phases 16a-c: evidence and the mempool. 16a (BASELINE config 3): phase
+# 11d's light client attack into fresh pools over stores filled from
+# phase 11's honest light blocks, ATTACK_REPS times, then three tampered
+# copies and a second node's pool. 16b (config 4): validators holding
+# just over 1/3 of the power of phase 14's chain double-sign a precommit
+# at EQUIVOCATION_HEIGHT; their evidence (and one with a bad signature)
+# reaches one pool from EQUIVOCATION_THREADS threads, then all of it one
+# block through a fresh node's validate_block. 16c: the reference's
+# mempool defaults filled with MEMPOOL_TXS of phase 14's 45-byte kvstore
+# txs from MEMPOOL_THREADS threads, reaped at BlockParams' max_bytes, and
+# updated with MEMPOOL_COMMITTED of them (the rest rechecked).
+ATTACK_REPS = 5
+EQUIVOCATION_HEIGHT = NODE_SYNC_TO - 4
+EQUIVOCATION_THREADS = 8
+MEMPOOL_TXS = 5000
+MEMPOOL_THREADS = 4
+MEMPOOL_COMMITTED = 2000
+MEMPOOL_REAP_BYTES = 22_020_096
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -961,8 +1016,9 @@ def node_chain_workload(rng, signer):
     AppHash, committed by the same signers, and the next block carrying
     that commit, so the pair passes the window and only
     ``validate_block`` can refuse it. Returns the genesis JSON, the
-    source's executor, its state at NODE_SYNC_TO, the changed validators
-    and the fork's blocks as proto bytes by height."""
+    source's executor, its state at NODE_SYNC_TO, the changed validators,
+    the fork's blocks as proto bytes by height and the private keys by
+    address."""
     import base64
 
     from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
@@ -1036,7 +1092,43 @@ def node_chain_workload(rng, signer):
         ec = ExtendedCommit.wrap_commit(commit)
         if h == NODE_SYNC_TO:
             state_at = state
-    return genesis_json, executor, state_at, changed, fork
+    return genesis_json, executor, state_at, changed, fork, priv_of
+
+
+def equivocation_workload(rng, signer, source):
+    """Phase 16b's votes, signed in the pool: at EQUIVOCATION_HEIGHT of
+    phase 14's source chain, validators in a seeded order until their
+    power passes a third of the set's, each with a precommit for the
+    height's block and one for another block; and one more validator's
+    pair whose second signature is corrupted. Returns the height, the
+    pairs, the bad pair and the equivocators' power."""
+    from tendermint_tpu_torch.encoding.canonical import SIGNED_MSG_TYPE_PRECOMMIT, Timestamp
+    from tendermint_tpu_torch.types.block import BlockID, PartSetHeader, Vote
+
+    _, src_exec, _, _, _, priv_of = source
+    h = EQUIVOCATION_HEIGHT
+    vset = src_exec.state_store.load_validators(h)
+    meta = src_exec.block_store.load_block_meta(h)
+    order = [int(i) for i in rng.permutation(len(vset))]
+    chosen, power = [], 0
+    while 3 * power <= vset.total_voting_power():
+        chosen.append(order[len(chosen)])
+        power += vset.validators[chosen[-1]].voting_power
+    pairs = []
+    for k, i in enumerate(chosen + [order[len(chosen)]]):
+        other = BlockID(hashlib.sha256(b"equivocation %d" % i).digest(),
+                        PartSetHeader(1, hashlib.sha256(b"equivocation parts %d" % i).digest()))
+        ts = Timestamp.from_unix_ns(meta.header.time.to_unix_ns() + 1 + k)
+        pairs.append([Vote(type=SIGNED_MSG_TYPE_PRECOMMIT, height=h, round=0, block_id=bid, timestamp=ts,
+                           validator_address=vset.validators[i].address, validator_index=i)
+                      for bid in (meta.block_id, other)])
+    votes = [v for pair in pairs for v in pair]
+    sigs = signer.sign([priv_of[v.validator_address] for v in votes], [v.sign_bytes(CHAIN_ID) for v in votes])
+    for v, sig in zip(votes, sigs):
+        v.signature = sig
+    bad = pairs.pop()
+    bad[1].signature = bad[1].signature[:40] + bytes([bad[1].signature[40] ^ 1]) + bad[1].signature[41:]
+    return h, pairs, bad, power
 
 
 def round_workload(rng, signer):
@@ -2492,7 +2584,8 @@ def phase_lightd(workload, dev):
     bad signature on 16; 11c serves ``light_header`` over HTTP (a cold
     miss, hits, a herd on a cold height, bad parameters, status,
     metrics); 11d gives a witness a conflicting 16. Returns the phase's
-    launch counts (which start at 0)."""
+    launch counts (which start at 0) and 11d's light client attack
+    evidence."""
     import urllib.request
 
     from tendermint_tpu_torch.crypto import batch as crypto_batch
@@ -2758,7 +2851,7 @@ def phase_lightd(workload, dev):
     counts = launches()
     check(counts.get("verify_resident", 0) > 0, f"phase 11: K3 never launched: {counts}")
     precompute.reset()
-    return counts
+    return counts, evidence
 
 
 # --- phase 6 -------------------------------------------------------------------
@@ -3918,7 +4011,7 @@ def verifyd_daemon(light, dev):
     t_start = time.perf_counter()
     with open(err_path, "w") as err:
         # the daemon's default device is CUDA; a CPU rehearsal names its own
-        argv = [sys.executable, "-m", "tendermint_tpu_torch", "verifyd", "--port", "0",
+        argv = [sys.executable, "-m", "tendermint_tpu_torch", "verifyd", "--listen", "127.0.0.1:0",
                 "--metrics", "127.0.0.1:0"] + ([] if dev.type == "cuda" else ["--device", dev.type])
         proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
     lines = queue.Queue()
@@ -4218,7 +4311,7 @@ def phase_node_blocksync(source, dev):
     from tendermint_tpu_torch.ops import precompute, resident
     from tendermint_tpu_torch.types.block import Block
 
-    genesis_json, src_exec, src_state, changed, fork = source
+    genesis_json, src_exec, src_state, changed, fork, _ = source
     vals_before = src_exec.state_store.load_validators(NODE_CHANGE_HEIGHT)
     vals_after = src_exec.state_store.load_validators(NODE_CHANGE_HEIGHT + 2)
     check(vals_before.hash() != vals_after.hash() and len(vals_after) == NODE_VALIDATORS,
@@ -4312,21 +4405,55 @@ def phase_node_blocksync(source, dev):
 # --- phase 15 ------------------------------------------------------------------
 
 
-class ConsensusTxs(_TxSource):
-    """The mempool stand-in of phase 15's node: it hands
-    ``reap_max_bytes_max_gas`` the seeded txs of the height it proposes,
-    the height after the last ``update``."""
+class TxClient:
+    """Phase 15's client: a thread that submits a height's seeded txs
+    through the node's ``TxMempool.check_tx`` when the height before it
+    commits (the block rate), then the height's first tx again and one
+    tx the kvstore app refuses (not UTF-8). Every answer is kept."""
 
-    def __init__(self, by_height, next_height=1):
-        super().__init__(None)
-        self.by_height = by_height
-        self.next_height = next_height
+    def __init__(self, txs):
+        self.txs = txs
+        self.queue = queue.Queue()
+        self.accepted, self.failed = {}, []  # h -> txs taken; what was not answered as expected
+        self.repeats_refused = self.app_refused = 0
+        self.latency = []  # seconds a check_tx took
+        self.thread = threading.Thread(target=self._run, name="tx-client", daemon=True)
+        self.thread.start()
 
-    def reap_max_bytes_max_gas(self, max_bytes, max_gas):
-        return self.by_height[self.next_height]
+    def submit(self, mempool, height):
+        self.queue.put((mempool, height))
 
-    def update(self, height, *args, **kwargs):
-        self.next_height = height + 1
+    def stop(self):
+        self.queue.put(None)
+        self.thread.join(timeout=30)
+
+    def _run(self):
+        while True:
+            item = self.queue.get()
+            if item is None:
+                return
+            mempool, h = item
+            try:
+                for tx in self.txs[h]:
+                    t = time.perf_counter()
+                    res = mempool.check_tx(tx)
+                    self.latency.append(time.perf_counter() - t)
+                    if res.is_ok():
+                        self.accepted[h] = self.accepted.get(h, 0) + 1
+                    else:
+                        self.failed.append((h, "refused", res.code))
+                try:
+                    mempool.check_tx(self.txs[h][0])
+                    self.failed.append((h, "repeat taken"))
+                except KeyError:
+                    self.repeats_refused += 1
+                res = mempool.check_tx(b"\xff\xfe refused at %d" % h)
+                if res.is_ok():
+                    self.failed.append((h, "bad tx taken"))
+                else:
+                    self.app_refused += 1
+            except Exception as exc:  # failed by the phase
+                self.failed.append((h, repr(exc)))
 
 
 class ConsensusHarness:
@@ -4345,9 +4472,18 @@ class ConsensusHarness:
     ``VotePreverifier`` spread over ``spread`` seconds in a seeded order,
     beside a copy of one validator's precommit with a corrupted
     signature. The proposer of (``nil_height``, 0) withholds its
-    proposal. It never calls the node's executor."""
+    proposal. Evidence (``heights``: equivocation, unseen, repeat): at
+    the equivocation height one validator adds a prevote for another
+    block, and the next height's proposal carries that pair's
+    ``DuplicateVoteEvidence``, stamped with the node's last block time
+    as the node's pool stamps it; the unseen height's proposal carries a
+    pair the harness signs at the height before and never sends; the
+    repeat height's round-0 proposal carries the first evidence again.
+    On each commit it has ``client`` submit the next height's txs to the
+    node's mempool. It never calls the node's executor."""
 
-    def __init__(self, genesis, privs, node_addr, silent, nil_height, txs, pool, spread, rng):
+    def __init__(self, genesis, privs, node_addr, silent, nil_height, txs, pool, spread, rng,
+                 heights=None, client=None, last=None):
         from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
         from tendermint_tpu_torch.state import state_from_genesis
 
@@ -4357,6 +4493,11 @@ class ConsensusHarness:
         self.active = [i for i, v in enumerate(self.vset.validators)
                        if v.address != node_addr and v.address not in silent]
         self.bad_index = self.active[0]
+        self.equivocator, self.unseen_equivocator = self.active[1], self.active[2]
+        self.heights = heights or {}
+        self.client, self.last = client, last
+        self.seen_pair = self.seen_evidence = self.unseen_evidence = None
+        self.misbehavior = {}  # h -> the FinalizeBlock request's misbehavior
         self.nil_height = nil_height
         self.txs = txs
         self.pool = pool
@@ -4410,6 +4551,8 @@ class ConsensusHarness:
 
     def on_committed(self, height):
         node = self.node
+        if self.client is not None and height + 1 <= self.last and height != CONSENSUS_HEIGHTS:
+            self.client.submit(node.block_exec.mempool, height + 1)
         seen = node.block_store.load_seen_commit()
         bad = node.rs.last_commit.get_by_index(self.bad_index)
         self.committed[height] = {"round": seen.round, "t": time.perf_counter(),
@@ -4477,7 +4620,7 @@ class ConsensusHarness:
             self.withheld.append((height, round_))
             return
         last_commit = self._last_commit(height - 1, state) if height > state.initial_height else Commit()
-        block = make_block(height, self.txs[height], last_commit)
+        block = make_block(height, self.txs[height], last_commit, self._evidence(height, round_, state))
         h = block.header
         h.version, h.chain_id = state.version, state.chain_id
         h.time = Timestamp.from_unix_ns(time.time_ns())
@@ -4495,6 +4638,45 @@ class ConsensusHarness:
         self.node.add_proposal_from_peer(proposal, peer)
         for i in range(parts.total):
             self.node.add_block_part_from_peer(height, round_, parts.get_part(i), peer)
+
+    def _evidence(self, height, round_, state):
+        """The evidence of the proposal of (``height``, ``round_``)."""
+        from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+        hs = self.heights
+        if height == hs.get("equivocation", -1) + 1:
+            if self.seen_evidence is None:
+                vset = self.node.block_exec.state_store.load_validators(height - 1)
+                self.seen_evidence = DuplicateVoteEvidence.new(*self.seen_pair, state.last_block_time, vset)
+            return [self.seen_evidence]
+        if height == hs.get("unseen"):
+            if self.unseen_evidence is None:
+                self.unseen_evidence = self._unseen(height - 1, state)
+            return [self.unseen_evidence]
+        if height == hs.get("repeat") and round_ == 0:
+            return [self.seen_evidence]
+        return []
+
+    def _unseen(self, height, state):
+        """A pair of prevotes of the unseen equivocator at ``height``
+        (committed): one for the block, one for another; signed here."""
+        from tendermint_tpu_torch.crypto import ed25519_ref
+        from tendermint_tpu_torch.encoding.canonical import SIGNED_MSG_TYPE_PREVOTE, Timestamp
+        from tendermint_tpu_torch.types.block import BlockID, PartSetHeader, Vote
+        from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+        i = self.unseen_equivocator
+        addr = self.vset.validators[i].address
+        real = self.node.block_store.load_block_meta(height).block_id
+        other = BlockID(hashlib.sha256(b"unseen %d" % height).digest(),
+                        PartSetHeader(1, hashlib.sha256(b"unseen parts").digest()))
+        ts = Timestamp.from_unix_ns(time.time_ns())
+        votes = [Vote(type=SIGNED_MSG_TYPE_PREVOTE, height=height, round=0, block_id=bid, timestamp=ts,
+                      validator_address=addr, validator_index=i) for bid in (real, other)]
+        for v in votes:
+            v.signature = ed25519_ref.sign(self.privs[addr], v.sign_bytes(state.chain_id))
+        vset = self.node.block_exec.state_store.load_validators(height)
+        return DuplicateVoteEvidence.new(*votes, state.last_block_time, vset)
 
     def _last_commit(self, height, state):
         """Height ``height``'s commit for the next block: the precommits
@@ -4516,7 +4698,11 @@ class ConsensusHarness:
 
     def _answer(self, vote):
         from tendermint_tpu_torch.abci import types as abci
-        from tendermint_tpu_torch.encoding.canonical import SIGNED_MSG_TYPE_PRECOMMIT, Timestamp
+        from tendermint_tpu_torch.encoding.canonical import (
+            SIGNED_MSG_TYPE_PRECOMMIT,
+            SIGNED_MSG_TYPE_PREVOTE,
+            Timestamp,
+        )
         from tendermint_tpu_torch.types.block import Vote
 
         key = (vote.type, vote.height, vote.round)
@@ -4545,6 +4731,18 @@ class ConsensusHarness:
             if extend:
                 v.extension_signature = sigs[n + i]
         deliveries = list(votes)
+        if (vote.type == SIGNED_MSG_TYPE_PREVOTE and vote.height == self.heights.get("equivocation")
+                and self.seen_pair is None):
+            from tendermint_tpu_torch.crypto import ed25519_ref
+            from tendermint_tpu_torch.types.block import BlockID, PartSetHeader
+
+            honest = votes[self.active.index(self.equivocator)]
+            other = copy.copy(honest)
+            other.block_id = BlockID(hashlib.sha256(b"the other block").digest(),
+                                     PartSetHeader(1, hashlib.sha256(b"the other parts").digest()))
+            other.signature = ed25519_ref.sign(self.privs[other.validator_address], other.sign_bytes(chain_id))
+            self.seen_pair = (honest, other)
+            deliveries.append(other)
         if vote.type == SIGNED_MSG_TYPE_PRECOMMIT:
             bad = copy.copy(votes[0])  # the validator of self.bad_index
             bad.signature = bad.signature[:40] + bytes([bad.signature[40] ^ 1]) + bad.signature[41:]
@@ -4570,20 +4768,27 @@ class ConsensusHarness:
 
 def consensus_node(genesis, home, txs, dev, harness, metrics, clock, stores=None):
     """Phase 15's node, assembled as a node assembles it: the ``FilePV``
-    and the ``WAL`` under ``home``, ``MemDB`` stores, ``LocalClient``
-    over a fresh ``KVStoreApplication`` and ``BlockExecutor(device=dev)``,
-    then ``ConsensusState`` with the harness as its broadcaster. A fresh
-    node runs InitChain; a restarted one (``stores`` given) runs the
-    ``Handshaker``, which replays the stored blocks to the fresh app.
-    ``clock`` times the node's stages, each on the node's own objects.
-    Returns the node, its pre-verifier (started and warm), the warm-up's
-    launches and the blocks the handshake replayed."""
+    and the ``WAL`` under ``home``, ``MemDB`` stores (block, state and
+    evidence), ``LocalClient`` over a fresh ``KVStoreApplication``, a
+    ``TxMempool`` over that client with the reference's defaults, an
+    ``EvidencePool(device=dev)`` over the stores and
+    ``BlockExecutor(device=dev)``, then ``ConsensusState`` with the
+    harness as its broadcaster. A fresh node runs InitChain; a restarted
+    one (``stores`` given) runs the ``Handshaker``, which replays the
+    stored blocks to the fresh app, and starts with an empty mempool.
+    ``clock`` times the node's stages, each on the node's own objects;
+    the harness keeps each FinalizeBlock's misbehavior. Returns the
+    node, its pre-verifier (started and warm), the warm-up's launches
+    and the blocks the handshake replayed."""
     from tendermint_tpu_torch.abci import types as abci
     from tendermint_tpu_torch.abci.client import LocalClient
     from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
     from tendermint_tpu_torch.consensus.replay import Handshaker
     from tendermint_tpu_torch.consensus.state import ConsensusState
     from tendermint_tpu_torch.consensus.wal import WAL
+    from tendermint_tpu_torch.evidence import EvidencePool
+    from tendermint_tpu_torch.libs.metrics import MempoolMetrics, Registry
+    from tendermint_tpu_torch.mempool import MempoolConfig, TxMempool
     from tendermint_tpu_torch.privval import FilePV
     from tendermint_tpu_torch.state import StateStore, state_from_genesis
     from tendermint_tpu_torch.state.execution import BlockExecutor
@@ -4596,18 +4801,38 @@ def consensus_node(genesis, home, txs, dev, harness, metrics, clock, stores=None
         state = state_from_genesis(genesis)
         state.app_hash = client.init_chain(
             abci.RequestInitChain(chain_id=genesis.chain_id, initial_height=genesis.initial_height)).app_hash
-        state_store, block_store = StateStore(MemDB()), BlockStore(MemDB())
+        state_store, block_store, evidence_db = StateStore(MemDB()), BlockStore(MemDB()), MemDB()
         state_store.save(state)
         replayed = 0
     else:
-        state_store, block_store = stores
+        state_store, block_store, evidence_db = stores
         state = state_store.load()
-    executor = BlockExecutor(state_store, client, block_store,
-                             mempool=ConsensusTxs(txs, state.last_block_height + 1), device=dev)
+    mempool = TxMempool(MempoolConfig(), client, height=state.last_block_height,
+                        metrics=MempoolMetrics(Registry()))
+    evidence_pool = EvidencePool(evidence_db, state_store, block_store, device=dev)
+    executor = BlockExecutor(state_store, client, block_store, mempool=mempool, evidence_pool=evidence_pool,
+                             device=dev)
     if stores is not None:
         handshaker = Handshaker(state_store, block_store, executor, genesis)
         state = handshaker.handshake(client, state)
         replayed = handshaker.n_blocks_replayed
+    evidence_pool.set_state(state)
+    evidence_pool.verified = []  # (hash, seconds) of each item the pool verified
+    real_verify = evidence_pool.verify
+
+    def verify(ev):
+        t = time.perf_counter()
+        real_verify(ev)
+        evidence_pool.verified.append((ev.hash(), time.perf_counter() - t))
+
+    evidence_pool.verify = verify
+    real_finalize = client.finalize_block
+
+    def finalize(req):
+        harness.misbehavior[req.height] = list(req.misbehavior)
+        return real_finalize(req)
+
+    client.finalize_block = finalize
     pv = FilePV.load(os.path.join(home, "priv_validator_key.json"), os.path.join(home, "priv_validator_state.json"))
     node = ConsensusState(state, executor, block_store, priv_validator=pv, wal=WAL(os.path.join(home, "cs.wal")),
                           broadcaster=harness, on_committed=harness.on_committed, metrics=metrics)
@@ -4621,6 +4846,43 @@ def consensus_node(genesis, home, txs, dev, harness, metrics, clock, stores=None
     preverifier, warm_launches = start_preverifier(node)
     harness.attach(node, preverifier)
     return node, preverifier, warm_launches, replayed
+
+
+def check_consensus_evidence(node, node2, harness, client, block_store, txs, heights, total):
+    """Phase 15's mempool and evidence checks (see ``phase_consensus``);
+    returns the evidence's numbers."""
+    from tendermint_tpu_torch.encoding.canonical import SIGNED_MSG_TYPE_PREVOTE
+
+    check(not client.failed and client.accepted == {h: len(txs[h]) for h in range(1, total + 1)}
+          and client.repeats_refused == client.app_refused == total,
+          f"phase 15: the mempool's answers: failed {client.failed[:3]}, repeats refused "
+          f"{client.repeats_refused}, bad refused {client.app_refused} of {total}")
+    check(block_store.load_block(2).data.txs == txs[2], "phase 15: the node's block 2 is not height 2's txs")
+    mp1, mp2 = node.block_exec.mempool, node2.block_exec.mempool
+    check(mp1.metrics.failed_txs.value() == CONSENSUS_HEIGHTS and mp2.metrics.failed_txs.value() == total
+          - CONSENSUS_HEIGHTS and mp2.size() == 0, f"phase 15: mempool failed {mp1.metrics.failed_txs.value()}, "
+          f"{mp2.metrics.failed_txs.value()}; left {mp2.size()}")
+    seen, unseen = harness.seen_evidence, harness.unseen_evidence
+    e, u, r = heights["equivocation"], heights["unseen"], heights["repeat"]
+    check(seen is not None and unseen is not None, "phase 15: the harness made no evidence")
+    carried = {h: [ev.hash() for ev in block_store.load_block(h).evidence] for h in range(1, total + 1)}
+    check(carried == {h: [seen.hash()] if h == e + 1 else [unseen.hash()] if h == u else []
+                      for h in range(1, total + 1)}, f"phase 15: the blocks' evidence {carried}")
+    verified = node.block_exec.evidence_pool.verified
+    check([hv for hv, _ in verified] == [seen.hash(), unseen.hash()],
+          f"phase 15: the node's pool verified {len(verified)} items, not the seen pair then the unseen one")
+    pool2 = node2.block_exec.evidence_pool
+    check(pool2.is_committed(seen) and pool2.is_committed(unseen) and pool2.pending_evidence(-1)[0] == [],
+          "phase 15: the evidence is not committed")
+    got = {h: [(m.type, m.validator_address, m.height) for m in ms] for h, ms in harness.misbehavior.items() if ms}
+    addr = harness.vset.validators
+    check(got == {e + 1: [(1, addr[harness.equivocator].address, e)],
+                  u: [(1, addr[harness.unseen_equivocator].address, u - 1)]},
+          f"phase 15: FinalizeBlock's misbehavior {got}")
+    check(harness.node_votes[(SIGNED_MSG_TYPE_PREVOTE, r, 0)].block_id.is_nil(),
+          f"phase 15: the node did not prevote nil on the repeated evidence at {r}")
+    return {"heights": heights, "seen_hash": seen.hash().hex(), "unseen_hash": unseen.hash().hex(),
+            "pool_verify_ms": [t * 1e3 for _, t in verified]}
 
 
 def run_heights(node, harness, last):
@@ -4662,8 +4924,15 @@ def phase_consensus(keys, dev):
     the same app and validator hashes, no corrupted precommit in a vote
     set or a commit, the WAL's end-height markers, no second signature at
     an (height, round, step), the device tier and K3 or K1 after the
-    restart. Returns the node's launch counts (from 0, read before the
-    checks launch their own) and the node's stores and genesis."""
+    restart; the mempool's answers to the client (every tx taken, every
+    repeat and bad tx refused, the node's block 2 made of height 2's
+    txs); the evidence: the node's pool built and verified the seen pair
+    (through the shared scheduler) before the proposal carrying it,
+    which it did not verify again, verified the unseen one in
+    ``check_evidence``, committed both, FinalizeBlock received both
+    misbehaviors, and the repeat drew a nil prevote. Returns the node's
+    launch counts (from 0, read before the checks launch their own) and
+    the node's stores and genesis."""
     import tempfile
 
     from tendermint_tpu_torch.consensus.wal import WAL, EndHeightMessage
@@ -4695,14 +4964,20 @@ def phase_consensus(keys, dev):
     node_addr = gstate.next_validators.get_proposer().address  # height 2's proposer
     silent = {v.address for v in gstate.validators.validators[-CONSENSUS_SILENT:]}
     total = CONSENSUS_HEIGHTS + CONSENSUS_RESTART_HEIGHTS
-    vals, proposers = gstate.validators.copy(), {}
+    vals, proposers, round1 = gstate.validators.copy(), {}, {}
     for h in range(1, total + 1):
         rv = vals.copy()
         proposers[(h, 0)] = rv.get_proposer().address
-        if h == CONSENSUS_NIL_HEIGHT:
-            rv.increment_proposer_priority(1)
-            proposers[(h, 1)] = rv.get_proposer().address
+        rv.increment_proposer_priority(1)
+        round1[h] = rv.get_proposer().address
         vals.increment_proposer_priority(1)
+    repeat = next((h for h in range(CONSENSUS_REPEAT_FROM, CONSENSUS_HEIGHTS + 1)
+                   if h != CONSENSUS_NIL_HEIGHT and round1[h] not in silent | {node_addr}), CONSENSUS_HEIGHTS + 1)
+    for h in (CONSENSUS_NIL_HEIGHT, repeat):
+        proposers[(h, 1)] = round1[h]
+    heights = {"equivocation": CONSENSUS_EQUIVOCATION_HEIGHT, "unseen": CONSENSUS_UNSEEN_HEIGHT, "repeat": repeat}
+    check(2 < CONSENSUS_EQUIVOCATION_HEIGHT < CONSENSUS_UNSEEN_HEIGHT - 1 < repeat - 1 <= CONSENSUS_HEIGHTS - 1,
+          f"phase 15: the evidence heights {heights}")
     check(not silent & set(proposers.values()) and node_addr not in silent,
           "phase 15: a silent validator proposes a round of the phase")
     check([k for k, a in proposers.items() if a == node_addr] == [(2, 0)],
@@ -4735,14 +5010,16 @@ def phase_consensus(keys, dev):
     tracing.tracer.set_metrics_observer(observer)
     precompute.reset()
     pool = multiprocessing.get_context("spawn").Pool(CONSENSUS_SIGNERS)
+    client = TxClient(txs)
     harness = ConsensusHarness(genesis, privs, node_addr, silent, CONSENSUS_NIL_HEIGHT, txs, pool,
-                               CONSENSUS_SPREAD_S, rng)
+                               CONSENSUS_SPREAD_S, rng, heights=heights, client=client, last=total)
     try:
         pool.map(_keypair, [b"\0" * 32] * CONSENSUS_SIGNERS)  # the workers are up
         harness.start()
         node, pv, warm1, _ = consensus_node(genesis, home, txs, dev, harness, metrics, clock)
         first = ingest_counters()
         t0 = time.perf_counter()
+        client.submit(node.block_exec.mempool, 1)
         node.start()
         run_heights(node, harness, CONSENSUS_HEIGHTS)
         harness.paused.set()  # the peers wait for the restart
@@ -4750,7 +5027,7 @@ def phase_consensus(keys, dev):
         pv.stop()
         first_wall = time.perf_counter() - t0
         before = (pv.batched, pv.passthrough, list(harness.node_signed))
-        stores = (node.block_exec.state_store, node.block_store)
+        stores = (node.block_exec.state_store, node.block_store, node.block_exec.evidence_pool._db)
         state_at_stop = stores[0].load()
 
         # The restart, with the caches of a new process.
@@ -4761,6 +5038,7 @@ def phase_consensus(keys, dev):
         check(replayed == CONSENSUS_HEIGHTS, f"phase 15: the handshake replayed {replayed} blocks")
         restart = ingest_counters()
         harness.paused.clear()
+        client.submit(node2.block_exec.mempool, CONSENSUS_HEIGHTS + 1)
         node2.start()
         run_heights(node2, harness, total)
         node2.stop()
@@ -4772,6 +5050,7 @@ def phase_consensus(keys, dev):
         after_restart = ingest_delta(restart)
     finally:
         harness.stop()
+        client.stop()
         pool.terminate()
         pool.join()
         tracing.tracer.set_metrics_observer(saved_observer)
@@ -4779,13 +5058,14 @@ def phase_consensus(keys, dev):
 
     # The checks.
     rounds = {h: harness.committed[h]["round"] for h in range(1, total + 1)}
-    check(rounds == {h: int(h == CONSENSUS_NIL_HEIGHT) for h in range(1, total + 1)},
+    check(rounds == {h: int(h in (CONSENSUS_NIL_HEIGHT, repeat)) for h in range(1, total + 1)},
           f"phase 15: commit rounds {rounds}")
     check(harness.withheld == [(CONSENSUS_NIL_HEIGHT, 0)], f"phase 15: withheld {harness.withheld}")
     check(not set(before[2]) & set(signed_after) and len(set(harness.node_signed)) == len(harness.node_signed),
           "phase 15: the node signed twice at an (height, round, step)")
     check(("proposal", 2, 0) in harness.node_signed, "phase 15: the node never proposed height 2")
     block_store, state_store = stores[1], stores[0]
+    evidence = check_consensus_evidence(node, node2, harness, client, block_store, txs, heights, total)
     precompute.results.clear()  # every stored commit verified anew on the card
     bad = harness.bad_index
     for h in range(1, total + 1):
@@ -4853,6 +5133,10 @@ def phase_consensus(keys, dev):
           "warmup_launches": [warm1, warm2], "after_restart": {"tiers": after_restart["tiers"],
                                                               "launches": restart_launches},
           "step_duration": histogram_by_label(metrics.step_duration_seconds, "step"),
+          "mempool": {"check_tx": len(client.latency), "check_tx_p50_ms": percentile(client.latency, 0.5) * 1e3,
+                      "check_tx_p99_ms": percentile(client.latency, 0.99) * 1e3,
+                      "repeats_refused": client.repeats_refused, "app_refused": client.app_refused},
+          "evidence": evidence,
           "signing_s_per_step": {name: {"mean": statistics.mean(harness.sign_s[t]), "max": max(harness.sign_s[t]),
                                         "steps": len(harness.sign_s[t])}
                                  for name, t in (("prevote", SIGNED_MSG_TYPE_PREVOTE),
@@ -4861,6 +5145,329 @@ def phase_consensus(keys, dev):
     precompute.reset()
     shutil.rmtree(home)
     return counts, (genesis, state_store, block_store, harness)
+
+
+# --- phase 16 ------------------------------------------------------------------
+
+
+def kernel_lanes():
+    """The lanes the verify path has sent to the kernels so far: the
+    verdict cache's misses and hits, and the device hash's lanes."""
+    from tendermint_tpu_torch.ops import hash512, precompute
+
+    return {**precompute.results.stats(), "device_hash_lanes": hash512.stats().get("device_lanes", 0)}
+
+
+def lanes_since(before):
+    now = kernel_lanes()
+    return {k: now[k] - before[k] for k in ("hits", "misses", "device_hash_lanes")}
+
+
+def light_chain_stores(chain):
+    """A ``BlockStore`` and a ``StateStore`` of honest light blocks: each
+    height's meta (its block id and header) and commit, and its set."""
+    from tendermint_tpu_torch.state import StateStore
+    from tendermint_tpu_torch.storage import blockstore
+    from tendermint_tpu_torch.storage.kv import MemDB
+    from tendermint_tpu_torch.types.block_meta import BlockMeta
+
+    db, state_store = MemDB(), StateStore(MemDB())
+    for lb in chain:
+        commit = lb.signed_header.commit
+        db.set(blockstore._meta_key(lb.height), BlockMeta(block_id=commit.block_id, header=lb.header).to_proto_bytes())
+        db.set(blockstore._commit_key(lb.height), commit.to_proto_bytes())
+        state_store._save_validators(lb.height, lb.height, lb.validator_set)
+    return state_store, blockstore.BlockStore(db)
+
+
+def phase_evidence_attack(workload, evidence, dev):
+    """16a, BASELINE config 3: phase 11d's ``LightClientAttackEvidence``
+    (the light client reported it to its primary) given to a fresh
+    ``EvidencePool(device=dev)`` through ``add_evidence``, as the RPC's
+    ``broadcast_evidence`` gives it, ATTACK_REPS times, each with the
+    verdict cache emptied: the lunatic check's trusting pass over height
+    10's set and the conflicting commit's +2/3 pass, 1,000-validator
+    lanes on K3 or K1 (K4 declines them: their sign-bytes have two
+    lengths). Then three tampered copies (a bad signature inside
+    the +2/3 pass, a wrong total voting power, a wrong timestamp) are
+    refused, and a second node's fresh pool passes a block carrying the
+    good one. Returns the launches (from 0)."""
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.evidence import EvidencePool, InvalidEvidenceError
+    from tendermint_tpu_torch.ops import hash512, precompute
+    from tendermint_tpu_torch.state.state import State
+    from tendermint_tpu_torch.storage.kv import MemDB
+    from tendermint_tpu_torch.types.block import Block, make_block
+    from tendermint_tpu_torch.types.evidence import evidence_from_proto_bytes
+
+    chain, _, fork_top = workload
+    top = chain[-1]
+    check(evidence.conflicting_block.hash() == fork_top.hash() and evidence.common_height == LIGHTD_STORE_HEIGHTS[-2],
+          "phase 16a: not phase 11d's evidence")
+    state = State(chain_id=CHAIN_ID, last_block_height=top.height, last_block_time=top.header.time,
+                  validators=top.validator_set, next_validators=top.validator_set,
+                  last_validators=chain[-2].validator_set)
+
+    def fresh_pool(stores):
+        pool = EvidencePool(MemDB(), *stores, device=dev)
+        pool.set_state(state)
+        return pool
+
+    stores = light_chain_stores(chain)
+    before, lanes0, hash0, runs = launches(), kernel_lanes(), hash512.stats(), []
+    for _ in range(ATTACK_REPS):
+        precompute.results.clear()
+        pool = fresh_pool(stores)
+        t = time.perf_counter()
+        pool.add_evidence(evidence)
+        runs.append(time.perf_counter() - t)
+        check([e.hash() for e in pool.pending_evidence(-1)[0]] == [evidence.hash()],
+              "phase 16a: the attack is not pending")
+    run_launches, run_lanes = delta(before), lanes_since(lanes0)
+    # The chain's vote timestamps end in nanos 0-999, whose varint takes
+    # one or two bytes, so a commit's sign-bytes have two lengths and K4
+    # declines its chunks (hash512's "declined_mixed_lengths"), as the
+    # JAX package's device hash does.
+    hash_declined = {k: v - hash0.get(k, 0) for k, v in hash512.stats().items() if v != hash0.get(k, 0)}
+    check(run_launches.get("verify_resident", 0) + run_launches.get("verify", 0) > 0,
+          f"phase 16a: launches {run_launches}")
+
+    def tampered(kind):
+        ev = evidence_from_proto_bytes(evidence.to_proto_bytes())
+        if kind == "signature":
+            cs = ev.conflicting_block.signed_header.commit.signatures[LIGHTD_BAD_INDEX]
+            cs.signature = cs.signature[:40] + bytes([cs.signature[40] ^ 1]) + cs.signature[41:]
+        elif kind == "total_voting_power":
+            ev.total_voting_power += 1
+        else:
+            ev.timestamp = Timestamp.from_unix_ns(ev.timestamp.to_unix_ns() + 1)
+        return ev
+
+    refused = {}
+    for kind, want in (("signature", "signature"), ("total_voting_power", "total voting power"),
+                       ("timestamp", "different time")):
+        precompute.results.clear()
+        pool = fresh_pool(stores)
+        try:
+            pool.add_evidence(tampered(kind))
+            check(False, f"phase 16a: the copy with a wrong {kind} was taken")
+        except InvalidEvidenceError as exc:
+            refused[kind] = str(exc)
+        check(want in refused[kind] and pool.pending_evidence(-1)[0] == [],
+              f"phase 16a: the wrong {kind} refused as {refused[kind]!r}")
+
+    block = make_block(top.height + 1, [], top.signed_header.commit, evidence=[evidence])
+    decoded = Block.from_proto_bytes(block.to_proto_bytes())
+    check(decoded.hash() == block.hash() and [e.hash() for e in decoded.evidence] == [evidence.hash()],
+          "phase 16a: the block's evidence did not round-trip")
+    for ev in decoded.evidence:
+        ev.validate_basic()
+    precompute.results.clear()
+    second = fresh_pool(light_chain_stores(chain))
+    t = time.perf_counter()
+    second.check_evidence(decoded.evidence)
+    second_s = time.perf_counter() - t
+    counts = launches()
+    emit({"phase": "evidence_attack", "validators": LIGHTD_VALIDATORS, "conflicting_height": top.height,
+          "common_height": evidence.common_height, "evidence_bytes": len(evidence.to_proto_bytes()),
+          "add_evidence_ms": [r * 1e3 for r in runs], "add_evidence_ms_p50": statistics.median(runs) * 1e3,
+          "launches_per_run": {k: v / ATTACK_REPS for k, v in run_launches.items()},
+          "lanes_per_run": {k: v / ATTACK_REPS for k, v in run_lanes.items()},
+          "device_hash_per_run": {k: v / ATTACK_REPS for k, v in hash_declined.items()},
+          "refused": refused, "second_node_check_evidence_ms": second_s * 1e3, "launches": counts})
+    precompute.reset()
+    return counts
+
+
+class TimedStateStore:
+    """A state store whose ``load_validators`` calls are timed."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls, self.seconds = 0, 0.0  # guarded-by: lock
+        self.lock = threading.Lock()
+
+    def load_validators(self, height):
+        t = time.perf_counter()
+        vset = self.inner.load_validators(height)
+        with self.lock:
+            self.calls += 1
+            self.seconds += time.perf_counter() - t
+        return vset
+
+
+def phase_equivocation_burst(source, workload, dev):
+    """16b, BASELINE config 4: the ``DuplicateVoteEvidence`` of the
+    validators of phase 14's chain that hold just over 1/3 of the power
+    and double-signed a precommit at one synced height (the least
+    equivocation that can break safety), given to one ``EvidencePool``
+    from EQUIVOCATION_THREADS threads, as the RPC and the evidence
+    reactor deliver it, beside one with a bad signature (refused). Each
+    pair rides the shared scheduler. Then the source's next block with
+    all of it, within the evidence max_bytes, through a fresh node's
+    ``validate_block``. Returns the launches (from 0)."""
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.evidence import EvidencePool, InvalidEvidenceError
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.storage.kv import MemDB
+    from tendermint_tpu_torch.types.block import Block
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+    _, src_exec, src_state, _, _, _ = source
+    height, pairs, bad_pair, power = workload
+    vset = src_exec.state_store.load_validators(height)
+    block_time = src_exec.block_store.load_block_meta(height).header.time
+    evidence = [DuplicateVoteEvidence.new(a, b, block_time, vset) for a, b in pairs]
+    bad = DuplicateVoteEvidence.new(*bad_pair, block_time, vset)
+    items = evidence + [bad]
+    order = np.random.default_rng(SEED + 16).permutation(len(items))
+    work = queue.Queue()
+    for i in order:
+        work.put(items[int(i)])
+    states = TimedStateStore(src_exec.state_store)
+    pool = EvidencePool(MemDB(), states, src_exec.block_store, device=dev)
+    pool.set_state(src_state)
+    latency, refused, errors = [], [], []
+
+    def deliver():
+        while True:
+            try:
+                ev = work.get_nowait()
+            except queue.Empty:
+                return
+            t = time.perf_counter()
+            try:
+                pool.add_evidence(ev)
+                latency.append(time.perf_counter() - t)
+            except InvalidEvidenceError as exc:
+                refused.append((ev.hash(), str(exc)))
+            except Exception as exc:  # failed by the phase
+                errors.append(repr(exc))
+
+    precompute.results.clear()
+    before, t0 = ingest_counters(), time.perf_counter()
+    threads = [threading.Thread(target=deliver) for _ in range(EQUIVOCATION_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    wall = time.perf_counter() - t0
+    burst = ingest_delta(before)
+    check(not errors and [h for h, _ in refused] == [bad.hash()] and "signature" in refused[0][1],
+          f"phase 16b: errors {errors[:3]}, refused {refused[:3]}")
+    check(sorted(e.hash() for e in pool.pending_evidence(-1)[0]) == sorted(e.hash() for e in evidence),
+          "phase 16b: the pending evidence is not the equivocators'")
+    check(burst["sched"]["flush_errors"] == 0 and burst["sched"]["fallback_flushes"] == 0,
+          f"phase 16b: scheduler {burst['sched']}")
+
+    block = src_exec.block_store.load_block(src_state.last_block_height + 1)
+    block.evidence = evidence
+    block.header.evidence_hash, block._hash = b"", None
+    block.fill_header()
+    ev_bytes = sum(len(ev.bytes()) for ev in evidence)
+    check(ev_bytes <= src_state.consensus_params.evidence.max_bytes, f"phase 16b: {ev_bytes} evidence bytes")
+    block = Block.from_proto_bytes(block.to_proto_bytes())  # as a peer delivers it
+    client = LocalClient(KVStoreApplication())
+    client.start()
+    node_states = TimedStateStore(src_exec.state_store)
+    node_pool = EvidencePool(MemDB(), node_states, src_exec.block_store, device=dev)
+    node_pool.set_state(src_state)
+    node = BlockExecutor(src_exec.state_store, client, src_exec.block_store, evidence_pool=node_pool, device=dev)
+    precompute.results.clear()
+    before2, t = ingest_counters(), time.perf_counter()
+    node.validate_block(src_state, block)
+    block_s = time.perf_counter() - t
+    in_block = ingest_delta(before2)
+    counts = launches()
+    emit({"phase": "equivocation_burst", "validators": len(vset), "height": height,
+          "equivocators": len(evidence), "power_share": power / vset.total_voting_power(),
+          "threads": EQUIVOCATION_THREADS, "evidence_per_s": len(items) / wall, "wall_s": wall,
+          "add_evidence_ms_p50": percentile(latency, 0.5) * 1e3, "add_evidence_ms_p99": percentile(latency, 0.99) * 1e3,
+          "flushes": burst["sched"]["flushes"], "lanes_scheduled": burst["sched"]["entries_verified"],
+          "tiers": burst["tiers"], "tier_s": burst["tier_s"],
+          "load_validators": {"calls": states.calls, "s": states.seconds, "share_of_wall": states.seconds / wall},
+          "refused": refused[0][1],
+          "block": {"evidence": len(block.evidence), "evidence_bytes": ev_bytes, "validate_block_ms": block_s * 1e3,
+                    "flushes": in_block["sched"]["flushes"], "tiers": in_block["tiers"],
+                    "tier_s": in_block["tier_s"], "launches": in_block["launches"],
+                    "load_validators": {"calls": node_states.calls, "s": node_states.seconds}},
+          "launches": counts})
+    precompute.reset()
+    return counts
+
+
+def phase_mempool():
+    """16c: the reference's mempool defaults (``MempoolConfig()``) over
+    the kvstore app, filled to MEMPOOL_TXS of phase 14's 45-byte txs
+    through ``check_tx`` from MEMPOOL_THREADS threads, reaped at the
+    default block max_bytes with no gas limit, then ``update`` with
+    MEMPOOL_COMMITTED of them, which rechecks the rest. Host only: no
+    launch."""
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.libs.metrics import MempoolMetrics, Registry
+    from tendermint_tpu_torch.mempool import MempoolConfig, TxMempool
+    from tendermint_tpu_torch.types.params import BlockParams
+
+    rng = np.random.default_rng(SEED + 16)
+    txs = [b"acct-%05d=%s" % (a, rng.bytes(17).hex().encode()) for a in rng.integers(0, NODE_ACCOUNTS, MEMPOOL_TXS)]
+    check({len(tx) for tx in txs} == {45} and len(set(txs)) == MEMPOOL_TXS, "phase 16c: the txs")
+    check(MempoolConfig().size == MEMPOOL_TXS and BlockParams().max_bytes == MEMPOOL_REAP_BYTES,
+          "phase 16c: the defaults moved")
+    app = KVStoreApplication()
+    rechecks = []
+    real_check = app.check_tx
+
+    def check_tx(req):
+        if req.type == abci.CHECK_TX_TYPE_RECHECK:
+            rechecks.append(req.tx)
+        return real_check(req)
+
+    app.check_tx = check_tx
+    client = LocalClient(app)
+    client.start()
+    mp = TxMempool(MempoolConfig(), client, metrics=MempoolMetrics(Registry()))
+    before, refused = launches(), []
+
+    def fill(part):
+        for tx in part:
+            if not mp.check_tx(tx).is_ok():
+                refused.append(tx)
+
+    threads = [threading.Thread(target=fill, args=(txs[i::MEMPOOL_THREADS],)) for i in range(MEMPOOL_THREADS)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    fill_s = time.perf_counter() - t
+    check(not refused and len(mp) == MEMPOOL_TXS and mp.size_bytes() == 45 * MEMPOOL_TXS,
+          f"phase 16c: {len(refused)} refused, {len(mp)} held")
+    t = time.perf_counter()
+    reaped = mp.reap_max_bytes_max_gas(MEMPOOL_REAP_BYTES, -1)
+    reap_s = time.perf_counter() - t
+    check(reaped == mp.tx_list() and sorted(reaped) == sorted(txs), "phase 16c: the reap is not every tx in order")
+    committed = reaped[:MEMPOOL_COMMITTED]
+    t = time.perf_counter()
+    mp.lock()
+    try:
+        mp.update(1, committed, [abci.ExecTxResult(code=0)] * len(committed))
+    finally:
+        mp.unlock()
+    update_s = time.perf_counter() - t
+    check(mp.tx_list() == reaped[MEMPOOL_COMMITTED:] and sorted(rechecks) == sorted(reaped[MEMPOOL_COMMITTED:]),
+          f"phase 16c: {len(mp)} left, {len(rechecks)} rechecked")
+    counts = delta(before)
+    check(not counts, f"phase 16c launched {counts}")
+    emit({"phase": "mempool", "txs": MEMPOOL_TXS, "threads": MEMPOOL_THREADS, "check_tx_per_s": MEMPOOL_TXS / fill_s,
+          "fill_s": fill_s, "reap_ms": reap_s * 1e3, "reaped": len(reaped), "committed": len(committed),
+          "rechecked": len(rechecks), "update_and_recheck_ms": update_s * 1e3,
+          "metrics_size": mp.metrics.size.value(), "launches": counts})
+
+
 
 
 def main(argv=None) -> int:
@@ -4898,13 +5505,15 @@ def main(argv=None) -> int:
         t_node = time.perf_counter()
         node_source = node_chain_workload(rng, signer)
         node_setup_s = time.perf_counter() - t_node
+        equivocation = equivocation_workload(rng, signer, node_source)
         consensus_keys = signer.keys(rng, CONSENSUS_VALIDATORS)
     emit({"phase": "setup", "seconds": time.perf_counter() - t0, "workers": workers,
           "signatures": 2 * KERNEL_LANES + BATCH_LANES + len(COMMIT_HEIGHTS) * COMMIT_VALIDATORS
           + MIXED_VALIDATORS + SYNC_BLOCKS * SYNC_VALIDATORS
           + MIXED_SYNC_BLOCKS * MIXED_SYNC_VALIDATORS + LIGHT_HEADERS * LIGHT_VALIDATORS
           + 3 * ROUND_VALIDATORS + (LIGHTD_HEADERS + 1) * LIGHTD_VALIDATORS
-          + THREE_TYPE_VALIDATORS + (NODE_HEIGHTS + 1) * int(NODE_VALIDATORS * NODE_SIGN_SHARE),
+          + THREE_TYPE_VALIDATORS + (NODE_HEIGHTS + 1) * int(NODE_VALIDATORS * NODE_SIGN_SHARE)
+          + 2 * (len(equivocation[1]) + 1),
           "node_source_chain_s": node_setup_s})
 
     dev = torch.device("cuda", 0)
@@ -4949,7 +5558,7 @@ def main(argv=None) -> int:
     health["phase_10"] = check_healthy("phase 10")
     cuda_verify.reset_launches()  # the light client and lightd start here
     cuda_hash.reset_launches()
-    lightd_counts = phase_lightd(lightd_wl, dev)
+    lightd_counts, attack = phase_lightd(lightd_wl, dev)
     health["phase_11"] = check_healthy("phase 11")
     cuda_verify.reset_launches()  # the observed path starts here
     cuda_hash.reset_launches()
@@ -4970,6 +5579,17 @@ def main(argv=None) -> int:
     cuda_hash.reset_launches()
     consensus_counts, _ = phase_consensus(consensus_keys, dev)
     health["phase_15"] = check_healthy("phase 15")
+    cuda_verify.reset_launches()  # the evidence pools and the mempool start here
+    cuda_hash.reset_launches()
+    phase_evidence_attack(lightd_wl, attack, dev)
+    health["phase_16a"] = check_healthy("phase 16a")
+    phase_equivocation_burst(node_source, equivocation, dev)
+    health["phase_16b"] = check_healthy("phase 16b")
+    phase_mempool()
+    evidence_counts = launches()
+    health["phase_16c"] = check_healthy("phase 16c")
+    check(evidence_counts["verify_resident"] + evidence_counts["verify"] > 0,
+          f"phases 16a-c: launches {evidence_counts}")
     crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
@@ -4988,6 +5608,7 @@ def main(argv=None) -> int:
         row["launches_three_type"] = three_type_counts[name]
         row["launches_node_blocksync"] = node_counts[name]
         row["launches_consensus"] = consensus_counts[name]
+        row["launches_evidence"] = evidence_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

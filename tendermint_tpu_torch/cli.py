@@ -1,7 +1,7 @@
 """Operator command line; counterpart of ``tendermint_tpu/cli.py``, cut
 to its ``verifyd`` subcommand on one server.
 
-    python -m tendermint_tpu_torch verifyd [--listen HOST:PORT] [--port N]
+    python -m tendermint_tpu_torch verifyd [--listen HOST:PORT]
         [--device cuda|cpu] [--metrics HOST:PORT] [--trace MODE] ...
 
 The daemon (``verifyd/server.py``) owns the card (``--device``, default
@@ -39,8 +39,6 @@ def cmd_verifyd(args) -> int:
             return 2
         tenant_slos[name] = int(ms)
     host, _, port = args.listen.rpartition(":")
-    if args.port is not None:
-        port = str(args.port)
     reg = Registry()
     server = VerifydServer(
         host=host or "127.0.0.1",
@@ -110,9 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("verifyd", help="run the shared verification daemon")
     p.add_argument("--listen", default="127.0.0.1:26670", metavar="HOST:PORT",
-                   help="gRPC listen address")
-    p.add_argument("--port", type=int, default=None,
-                   help="gRPC listen port, overriding --listen's (0 picks a free one)")
+                   help="gRPC listen address (port 0 picks a free one)")
     p.add_argument("--device", default=None,
                    help="device the kernels run on: cuda (the default) or cpu")
     p.add_argument("--max-batch", type=int, default=None,

@@ -1,8 +1,6 @@
 """Handshaker: reconcile app height with the stores at startup.
 
-A copy of ``tendermint_tpu/consensus/replay.py``; a stored block that
-carries evidence raises before it gets here (``types/block.py``, ROADMAP
-§A item 8c).
+A copy of ``tendermint_tpu/consensus/replay.py``.
 
 On restart the ABCI app may be behind the block store (in-process app
 lost its memory; out-of-process app crashed at a different height).

@@ -31,7 +31,8 @@ so a bad block still draws a nil prevote.
 
 ``_publish_event`` is a no-op until the event bus is ported (ROADMAP §A
 item 8e). A conflicting vote goes to the executor's evidence pool when
-it has ``report_conflicting_votes`` (item 8c), as in the reference.
+it has ``report_conflicting_votes`` (``evidence/pool.py`` has; the
+executor's default no-op pool has not), as in the reference.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Minimal gRPC-over-HTTP/2: spec-compliant subset, zero dependencies.
 
 Counterpart of ``tendermint_tpu/libs/grpc.py``, whole but for its
-environment knob (``TENDERMINT_TPU_EVLOOP``): ``GrpcServer(evloop=)``
-chooses the serving mode, the selector event loop by default. The port's
-verify service (``verifyd/``) is its only user.
+thread-per-connection serving mode and the environment knob that chose
+it (``TENDERMINT_TPU_EVLOOP``): the server runs every connection on the
+selector event loop (``libs/evloop.py``). The port's verify service
+(``verifyd/``) is its only user.
 
 The reference exposes gRPC variants of the ABCI transport
 (abci/client/grpc_client.go:184, abci/server/grpc_server.go:83) and the
@@ -49,7 +50,6 @@ import collections
 import socket
 import struct
 import threading
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from tendermint_tpu_torch.libs import evloop as evloop_mod
@@ -960,21 +960,17 @@ class GrpcServer:
     exceptions become grpc-status INTERNAL; unknown paths UNIMPLEMENTED
     (grpc_server.go:83 shape).
 
-    Serving modes: the default runs every connection on one selector
-    event loop (libs/evloop) with a bounded worker pool for handlers —
-    thread count is O(workers), not O(connections). ``evloop=False``
-    restores the historical thread-per-connection accept loop. Both modes drive the
-    same sans-IO connection machine, so the wire behavior is identical
-    byte for byte."""
+    Every connection runs on one selector event loop (libs/evloop) with
+    a bounded worker pool for handlers: the thread count is O(workers),
+    not O(connections). The loop drives the same sans-IO connection
+    machine as the reference's thread-per-connection mode, so the wire
+    behavior is identical byte for byte."""
 
     def __init__(self, handlers: Dict[str, Handler], host: str = "127.0.0.1",
-                 port: int = 0, logger=None, evloop: bool = True,
+                 port: int = 0, logger=None,
                  evloop_metrics=None, workers: Optional[int] = None):
         self._handlers = handlers
         self._logger = logger if logger is not None else log.NOP_LOGGER
-        self._stop = threading.Event()
-        self._threads: List[threading.Thread] = []
-        self._evloop_enabled = bool(evloop)
         self._evloop_metrics = evloop_metrics
         self._workers = workers
         self._ev = None
@@ -992,28 +988,21 @@ class GrpcServer:
         return self._lsock.getsockname()[:2]
 
     def start(self) -> None:
-        self._stop.clear()
-        if self._evloop_enabled:
-            kwargs = {}
-            if self._evloop_metrics is not None:
-                kwargs["metrics"] = self._evloop_metrics
-            if self._workers is not None:
-                kwargs["workers"] = self._workers
-            self._ev = evloop_mod.EvloopServer(
-                lambda t: _H2Protocol(self, t),
-                listener_ref=lambda: self._lsock,
-                name="grpc",
-                logger=self._logger,
-                **kwargs,
-            )
-            self._ev.start()
-            return
-        t = threading.Thread(target=self._accept_loop, daemon=True)
-        t.start()
-        self._threads.append(t)
+        kwargs = {}
+        if self._evloop_metrics is not None:
+            kwargs["metrics"] = self._evloop_metrics
+        if self._workers is not None:
+            kwargs["workers"] = self._workers
+        self._ev = evloop_mod.EvloopServer(
+            lambda t: _H2Protocol(self, t),
+            listener_ref=lambda: self._lsock,
+            name="grpc",
+            logger=self._logger,
+            **kwargs,
+        )
+        self._ev.start()
 
     def stop(self) -> None:
-        self._stop.set()
         if self._ev is not None:
             self._ev.stop()
             self._ev = None
@@ -1023,75 +1012,6 @@ class GrpcServer:
             except OSError:
                 pass  # listener may already be closed; stop() is idempotent
             self._lsock = None
-        for t in self._threads:
-            t.join(timeout=2)
-        self._threads.clear()
-
-    def _accept_loop(self) -> None:
-        while not self._stop.is_set():
-            lsock = self._lsock
-            if lsock is None:
-                return
-            try:
-                conn_sock, _ = lsock.accept()
-            except OSError:
-                # Transient accept errors (ECONNABORTED: the client tore
-                # the connection off mid-handshake) must not kill the
-                # accept loop — only a closed listener / stop() ends it.
-                if self._stop.is_set() or self._lsock is None:
-                    return
-                time.sleep(0.02)
-                continue
-            # prune finished connection threads so the list stays bounded
-            self._threads = [t for t in self._threads if t.is_alive()]
-            t = threading.Thread(
-                target=self._serve_conn, args=(conn_sock,), daemon=True
-            )
-            t.start()
-            self._threads.append(t)
-
-    def _serve_conn(self, sock: socket.socket) -> None:
-        try:
-            # Connections idle forever between calls (a halted chain must
-            # not drop its ABCI/signer link); TCP keepalive reaps peers
-            # that vanished without FIN.
-            sock.settimeout(None)
-            sock.setsockopt(socket.SOL_SOCKET, socket.SO_KEEPALIVE, 1)
-            # responses are HEADERS + DATA + trailers in separate writes;
-            # without NODELAY the tail frames wait out the client's
-            # delayed ACK and the caller sees it as transport time
-            # (TCP-only: tests drive this loop over AF_UNIX socketpairs)
-            if sock.family in (socket.AF_INET, socket.AF_INET6):
-                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            machine = _H2ServerConn(self, sock.sendall)
-            while not self._stop.is_set():
-                data = sock.recv(65536)
-                if not data:
-                    raise H2ProtocolError("connection closed mid-frame")
-                machine.feed(data)
-        except _QuietClose:
-            pass  # wrong client preface: close silently, nothing to log
-        except (H2ProtocolError, OSError, GrpcError) as exc:
-            # A misbehaving or vanished peer ends its own connection
-            # thread; the server and every other connection keep serving.
-            peer = "?"
-            try:
-                # AF_INET returns a (host, port) tuple; AF_UNIX a path str
-                name = sock.getpeername()
-                peer = "%s:%s" % name[:2] if isinstance(name, tuple) else str(name)
-            except OSError:
-                pass  # peer already gone; log with the placeholder
-            self._logger.debug(
-                "grpc connection closed",
-                peer=peer,
-                error=type(exc).__name__,
-                detail=str(exc),
-            )
-        finally:
-            try:
-                sock.close()
-            except OSError:
-                pass  # best-effort close of an already-dead socket
 
     def _dispatch(
         self, conn: "_H2ServerConn", stream_id: int, headers: Dict[str, str],

@@ -10,8 +10,8 @@ that renders the text exposition format (served by ``rpc/server.py`` at
 caches, the resident store, the challenge hash, the stage timings and
 the device-byte ledger), ``VerifydMetrics`` and ``EvloopMetrics`` (the
 verify service and its event loop), ``LightMetrics``, ``StateMetrics``
-(the block executor) and ``ConsensusMetrics`` (the consensus state
-machine). Family names, help texts
+(the block executor), ``ConsensusMetrics`` (the consensus state
+machine) and ``MempoolMetrics``. Family names, help texts
 and label sets are the reference's, so both expositions compare line by
 line. The other subsystems' structs and the flight-recorder sink are
 left out.
@@ -723,3 +723,21 @@ class StateMetrics(_NopMixin):
             _name(s, "validator_set_updates"),
             "Number of validator set updates by the application.",
         )
+
+
+class MempoolMetrics(_NopMixin):
+    """internal/mempool/metrics.gen.go (core subset); bound as
+    ``TxMempool(metrics=MempoolMetrics(reg))``, as the executor binds
+    ``StateMetrics``."""
+
+    def __init__(self, reg: Optional[Registry]):
+        reg = reg or Registry()
+        s = "mempool"
+        self.size = reg.gauge(_name(s, "size"), "Number of uncommitted transactions.")
+        self.tx_size_bytes = reg.histogram(
+            _name(s, "tx_size_bytes"),
+            "Transaction sizes in bytes.",
+            buckets=(1, 16, 64, 256, 1024, 4096, 16384, 65536, 262144, 1048576),
+        )
+        self.failed_txs = reg.counter(_name(s, "failed_txs"), "Number of failed CheckTx.")
+        self.evicted_txs = reg.counter(_name(s, "evicted_txs"), "Number of evicted transactions.")

@@ -9,9 +9,11 @@ and VerifyVoteExtension (the consensus state machine's calls). The event
 publisher is left out until the event bus (ROADMAP §A item 8e).
 ``BlockExecutor(device=)`` and
 :func:`validate_block` take the device the LastCommit is verified on
-(``validation.verify_commit``). The mempool and evidence pool are the
-reference's minimal contracts (their modules are ROADMAP §A item 8c);
-a block with evidence raises before it gets here (``types/block.py``).
+(``validation.verify_commit``). The ``Mempool`` and ``EvidencePool``
+classes here are the reference's minimal contracts and the defaults; a
+node passes ``mempool/mempool.py`` ``TxMempool`` and
+``evidence/pool.py`` ``EvidencePool``, whose ``check_evidence`` verifies
+a block's evidence in ``validate_block``.
 """
 
 from __future__ import annotations

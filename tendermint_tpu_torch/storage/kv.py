@@ -1,7 +1,7 @@
 """Key-value store abstraction (the tm-db seam).
 
-The part of ``tendermint_tpu/storage/kv.py`` the light, block and state
-stores use: the ``KVStore`` interface with its write ``Batch``, applied
+The part of ``tendermint_tpu/storage/kv.py`` the light, block, state
+and evidence stores use: the ``KVStore`` interface with its write ``Batch``, applied
 at once on ``write()`` (the block store saves a block in one batch), and
 ``MemDB``, its sorted in-memory store, with ``prefix_end`` and
 ``ordered_key``. Keys iterate in ascending byte order; iterators see a
@@ -18,6 +18,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 class KVStore:
     def get(self, key: bytes) -> Optional[bytes]:
         raise NotImplementedError
+
+    def has(self, key: bytes) -> bool:
+        return self.get(key) is not None
 
     def set(self, key: bytes, value: bytes) -> None:
         raise NotImplementedError

@@ -10,11 +10,11 @@ its votes, the ``validate_basic`` checks, the proto encodings the hashes,
 the stores and the WAL read and their decoders (``from_proto_bytes``),
 ``Header.hash``, ``Block`` with its hash and ``make_block``, ``Vote``
 with its sign-bytes, its checks and the pre-verification tag of the vote
-pre-verifier (``consensus/reactor.py``), and ``Proposal``. A block that
-carries evidence raises: the evidence decoders and checks come with the
-evidence pool (ROADMAP §A item 8c). Wire encoding is gogoproto-compatible
-(ascending fields, proto3 zero omission, non-nullable embedded messages
-always written), so hashes are byte-exact with the reference.
+pre-verifier (``consensus/reactor.py``), and ``Proposal``. A block's
+evidence is encoded, decoded and hashed with ``types/evidence.py``. Wire
+encoding is gogoproto-compatible (ascending fields, proto3 zero
+omission, non-nullable embedded messages always written), so hashes are
+byte-exact with the reference.
 """
 
 from __future__ import annotations
@@ -918,24 +918,13 @@ class Data:
         return cls(txs)
 
 
-def _no_evidence(evidence) -> None:
-    if evidence:
-        raise ValueError(
-            "a block that carries evidence is not ported: the evidence decoders and "
-            "checks come with the evidence pool (ROADMAP §A item 8c)"
-        )
-
-
 @dataclass
 class Block:
-    """types/block.go Block = Header + Data + EvidenceList + LastCommit.
-
-    ``evidence`` stays empty in the port: every method that would read
-    an evidence item raises (ROADMAP §A item 8c)."""
+    """types/block.go Block = Header + Data + EvidenceList + LastCommit."""
 
     header: Header = dc_field(default_factory=Header)
     data: Data = dc_field(default_factory=Data)
-    evidence: List[object] = dc_field(default_factory=list)
+    evidence: List[object] = dc_field(default_factory=list)  # types/evidence.py items
     last_commit: Optional[Commit] = None
     _hash: Optional[bytes] = dc_field(default=None, repr=False, compare=False)
 
@@ -946,8 +935,9 @@ class Block:
         return self._hash
 
     def evidence_hash(self) -> bytes:
-        _no_evidence(self.evidence)
-        return merkle.empty_hash()
+        from tendermint_tpu_torch.types.evidence import evidence_list_hash
+
+        return evidence_list_hash(self.evidence)
 
     def fill_header(self) -> None:
         """types/block.go:133-148: derive the data-dependent header hashes."""
@@ -971,6 +961,8 @@ class Block:
             raise ValueError("wrong Header.LastCommitHash")
         if self.header.data_hash != self.data.hash():
             raise ValueError("wrong Header.DataHash")
+        for ev in self.evidence:
+            ev.validate_basic()
         if self.header.evidence_hash != self.evidence_hash():
             raise ValueError("wrong Header.EvidenceHash")
 
@@ -978,16 +970,17 @@ class Block:
         return BlockID(self.hash(), part_set_header or PartSetHeader())
 
     def to_proto_bytes(self) -> bytes:
-        _no_evidence(self.evidence)
         out = encode_message_field(1, self.header.to_proto_bytes())
         out += encode_message_field(2, self.data.to_proto_bytes())
-        out += encode_message_field(3, b"")  # the empty EvidenceList
+        out += encode_message_field(3, b"".join(encode_message_field(1, ev.to_proto_bytes()) for ev in self.evidence))
         if self.last_commit is not None:
             out += encode_message_field(4, self.last_commit.to_proto_bytes())
         return out
 
     @classmethod
     def from_proto_bytes(cls, data: bytes) -> "Block":
+        from tendermint_tpu_torch.types.evidence import evidence_from_proto_bytes
+
         r = Reader(data)
         out = cls()
         for f, w in r.fields():
@@ -998,8 +991,10 @@ class Block:
             elif f == 3 and w == 2:
                 er = Reader(r.read_bytes())
                 for ef, ew in er.fields():
-                    _no_evidence(ef == 1 and ew == 2)
-                    er.skip(ew)
+                    if ef == 1 and ew == 2:
+                        out.evidence.append(evidence_from_proto_bytes(er.read_bytes()))
+                    else:
+                        er.skip(ew)
             elif f == 4 and w == 2:
                 out.last_commit = Commit.from_proto_bytes(r.read_bytes())
             else:
@@ -1014,7 +1009,11 @@ def make_block(
     evidence: Optional[List[object]] = None,
 ) -> Block:
     """types/block.go MakeBlock."""
-    _no_evidence(evidence)
-    block = Block(header=Header(height=height), data=Data(txs=list(txs)), last_commit=last_commit)
+    block = Block(
+        header=Header(height=height),
+        data=Data(txs=list(txs)),
+        evidence=list(evidence or []),
+        last_commit=last_commit,
+    )
     block.fill_header()
     return block

@@ -403,7 +403,6 @@ class VerifydServer:
         slo_recover_after: float = SLO_RECOVER_AFTER,
         shard_id: int = -1,
         device=None,
-        evloop: bool = True,
     ):
         if shm != "off":
             raise ValueError(
@@ -465,7 +464,6 @@ class VerifydServer:
         self._grpc = GrpcServer(
             {VERIFY_PATH: self._handle, STATS_PATH: self._handle_stats},
             host, port,
-            evloop=evloop,
             evloop_metrics=evloop_metrics,
         )
         # operator-declared p99 targets: pinned, so a wire-declared

@@ -20,7 +20,6 @@ from tendermint_tpu.types.part_set import PartSet as JPartSet
 from tendermint_tpu.storage import MemDB as JMemDB
 from tendermint_tpu.storage.blockstore import BlockStore as JBlockStore
 from tendermint_tpu_torch.crypto import merkle
-from tendermint_tpu_torch.encoding.proto import encode_message_field
 from tendermint_tpu_torch.encoding.canonical import Timestamp
 from tendermint_tpu_torch.state import StateStore, state_from_genesis
 from tendermint_tpu_torch.storage.blockstore import BlockStore
@@ -77,10 +76,12 @@ class TestPartSet:
             PartSet(src.header()).add_part(other.get_part(0))
 
     def test_tampered_bytes_rejected(self):
-        src = PartSet.from_data(os.urandom(3000), part_size=1024)
+        data = np.random.default_rng(20261017).integers(0, 256, 3000, dtype=np.uint8).tobytes()
+        src = PartSet.from_data(data, part_size=1024)
         p = src.get_part(1)
+        tampered = bytes([p.bytes[0] ^ 1]) + p.bytes[1:]  # one bit flipped: always a change
         with pytest.raises(ValueError, match="proof"):
-            PartSet(src.header()).add_part(Part(index=1, bytes=b"\x00" + p.bytes[1:], proof=p.proof))
+            PartSet(src.header()).add_part(Part(index=1, bytes=tampered, proof=p.proof))
 
     def test_part_proto_roundtrip(self):
         p = PartSet.from_data(os.urandom(3000), part_size=1024).get_part(2)
@@ -225,22 +226,47 @@ def test_jax_built_blocks_decode_in_the_port_to_the_same_hash_parts_and_meta():
     assert tstore.load_seen_commit().to_proto_bytes() == jstore.load_seen_commit().to_proto_bytes()
 
 
-def test_a_block_with_evidence_raises_until_the_evidence_pool_is_ported():
-    jstore, _, _, _ = _make_saved_chain(1, pkg="jax")
-    raw = jstore.load_block(1).to_proto_bytes()
+def test_a_block_with_evidence_decodes_saves_and_hashes_as_the_jax_package_s():
+    """A JAX block carrying a duplicate vote, saved in a JAX store: the
+    port decodes it to the same bytes, block hash, evidence hash and
+    part-set root, builds the same block from its own copy of the
+    evidence, and saves and loads it in its store unchanged."""
+    from tendermint_tpu.types.evidence import DuplicateVoteEvidence as JDuplicateVoteEvidence
+    from tendermint_tpu_torch.types.evidence import evidence_from_proto_bytes, evidence_list_hash
+    from tests.test_vote_set import signed_vote as jsigned_vote
+
+    jstore, jblocks, jvset, jprivs = _make_saved_chain(1, pkg="jax")
+    jvotes = [jsigned_vote(jprivs[2], jvset, 2, height=1, block_id=jhelpers.make_block_id(seed))
+              for seed in (b"a", b"b")]
+    jev = JDuplicateVoteEvidence.new(*jvotes, type(jvotes[0].timestamp).from_unix_ns(1_700_000_000_000_000_001),
+                                     jvset)
+    jblock = jmake_block(2, [b"tx-2"], jblocks[0][2], evidence=[jev])
+    jblock.header.chain_id = CHAIN_ID
+    jblock.header.last_block_id = jblocks[0][1]
+    jblock.header.proposer_address = jvset.validators[0].address
+    jparts = JPartSet.from_data(jblock.to_proto_bytes(), part_size=1024)
+    jstore.save_block(jblock, jparts, jblocks[0][2])
+    raw = jstore.load_block(2).to_proto_bytes()
+
     block = Block.from_proto_bytes(raw)
-    # field 3, the EvidenceList, with one (empty) Evidence entry
-    with_evidence = (encode_message_field(1, block.header.to_proto_bytes())
-                     + encode_message_field(2, block.data.to_proto_bytes())
-                     + encode_message_field(3, encode_message_field(1, b""))
-                     + encode_message_field(4, block.last_commit.to_proto_bytes()))
-    with pytest.raises(ValueError, match="item 8c"):
-        Block.from_proto_bytes(with_evidence)
-    with pytest.raises(ValueError, match="item 8c"):
-        make_block(2, [], block.last_commit, evidence=[object()])
-    block.evidence.append(object())
-    with pytest.raises(ValueError, match="item 8c"):
-        block.to_proto_bytes()
+    assert block.to_proto_bytes() == raw and block.hash() == jblock.hash()
+    assert [ev.hash() for ev in block.evidence] == [jev.hash()]
+    assert block.header.evidence_hash == evidence_list_hash(block.evidence) == jblock.evidence_hash()
+    block.validate_basic()
+    ev = evidence_from_proto_bytes(jev.to_proto_bytes())
+    mine = make_block(2, [b"tx-2"], Commit.from_proto_bytes(jblocks[0][2].to_proto_bytes()), evidence=[ev])
+    mine.header.chain_id = CHAIN_ID
+    mine.header.last_block_id = BlockID.from_proto_bytes(jblocks[0][1].to_proto_bytes())
+    mine.header.proposer_address = jvset.validators[0].address
+    assert mine.to_proto_bytes() == raw and mine.hash() == jblock.hash()
+    parts = PartSet.from_data(raw, part_size=1024)
+    assert parts.header().hash == jparts.header().hash
+    store, _, _, _ = _make_saved_chain(1)
+    store.save_block(mine, parts, Commit.from_proto_bytes(jblocks[0][2].to_proto_bytes()))
+    assert store.load_block(2).to_proto_bytes() == raw
+    ev.vote_a, ev.vote_b = ev.vote_b, ev.vote_a  # out of order: validate_basic refuses the block
+    with pytest.raises(ValueError, match="invalid order"):
+        Block.from_proto_bytes(mine.to_proto_bytes()).validate_basic()
 
 
 def _genesis_state(n_vals=3):

@@ -40,18 +40,19 @@ def _line_reader(proc):
 
 def test_parser_defaults_match_the_reference():
     args = build_parser().parse_args(["verifyd"])
-    assert (args.listen, args.port, args.device, args.max_delay, args.admission_cap,
+    assert (args.listen, args.device, args.max_delay, args.admission_cap,
             args.max_pending, args.pipeline_depth, args.tenant_cap, args.tenant_pin_quota,
             args.max_tenants, args.dyn_batch, args.continuous) == (
-        "127.0.0.1:26670", None, None, 0.002, 1024, 4096, 2, 512, 256, 16, "on", "on")
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["verifyd", "--shm", "on"])
+        "127.0.0.1:26670", None, 0.002, 1024, 4096, 2, 512, 256, 16, "on", "on")
+    for flag in (["--shm", "on"], ["--port", "0"]):  # the reference has neither
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(["verifyd"] + flag)
 
 
 def test_verifyd_serves_a_request_and_stops_on_sigterm():
     env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "tendermint_tpu_torch", "verifyd", "--device", "cpu", "--port", "0",
+        [sys.executable, "-m", "tendermint_tpu_torch", "verifyd", "--device", "cpu", "--listen", "127.0.0.1:0",
          "--metrics", "127.0.0.1:0"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )

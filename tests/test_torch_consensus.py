@@ -921,12 +921,15 @@ def test_bad_blocks_still_draw_a_nil_prevote(tmp_path):
 
 def test_phase_15_at_20_validators_on_the_cpu(tmp_path, monkeypatch):
     """``chip_smoke.py`` phase 15 on the CPU: 20 validators (2 silent),
-    3 heights (the third in round 1), a restart and one more height, the
-    spread 0; the store and the device hash forced on and the kernel
-    wrappers counted, so the device tier's flushes reach the plain
-    versions. Then the JAX package checks its chain: the blocks' txs give
-    its kvstore app the same app hashes, and each commit's 18 signatures
-    pass the JAX ``Vote.verify`` one at a time."""
+    7 heights (the third in round 1; the equivocation at 4, its evidence
+    in 5, the unseen evidence in 6, the repeat at 7 in round 1), a
+    restart and one more height, the spread 0; the store and the device
+    hash forced on and the kernel wrappers counted, so the device tier's
+    flushes reach the plain versions. Then the JAX package checks its
+    chain: the blocks' txs give its kvstore app the same app hashes,
+    each commit's 18 signatures pass the JAX ``Vote.verify`` one at a
+    time, and the blocks' evidence decodes in the JAX package to the
+    same hashes."""
     import chip_smoke as cs_mod
     from tendermint_tpu.crypto.keys import Ed25519PubKey as JEd25519PubKey
     from tendermint_tpu_torch.crypto import batch as crypto_batch, ed25519_ref
@@ -944,8 +947,10 @@ def test_phase_15_at_20_validators_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(hash512, "device_hash_enabled", lambda d: d is not None)
     monkeypatch.setattr(device_policy, "shared", device_policy.DeviceHealth())
     monkeypatch.setattr(crypto_batch, "_shared_scheduler", None)
-    for name, value in (("CONSENSUS_VALIDATORS", 20), ("CONSENSUS_SILENT", 2), ("CONSENSUS_HEIGHTS", 3),
+    for name, value in (("CONSENSUS_VALIDATORS", 20), ("CONSENSUS_SILENT", 2), ("CONSENSUS_HEIGHTS", 7),
                         ("CONSENSUS_RESTART_HEIGHTS", 1), ("CONSENSUS_NIL_HEIGHT", 3), ("CONSENSUS_TXS", 20),
+                        ("CONSENSUS_EQUIVOCATION_HEIGHT", 4), ("CONSENSUS_UNSEEN_HEIGHT", 6),
+                        ("CONSENSUS_REPEAT_FROM", 7),
                         ("CONSENSUS_SPREAD_S", 0.0), ("CONSENSUS_SIGNERS", 2),
                         ("CONSENSUS_TIMEOUTS", TimeoutParams(propose=1.0, propose_delta=0.2, vote=0.3,
                                                              vote_delta=0.1, commit=0.1))):
@@ -963,7 +968,7 @@ def test_phase_15_at_20_validators_on_the_cpu(tmp_path, monkeypatch):
     assert counts["verify_resident"] > 0 and counts["challenge"] > 0
     assert cs_mod.check_healthy("phase 15 on the CPU")
     top = block_store.height()
-    assert top == 4 and [harness.committed[h]["round"] for h in (1, 2, 3, 4)] == [0, 0, 1, 0]
+    assert top == 8 and [harness.committed[h]["round"] for h in range(1, 9)] == [0, 0, 1, 0, 0, 0, 1, 0]
 
     japp = JKVStoreApplication()
     japp.init_chain(jabci.RequestInitChain(chain_id=genesis.chain_id, initial_height=1))
@@ -974,6 +979,8 @@ def test_phase_15_at_20_validators_on_the_cpu(tmp_path, monkeypatch):
         app_hash = japp.commit() and japp.info(jabci.RequestInfo()).last_block_app_hash
         want = state_store.load().app_hash if h == top else block_store.load_block(h + 1).header.app_hash
         assert app_hash == want
+        assert [JBlock.from_proto_bytes(block.to_proto_bytes()).evidence_hash()] == [block.header.evidence_hash]
+        assert len(block.evidence) == (1 if h in (5, 6) else 0)
         if h < top:
             jcommit = JCommit.from_proto_bytes(block_store.load_block_commit(h).to_proto_bytes())
             vset = state_store.load_validators(h)

@@ -1,12 +1,15 @@
 """The port's gRPC transport and event loop (``libs/grpc.py``,
 ``libs/evloop.py``) against the JAX package's, on the CPU.
 
-The port's channel calls the JAX server and the JAX channel calls the
-port's server, in both serving modes (the selector event loop and
-thread-per-connection); the reference's frame-level cases
-(CONTINUATION, PADDED, the declared-length cap, truncated HPACK) run
-against the port; and the event loop's slow reader, mid-frame
-disconnect and connection gauge. Every socket wait is bounded.
+The port's channel calls the JAX server in both of its serving modes
+(the selector event loop and thread-per-connection) and the port's
+server, which runs only the event loop; the JAX channel calls the
+port's server; the JAX thread-per-connection server is the
+counterpart of the port's byte-level answers. The reference's
+frame-level cases (CONTINUATION, PADDED, the declared-length cap,
+truncated HPACK) run against the port; and the event loop's slow
+reader, mid-frame disconnect and connection gauge. Every socket wait
+is bounded.
 """
 
 import socket
@@ -24,21 +27,23 @@ from tendermint_tpu_torch.libs.evloop import EvloopServer
 from tendermint_tpu_torch.libs.metrics import EvloopMetrics, Registry
 
 PACKAGES = {"jax": jgrpc, "port": tgrpc}
-CROSS = [("port", "jax"), ("jax", "port")]  # (channel's package, server's package)
 
 
-def _echo_server(pkg, evloop):
+def _echo_server(pkg, evloop=True):
+    """An echo server; ``evloop`` chooses the JAX server's mode (the
+    port's server has only the event loop)."""
     def boom(payload):
         raise RuntimeError("kaput")
 
-    srv = PACKAGES[pkg].GrpcServer({"/t.Svc/Echo": lambda p: p, "/t.Svc/Boom": boom},
-                                   evloop=evloop)
+    handlers = {"/t.Svc/Echo": lambda p: p, "/t.Svc/Boom": boom}
+    srv = jgrpc.GrpcServer(handlers, evloop=evloop) if pkg == "jax" else tgrpc.GrpcServer(handlers)
     srv.start()
     return srv
 
 
-@pytest.mark.parametrize("evloop", [True, False], ids=["evloop", "threaded"])
-@pytest.mark.parametrize("chan_pkg,srv_pkg", CROSS, ids=["port-to-jax", "jax-to-port"])
+@pytest.mark.parametrize("chan_pkg,srv_pkg,evloop", [
+    ("port", "jax", True), ("port", "jax", False), ("jax", "port", True), ("port", "port", True),
+], ids=["port-to-jax-evloop", "port-to-jax-threaded", "jax-to-port-evloop", "port-to-port-evloop"])
 def test_unary_calls_across_the_packages(chan_pkg, srv_pkg, evloop):
     srv = _echo_server(srv_pkg, evloop)
     ch = PACKAGES[chan_pkg].GrpcChannel(*srv.address, timeout=5)
@@ -62,7 +67,9 @@ def test_unary_calls_across_the_packages(chan_pkg, srv_pkg, evloop):
 
 @pytest.mark.parametrize("evloop", [True, False], ids=["evloop", "threaded"])
 def test_both_servers_answer_a_call_with_the_same_bytes(evloop):
-    """The raw response frames of one scripted call are byte-identical."""
+    """The raw response frames of one scripted call are byte-identical:
+    the port's server against the JAX server in the mode ``evloop``
+    names."""
     answers = []
     for pkg in ("jax", "port"):
         srv = _echo_server(pkg, evloop)
@@ -100,19 +107,16 @@ def _frame(ftype, flags, sid, payload):
 
 
 def _drive_server_conn(payload_frames):
-    """Feed raw bytes after the preface into one server connection, run
-    in this thread: it must end as a handled protocol error."""
-    srv = tgrpc.GrpcServer({}, port=0, evloop=False)
-    a, b = socket.socketpair()
-    a.settimeout(5)
-    b.settimeout(5)
+    """Feed raw bytes after the preface into one server connection's
+    machine, in this thread: it must raise a protocol error (the event
+    loop then closes the connection)."""
+    srv = tgrpc.GrpcServer({}, port=0)
+    sent = []
     try:
-        b.sendall(tgrpc.PREFACE + payload_frames)
-        b.shutdown(socket.SHUT_WR)
-        srv._serve_conn(a)
+        machine = tgrpc._H2ServerConn(srv, sent.append)
+        with pytest.raises(tgrpc.H2ProtocolError):
+            machine.feed(tgrpc.PREFACE + payload_frames)
     finally:
-        a.close()
-        b.close()
         srv.stop()
 
 
@@ -145,14 +149,11 @@ def _read_until_status(sock):
 
 
 def _raw_echo_conn():
-    srv = tgrpc.GrpcServer({"/t.Svc/Echo": lambda p: p}, port=0, evloop=False)
-    a, b = socket.socketpair()
-    a.settimeout(5)
-    b.settimeout(5)
-    t = threading.Thread(target=srv._serve_conn, args=(a,), daemon=True)
-    t.start()
+    srv = tgrpc.GrpcServer({"/t.Svc/Echo": lambda p: p}, port=0)
+    srv.start()
+    b = socket.create_connection(srv.address, timeout=5)
     b.sendall(tgrpc.PREFACE)
-    return b, t, srv
+    return b, srv
 
 
 @pytest.mark.parametrize("frames", [
@@ -187,7 +188,7 @@ def test_strip_padding_and_read_frame_reject_malformed():
 
 
 def test_server_assembles_continuation_and_padded_frames():
-    b, t, srv = _raw_echo_conn()
+    b, srv = _raw_echo_conn()
     try:
         block = tgrpc.hpack_encode([(":method", "POST"), (":path", "/t.Svc/Echo")])
         # request headers split across HEADERS + CONTINUATION
@@ -212,7 +213,6 @@ def test_server_assembles_continuation_and_padded_frames():
         assert status == 0 and tgrpc.grpc_unframe(data) == b"pad-me"
     finally:
         b.close()
-        t.join(timeout=5)
         srv.stop()
 
 
@@ -247,16 +247,16 @@ def test_client_reads_trailers_split_across_continuation():
         b.close()
 
 
-def test_client_and_server_sockets_set_tcp_nodelay():
-    srv = tgrpc.GrpcServer({"/t.Svc/Echo": lambda p: p}, evloop=False)
+def test_client_and_server_sockets_set_tcp_nodelay(monkeypatch):
     seen = []
-    real = srv._serve_conn
 
-    def spy(sock):
-        seen.append(sock)
-        real(sock)
+    class Spy(tgrpc._H2Protocol):
+        def __init__(self, server, transport):
+            seen.append(transport.sock)
+            super().__init__(server, transport)
 
-    srv._serve_conn = spy
+    monkeypatch.setattr(tgrpc, "_H2Protocol", Spy)
+    srv = tgrpc.GrpcServer({"/t.Svc/Echo": lambda p: p})
     srv.start()
     ch = tgrpc.GrpcChannel(*srv.address, timeout=5)
     try:
@@ -354,20 +354,23 @@ def test_evloop_connection_gauge_tracks_sockets():
 
 @pytest.mark.parametrize("evloop", [True, False], ids=["evloop", "threaded"])
 def test_server_survives_mid_frame_disconnects(evloop):
-    srv = _echo_server("port", evloop)
-    try:
-        for torn in (b"", tgrpc.PREFACE[:7], tgrpc.PREFACE + b"\x00\x00",
-                     tgrpc.PREFACE + b"\x00\x00\x20\x01\x04\x00\x00\x00\x01"):
-            with socket.create_connection(srv.address, timeout=5) as c:
-                if torn:
-                    c.sendall(torn)
-        ch = tgrpc.GrpcChannel(*srv.address, timeout=5)
+    """The port's server, and beside it the JAX server in the mode
+    ``evloop`` names, answer after the same torn connections."""
+    for pkg in ("jax", "port"):
+        srv = _echo_server(pkg, evloop)
         try:
-            assert ch.unary("/t.Svc/Echo", b"still alive") == b"still alive"
+            for torn in (b"", tgrpc.PREFACE[:7], tgrpc.PREFACE + b"\x00\x00",
+                         tgrpc.PREFACE + b"\x00\x00\x20\x01\x04\x00\x00\x00\x01"):
+                with socket.create_connection(srv.address, timeout=5) as c:
+                    if torn:
+                        c.sendall(torn)
+            ch = tgrpc.GrpcChannel(*srv.address, timeout=5)
+            try:
+                assert ch.unary("/t.Svc/Echo", b"still alive") == b"still alive"
+            finally:
+                ch.close()
         finally:
-            ch.close()
-    finally:
-        srv.stop()
+            srv.stop()
 
 
 def test_evloop_metrics_families_are_the_reference_s():

@@ -271,7 +271,7 @@ def test_the_verify_service_modules_are_checked_and_default_to_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="cuda"):
         VerifydServer()
     with pytest.raises(RuntimeError, match="cuda"):
-        cli.main(["verifyd", "--port", "0"])
+        cli.main(["verifyd", "--listen", "127.0.0.1:0"])
     srv = VerifydServer(device="cpu")
     try:
         assert srv.device == torch.device("cpu") and srv.dyn_batch
