@@ -227,6 +227,36 @@ and, in order:
    defaults filled with 5,000 45-byte kvstore txs from 4 threads, reaped
    at the default block max_bytes, updated with 2,000 and the other
    3,000 rechecked (no launch);
+17. nodes on the port's p2p stack: 17a, cluster-4 (the e2e CI manifest
+   cut to what the port has): four validators of power 10 with the
+   default consensus params and a full node that starts at height 4 and
+   block-syncs in, each a ``Node`` with a ``LocalClient`` kvstore on one
+   ``MemoryNetwork``, found through one persistent peer and PEX; kvstore
+   txs through ``Node.submit_tx`` at 3 a second on the connected nodes
+   in turn until height 20; checked: the five stores agree on every block
+   and app hash, every tx committed once, the full node synced through
+   its ``BlockSyncReactor`` and switched to consensus, no ``Node.failed``;
+   it prints the block interval (mean, σ, min, max), the
+   submit-to-committed latency and the launches and tiers. 17b,
+   node-p2p-sync-64x500 (BASELINE config 4 as a node joins): phase 14's
+   source chain served by two peers, each in a process of its own (a
+   ``Router`` over ``TCPTransport``, SecretConnection and MConnection at
+   the default rates, a ``BlockSyncReactor(syncer=None)`` over a copy of
+   the source's store) to fresh ``Node``s (non-validator, block sync,
+   memdb, no WAL, a new node key) that sync 64 blocks and switch to
+   consensus: one cold run (table builds, store uploads), 3 timed runs
+   with the verdict cache emptied (blocks/s from ``Node.start()`` to the
+   caught-up event, beside phase 14's in-process rate; the handshakes,
+   the node's and the peers' seal and open, fetch and decode, the
+   pipeline, ``validate_block``, FinalizeBlock and the saves; bytes by
+   channel; no table build), a run with a third peer that corrupts a
+   signature of one block (banned, the block never saved), the health
+   machine checked, and a run with a permanent device fault after the
+   first window (the ``DeviceFault`` in ``Node.failed``, raised by
+   ``Node.stop()``, no later block saved, the health machine showing
+   that failure alone; reset after, as phase 6 does); then a block's
+   store load, proto encode and decode and its frames' seal and open,
+   timed on one thread;
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -245,7 +275,8 @@ phase 4b (K1-K4), and again around each of phases 5 (K5, and the
 ed25519 kernels of the mixed commit), 5c, 7, 8, 9, 10, 11, 12, 13 (whose
 count is that of the served requests only: each sub-phase's deltas around
 what a server answered, without the in-process references, plus the
-daemon's own of 13e), 14 and 15, and around 16a-c together. After each
+daemon's own of 13e), 14 and 15, around 16a-c together and around 17a-b
+together. After each
 of these the health machine
 must show no host fallback, no transition and the healthy state (in
 phase 13 after 13b, and after 13c has reset it). Each phase prints one JSON line; then the kernel table,
@@ -424,6 +455,23 @@ MEMPOOL_TXS = 5000
 MEMPOOL_THREADS = 4
 MEMPOOL_COMMITTED = 2000
 MEMPOOL_REAP_BYTES = 22_020_096
+# Phase 17a, cluster-4: the e2e CI manifest (tendermint_tpu/e2e/networks/
+# ci.toml) cut to what the port has: four validators and a full node that
+# starts at height 4, kvstore txs at the manifest's load_tx_per_sec, on
+# the port's MemoryNetwork, until height 20. Default consensus params.
+CLUSTER_CHAIN_ID = "ci-e2e"
+CLUSTER_VALIDATORS = 4
+CLUSTER_POWER = 10
+CLUSTER_START_AT = 4
+CLUSTER_HEIGHTS = 20
+CLUSTER_TX_PER_S = 3.0
+CLUSTER_WAIT_S = 120.0  # the longest a wait of the phase may take
+# Phase 17b, node-p2p-sync-64x500: phase 14's source chain served over
+# encrypted TCP by two peers to fresh nodes (BASELINE config 4 as a node
+# joins its network).
+P2P_SYNC_PEERS = 2
+P2P_SYNC_REPS = 3
+P2P_SYNC_WAIT_S = 120.0
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -4399,7 +4447,7 @@ def phase_node_blocksync(source, dev):
                            "validate_block_refused": rejected},
           "launches": counts, "store": resident.stats()})
     precompute.reset()
-    return counts
+    return counts, blocks_per_s
 
 
 # --- phase 15 ------------------------------------------------------------------
@@ -5469,6 +5517,654 @@ def phase_mempool():
 
 
 
+# --- phase 17 ------------------------------------------------------------------
+
+
+def node_sinks():
+    """The process-wide sinks a ``Node`` binds (the tracer's metrics
+    observer and profile sink, the profiler's switch): saved before phase
+    17's nodes, put back after them by :func:`restore_node_sinks`."""
+    from tendermint_tpu_torch.libs import tracing
+    from tendermint_tpu_torch.ops import introspect
+
+    return tracing.tracer._observer, tracing.tracer._profile, introspect.profiler._enabled
+
+
+def restore_node_sinks(saved):
+    from tendermint_tpu_torch import ops as tops
+    from tendermint_tpu_torch.libs import tracing
+    from tendermint_tpu_torch.ops import introspect
+
+    observer, profile, enabled = saved
+    introspect.profiler._enabled = enabled
+    tracing.tracer.set_metrics_observer(observer)
+    tracing.tracer.set_profile_sink(profile)
+    tops.bind_metrics(None)
+
+
+def wait_until(fn, timeout, what, interval=0.01):
+    """Wait for ``fn()``; fail after ``timeout`` s with ``what`` (a string,
+    or a callable that gives one)."""
+    deadline = time.perf_counter() + timeout
+    while not fn():
+        if time.perf_counter() >= deadline:
+            check(False, f"timed out after {timeout} s: {what() if callable(what) else what}")
+        time.sleep(interval)
+
+
+def phase_cluster(dev):
+    """17a, cluster-4: the e2e CI manifest (``ci.toml``) cut to what the
+    port has. Four validators of power CLUSTER_POWER with the default
+    consensus params and a full node that starts at height
+    CLUSTER_START_AT and block-syncs in, all ``Node``s on one
+    ``MemoryNetwork``, found through one persistent peer and PEX, each
+    with a ``LocalClient`` kvstore; kvstore txs through ``Node.submit_tx``
+    at CLUSTER_TX_PER_S, on the nodes in turn, until height
+    CLUSTER_HEIGHTS. Returns the phase's launch counts."""
+    import tempfile
+
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.p2p.transport import MemoryNetwork
+    from tendermint_tpu_torch.privval import FilePV
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    home = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+    rng = np.random.default_rng(SEED + 17)
+    privs = [FilePV.generate(os.path.join(home, f"k{i}.json"), os.path.join(home, f"s{i}.json"))
+             for i in range(CLUSTER_VALIDATORS)]
+    genesis = GenesisDoc(chain_id=CLUSTER_CHAIN_ID, genesis_time=Timestamp.from_unix_ns(time.time_ns()),
+                         validators=[GenesisValidator(pv.get_pub_key(), CLUSTER_POWER) for pv in privs])
+    net = MemoryNetwork()
+    nodes = []
+
+    def make(name, pv, peers, blocksync=True):
+        node = Node(NodeConfig(chain_id=CLUSTER_CHAIN_ID, listen_addr=name, moniker=name, persistent_peers=peers,
+                               blocksync=blocksync),
+                    genesis, LocalClient(KVStoreApplication()), priv_validator=pv, memory_network=net, device=dev)
+        nodes.append(node)
+        return node
+
+    before = ingest_counters()
+    t_phase = time.perf_counter()
+    v0 = make("v0", privs[0], [])
+    seed_peer = [f"{v0.node_key.node_id}@v0"]
+    for i in range(1, CLUSTER_VALIDATORS):
+        make(f"v{i}", privs[i], seed_peer)
+    validators = list(nodes)
+    submitted, submitted_to, committed, errors = {}, {}, {}, []
+    stop, stop_watching = threading.Event(), threading.Event()
+
+    def load():
+        """CLUSTER_TX_PER_S txs a second, on the started nodes with a peer
+        in turn (the mempool reactor gossips a tx when it is admitted, not
+        to peers that connect later, so a tx given to a full node with no
+        peer yet would stay there)."""
+        period, i = 1.0 / CLUSTER_TX_PER_S, 0
+        next_t = time.perf_counter()
+        while not stop.is_set():
+            live = [n for n in nodes if n._started and n.router.connected_peers()] or [v0]
+            tx = b"cluster-%05d=%s" % (i, rng.bytes(8).hex().encode())
+            node = live[i % len(live)]
+            submitted[tx] = time.perf_counter()
+            submitted_to[tx] = node.config.moniker
+            try:
+                node.submit_tx(tx)
+            except Exception as exc:  # the phase checks what escaped
+                errors.append(repr(exc))
+            i += 1
+            next_t += period
+            stop.wait(max(0.0, next_t - time.perf_counter()))
+
+    def watch():
+        """Each block as v0 stores it: the host time its txs were committed."""
+        seen = 0
+        while not stop_watching.is_set() or seen < v0.height:
+            while seen < v0.height:
+                seen += 1
+                now = time.perf_counter()
+                for tx in v0.block_store.load_block(seen).data.txs:
+                    committed.setdefault(bytes(tx), []).append((seen, now))
+            time.sleep(0.005)
+
+    full = None
+    loader, watcher = threading.Thread(target=load), threading.Thread(target=watch)
+    try:
+        for node in validators:
+            node.start()
+        loader.start()
+        watcher.start()
+        wait_until(lambda: v0.height >= CLUSTER_START_AT, CLUSTER_WAIT_S, "phase 17a: the start height")
+        full = make("full", None, seed_peer)
+        full_started_at = v0.height
+        full.start()
+        wait_until(lambda: v0.height >= CLUSTER_HEIGHTS, CLUSTER_WAIT_S, "phase 17a: the last height")
+        stop.set()
+        loader.join(10)
+        wait_until(lambda: all(tx in committed for tx in submitted), CLUSTER_WAIT_S,
+                   lambda: "phase 17a: every tx committed; missing (tx, node, mempools holding it): "
+                   + repr([(tx, submitted_to[tx], [n.config.moniker for n in nodes if tx in n.mempool.tx_list()])
+                           for tx in submitted if tx not in committed][:5]))
+        wait_until(lambda: full.height >= CLUSTER_HEIGHTS, CLUSTER_WAIT_S,
+                   lambda: "phase 17a: the full node's height: " + repr(
+                       {"height": full.height, "caught_up": full.caught_up, "failed": full.failed,
+                        "synced_to": full.syncer.state.last_block_height, "syncer_error": full.syncer.error,
+                        "round_state": full.consensus.rs.height_round_step(), "cs_error": full.consensus.error,
+                        "peers": len(full.router.connected_peers()), "v0": v0.height}))
+        peers = [len(n.router.connected_peers()) for n in nodes]
+    finally:
+        stop.set()
+        stop_watching.set()
+        watcher.join(10)
+        stopped = []
+        for node in nodes:
+            try:
+                node.stop()
+                stopped.append(None)
+            except Exception as exc:  # the phase checks what escaped
+                stopped.append(repr(exc))
+    wall = time.perf_counter() - t_phase
+    counts = ingest_delta(before)
+    check(not errors and stopped == [None] * len(nodes) and all(n.failed is None for n in nodes),
+          f"phase 17a: submit errors {errors[:3]}, stop {stopped}, failed {[n.failed for n in nodes]}")
+    last = min(n.height for n in nodes)
+    for h in range(1, last + 1):
+        metas = [n.block_store.load_block_meta(h) for n in nodes]
+        app_hashes = {n.block_store.load_block(h).header.app_hash for n in nodes}
+        check(len({m.block_id for m in metas}) == 1 and len(app_hashes) == 1,
+              f"phase 17a: the nodes disagree at height {h}")
+    counted = {}
+    for h in range(1, v0.height + 1):
+        for tx in v0.block_store.load_block(h).data.txs:
+            counted[bytes(tx)] = counted.get(bytes(tx), 0) + 1
+    check(all(counted.get(tx) == 1 for tx in submitted) and set(counted) == set(submitted),
+          f"phase 17a: {sum(1 for tx in submitted if counted.get(tx) != 1)} of {len(submitted)} txs "
+          "not committed exactly once")
+    synced_to = full.syncer.state.last_block_height
+    check(full.caught_up and synced_to >= CLUSTER_START_AT - 1,
+          f"phase 17a: the full node did not block-sync in (synced to {synced_to}, started at {full_started_at})")
+    times = [v0.block_store.load_block(h).header.time.to_unix_ns() / 1e9 for h in range(1, CLUSTER_HEIGHTS + 1)]
+    intervals = [b - a for a, b in zip(times, times[1:])]
+    lat = [committed[tx][0][1] - t for tx, t in submitted.items()]
+    out = {
+        "phase": "cluster", "validators": CLUSTER_VALIDATORS, "full_nodes": 1, "heights": CLUSTER_HEIGHTS,
+        "last_common_height": last, "full_node_started_at": full_started_at, "full_node_synced_to": synced_to,
+        "block_interval_s": {"mean": statistics.mean(intervals), "stdev": statistics.pstdev(intervals),
+                             "min": min(intervals), "max": max(intervals), "n": len(intervals)},
+        "txs_submitted": len(submitted), "txs_committed": len(counted), "tx_per_s": CLUSTER_TX_PER_S,
+        "submit_to_committed_ms": {"p50": percentile(lat, 0.5) * 1e3, "p99": percentile(lat, 0.99) * 1e3,
+                                   "max": max(lat) * 1e3},
+        "peers": peers, "wall_s": wall,
+        "launches": counts["launches"], "verifier_lanes": counts["cache"]["misses"],
+        "verdict_cache_answered": counts["cache"]["hits"], "host_tier_lanes": counts["tiers"]["host"],
+        "device_tier_lanes": counts["tiers"]["device"], "host_tier_s": counts["tier_s"]["host"],
+        "device_tier_s": counts["tier_s"]["device"],
+    }
+    emit(out)
+    shutil.rmtree(home, ignore_errors=True)
+    return counts["launches"]
+
+
+class ServingPeer:
+    """A peer that only serves blocks: a ``Router`` over ``TCPTransport``
+    (SecretConnection and MConnection at the default rates) with a
+    ``BlockSyncReactor(syncer=None)`` over ``store``."""
+
+    def __init__(self, store, name):
+        from tendermint_tpu_torch.blocksync.reactor import BlockSyncReactor
+        from tendermint_tpu_torch.p2p.key import NodeKey
+        from tendermint_tpu_torch.p2p.mconn import MConnConfig
+        from tendermint_tpu_torch.p2p.peermanager import PeerManager
+        from tendermint_tpu_torch.p2p.router import Router
+        from tendermint_tpu_torch.p2p.transport import NodeInfo, TCPTransport
+
+        self.key = NodeKey.generate()
+        self.transport = TCPTransport(self.key, mconn_config=MConnConfig())
+        self.transport.listen("127.0.0.1:0")
+        self.router = Router(NodeInfo(self.key.node_id, CHAIN_ID, moniker=name,
+                                      listen_addr=self.transport.listen_addr),
+                             PeerManager(self.key.node_id), self.transport)
+        self.reactor = BlockSyncReactor(None, store, self.router)
+        self.addr = f"{self.key.node_id}@{self.transport.listen_addr}"
+        self.router.start()
+        self.reactor.start()
+
+    def stop(self):
+        self.reactor.stop()
+        self.router.stop()
+
+
+class CorruptingStore:
+    """The store of a peer that corrupts signature 0 of the LastCommit of
+    the first block it serves above height 1, and serves the rest as it is."""
+
+    def __init__(self, store):
+        self.store, self.corrupted = store, None
+
+    def base(self):
+        return self.store.base()
+
+    def height(self):
+        return self.store.height()
+
+    def load_block(self, height):
+        block = self.store.load_block(height)
+        if block is not None and self.corrupted is None and height >= 2:
+            sig = block.last_commit.signatures[0].signature
+            block.last_commit.signatures[0].signature = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+            block.last_commit._hash = None
+            self.corrupted = height
+        return block
+
+
+AEAD_ZERO = {"seal_s": 0.0, "open_s": 0.0, "sealed_frames": 0, "opened_frames": 0}
+
+
+def timed_aead(acc, lock):
+    """Patch ``ChaCha20Poly1305.seal_many`` and ``open_many`` of this
+    process to add their seconds and frames to ``acc`` (keys of
+    :data:`AEAD_ZERO`) under ``lock``. Returns a callable that undoes it."""
+    from tendermint_tpu_torch.crypto.chacha20poly1305 import ChaCha20Poly1305
+
+    reals = {op: getattr(ChaCha20Poly1305, op + "_many") for op in ("seal", "open")}
+
+    def timed(real, op):
+        def run(self, nonces, frames, *args):
+            t = time.perf_counter()
+            try:
+                return real(self, nonces, frames, *args)
+            finally:
+                with lock:
+                    acc[op + "_s"] += time.perf_counter() - t
+                    acc[op + "ed_frames"] += len(frames)
+
+        return run
+
+    for op, real in reals.items():
+        setattr(ChaCha20Poly1305, op + "_many", timed(real, op))
+
+    def undo():
+        for op, real in reals.items():
+            setattr(ChaCha20Poly1305, op + "_many", real)
+
+    return undo
+
+
+def serving_peer_process(conn, items, name, corrupt):
+    """A :class:`ServingPeer` in a process of its own, as a joining node's
+    peers are: ``items`` is the ``(data, keys)`` of its store's ``MemDB``,
+    and ``corrupt`` wraps the store in a :class:`CorruptingStore`. Sends
+    its address and node ID; then answers ``"stats"`` with the seconds and
+    frames its AEAD sealed and opened since the last answer, and
+    ``"stop"`` with those and the height it corrupted, and stops."""
+    from tendermint_tpu_torch.storage.blockstore import BlockStore
+    from tendermint_tpu_torch.storage.kv import MemDB
+
+    lock, acc = threading.Lock(), dict(AEAD_ZERO)
+    timed_aead(acc, lock)
+    db = MemDB()
+    db._data, db._keys = items
+    store = BlockStore(db)
+    if corrupt:
+        store = CorruptingStore(store)
+    peer = ServingPeer(store, name)
+    conn.send((peer.addr, peer.key.node_id))
+
+    def read():
+        with lock:
+            out = dict(acc)
+            acc.update(AEAD_ZERO)
+        return out
+
+    try:
+        while conn.recv() != "stop":
+            conn.send(read())
+    finally:
+        peer.stop()
+    conn.send({**read(), "corrupted": getattr(store, "corrupted", None)})
+
+
+class PeerProcess:
+    """The phase's handle on a :func:`serving_peer_process` over a copy
+    of ``store``: started at construction, ``ready()`` waits for its
+    address, ``stats()`` asks for its AEAD's seconds and frames, and
+    ``stop()`` ends the process (its last answer, or None)."""
+
+    def __init__(self, store, name, corrupt=False):
+        ctx = multiprocessing.get_context("spawn")
+        self.name = name
+        self.conn, child = ctx.Pipe()
+        with store._db._lock:
+            items = (dict(store._db._data), list(store._db._keys))
+        self.proc = ctx.Process(target=serving_peer_process, args=(child, items, name, corrupt), name=name,
+                                daemon=True)
+        self.proc.start()
+        child.close()
+        self.addr = self.node_id = None
+
+    def _answer(self, timeout=30):
+        check(self.conn.poll(timeout), f"phase 17b: serving peer {self.name} did not answer")
+        return self.conn.recv()
+
+    def ready(self, timeout=120):
+        self.addr, self.node_id = self._answer(timeout)
+
+    def stats(self):
+        self.conn.send("stats")
+        return self._answer()
+
+    def stop(self):
+        last = None
+        try:
+            if self.proc.is_alive():
+                self.conn.send("stop")
+                if self.conn.poll(30):
+                    last = self.conn.recv()
+        except (OSError, EOFError):
+            pass
+        self.proc.join(30)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(5)
+        return last
+
+
+def peers_aead(peers):
+    """The serving peers' AEAD since their last answer, summed."""
+    out = dict(AEAD_ZERO)
+    for p in peers:
+        for k, v in p.stats().items():
+            out[k] += v
+    return out
+
+
+def p2p_follow(source, peers, dev, clock=None, fault=False):
+    """A fresh ``Node`` (non-validator, block sync on, memdb, no WAL, a new
+    node key, ``persistent_peers`` the serving ``peers``) syncing from
+    them over encrypted TCP until it switches to consensus. With
+    ``clock`` (a :class:`StageClock`) its stages are timed; with
+    ``fault``, a permanent device fault is installed once its first
+    window is applied. Returns the node (stopped), the wall seconds from
+    ``Node.start()`` to the caught-up event (or to the failure), and a
+    log (the handshakes, with ``clock`` the node's AEAD seconds and
+    frames, the height the fault came at, what ``stop()`` raised)."""
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.blocksync import syncer as syncer_mod
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.ops import fault_injection
+    from tendermint_tpu_torch.p2p import transport as transport_mod
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.types import validation
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    genesis_json = source[0]
+    node = Node(NodeConfig(chain_id=CHAIN_ID, listen_addr="127.0.0.1:0", wal_enabled=False, moniker="follower",
+                           persistent_peers=[p.addr for p in peers]),
+                GenesisDoc.from_json(genesis_json), LocalClient(KVStoreApplication()), device=dev)
+    log = {"handshakes_ms": [], "fault_at": None, "stop_raised": None}
+    patches = []
+    undo_aead = None
+
+    def patch(obj, name, fn):
+        patches.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, fn)
+
+    real_handshake = transport_mod._TCPConn.handshake
+
+    def handshake(conn, info):
+        t = time.perf_counter()
+        try:
+            return real_handshake(conn, info)
+        finally:
+            if conn._node_key.node_id == node.node_key.node_id:
+                log["handshakes_ms"].append((time.perf_counter() - t) * 1e3)
+
+    patch(transport_mod._TCPConn, "handshake", handshake)
+    if clock is not None:
+        for mod, name, key in ((syncer_mod, "verify_commits_pipelined", "pipeline"),
+                               (execution, "validate_block", "validate_block"),
+                               (validation, "verify_commit", "verify_commit")):
+            fn = getattr(mod, name)
+            patch(mod, name, clock.wrap(key, clock.counted(fn) if key == "verify_commit" else fn))
+        # the serving peers run in processes of their own: this process's
+        # AEAD is the node's
+        log["aead"] = dict(AEAD_ZERO)
+        undo_aead = timed_aead(log["aead"], threading.Lock())
+        ex = node.block_exec
+        patch(ex, "apply_block", clock.wrap("apply_block", ex.apply_block))
+        patch(ex.app, "finalize_block", clock.wrap("finalize_block", ex.app.finalize_block))
+        patch(ex.block_store, "save_block", clock.wrap("save_block", ex.block_store.save_block))
+        patch(ex.state_store, "save", clock.wrap("save_state", ex.state_store.save))
+        patch(node.blocksync_reactor, "_handle", clock.wrap("fetch_decode", node.blocksync_reactor._handle))
+    if fault:
+        real_apply = node.syncer._apply_ready_blocks
+
+        def apply_then_fault():
+            applied = real_apply()
+            if applied and log["fault_at"] is None:
+                log["fault_at"] = node.block_store.height()
+                fault_injection.install(fault_injection.FaultPlan(site="ed25519", fail_from=1, fail_count=1 << 30,
+                                                                  permanent=True))
+            return applied
+
+        node.syncer._apply_ready_blocks = apply_then_fault
+    try:
+        t = time.perf_counter()
+        node.start()
+        wait_until(lambda: node.caught_up or node.failed is not None, P2P_SYNC_WAIT_S,
+                   "phase 17b: the follower's catch-up")
+        wall = time.perf_counter() - t
+        if fault:
+            # the syncer's thread has ended on the fault: no block after it
+            wait_until(lambda: not node.syncer._thread or not node.syncer._thread.is_alive(), 30,
+                       "phase 17b: the syncer's thread after the fault")
+            time.sleep(0.5)
+    finally:
+        fault_injection.uninstall()
+        try:
+            node.stop()
+        except Exception as exc:  # the phase checks what escaped
+            log["stop_raised"] = exc
+        for obj, name, fn in reversed(patches):
+            setattr(obj, name, fn)
+        if undo_aead is not None:
+            undo_aead()
+    return node, wall, log
+
+
+def p2p_bytes(node):
+    """Bytes by channel the node received and sent (``P2PMetrics``)."""
+    m = node.p2p_metrics
+    out = {}
+    for cid in (0x00, 0x20, 0x21, 0x22, 0x23, 0x30, 0x38, 0x40):
+        rx = m.message_receive_bytes_total.value(chID=str(cid))
+        tx = m.message_send_bytes_total.value(chID=str(cid))
+        if rx or tx:
+            out[f"{cid:#04x}"] = {"received": int(rx), "sent": int(tx)}
+    return out
+
+
+def host_costs_one_thread(store):
+    """What p2p adds per block, timed on one thread of the card's host
+    with no other thread busy: the serving side's ``load_block`` from its
+    store and proto encode, the node's proto decode, and the AEAD sealing
+    and opening the frames of one block response (the block of median
+    size). Medians over the chain; the AEAD over 5 passes."""
+    import struct
+
+    from tendermint_tpu_torch.blocksync.reactor import TAG_BLOCK_RESPONSE
+    from tendermint_tpu_torch.crypto.chacha20poly1305 import ChaCha20Poly1305
+    from tendermint_tpu_torch.p2p import secret_connection as sc
+    from tendermint_tpu_torch.types.block import Block
+
+    load, enc, dec, raws = [], [], [], []
+    for h in range(1, NODE_SYNC_TO + 1):
+        t0 = time.perf_counter()
+        block = store.load_block(h)
+        t1 = time.perf_counter()
+        raw = block.to_proto_bytes()
+        t2 = time.perf_counter()
+        Block.from_proto_bytes(raw)
+        t3 = time.perf_counter()
+        load.append(t1 - t0)
+        enc.append(t2 - t1)
+        dec.append(t3 - t2)
+        raws.append(raw)
+    raw = sorted(raws, key=len)[len(raws) // 2]
+    msg = bytes([TAG_BLOCK_RESPONSE]) + raw
+    frames = sc._frames(struct.pack("<I", len(msg)) + msg)
+    nonces = [sc._nonce(i) for i in range(len(frames))]
+    aead = ChaCha20Poly1305(bytes(range(32)))
+    seal, open_ = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sealed = aead.seal_many(nonces, frames)
+        t1 = time.perf_counter()
+        opened = aead.open_many(nonces, sealed)
+        t2 = time.perf_counter()
+        check(opened == frames, "phase 17b: the AEAD did not open what it sealed")
+        seal.append(t1 - t0)
+        open_.append(t2 - t1)
+    return {"block_bytes_median": len(raw), "load_block_ms_median": statistics.median(load) * 1e3,
+            "encode_ms_median": statistics.median(enc) * 1e3, "decode_ms_median": statistics.median(dec) * 1e3,
+            "frames_a_block": len(frames), "seal_ms_a_frame": statistics.median(seal) * 1e3 / len(frames),
+            "open_ms_a_frame": statistics.median(open_) * 1e3 / len(frames)}
+
+
+def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
+    """17b, node-p2p-sync-64x500 (BASELINE config 4 as a node joins): phase
+    14's source chain served by P2P_SYNC_PEERS ``ServingPeer``s, each in a
+    process of its own over its own copy of the source's block store
+    (:class:`PeerProcess`); fresh ``Node``s sync NODE_SYNC_TO blocks from
+    them over encrypted TCP and switch to consensus. One cold run (the
+    host's table builds and the store's uploads), P2P_SYNC_REPS timed runs
+    (the verdict cache emptied before each; no table build), a run with a
+    third peer that serves one block with a corrupted signature (banned,
+    its block never saved), the health machine checked, and a run with a
+    permanent device fault installed after the first window (the
+    ``DeviceFault`` ends in ``Node.failed`` and ``Node.stop()`` raises
+    it; the health machine shows that one permanent failure and no
+    fallback, and is reset after, as phase 6 does). Then the per-block
+    host costs on one thread (:func:`host_costs_one_thread`). Returns the
+    phase's launch counts."""
+    from tendermint_tpu_torch.ops import device_policy, precompute, resident
+    from tendermint_tpu_torch.ops.fault_injection import DeviceFault
+
+    _, src_exec = source[:2]
+
+    def store_delta(before):
+        after = resident.stats()
+        return {k: after[k] - before[k] for k in ("uploads", "h2d_bytes", "invalidations")}
+
+    phase_store = resident.stats()
+    t = time.perf_counter()
+    peers = [PeerProcess(src_exec.block_store, f"peer{i}") for i in range(P2P_SYNC_PEERS)]
+    bad = PeerProcess(src_exec.block_store, "corrupting", corrupt=True)
+    bad_last = None
+    try:
+        for p in [*peers, bad]:
+            p.ready()
+        peers_start_s = time.perf_counter() - t
+        before, builds, store = launches(), precompute.tables.builds, resident.stats()
+        node, cold_s, cold_log = p2p_follow(source, peers, dev)
+        check(node.failed is None and cold_log["stop_raised"] is None and node.caught_up
+              and node.syncer.state.last_block_height == NODE_SYNC_TO,
+              f"phase 17b cold run: failed {node.failed!r}, height {node.height}")
+        check_converged(source, node.block_exec, node.syncer.state, "phase 17b cold run")
+        cold = {"s": cold_s, "launches": delta(before), "handshakes_ms": cold_log["handshakes_ms"],
+                "table_builds": precompute.tables.builds - builds, "store": store_delta(store)}
+        peers_aead(peers)  # the cold run's
+        before, builds, store = launches(), precompute.tables.builds, resident.stats()
+        walls, clocks, logs, nodes, served = [], [], [], [], []
+        for _ in range(P2P_SYNC_REPS):
+            precompute.results.clear()
+            clock = StageClock()
+            node, wall, log = p2p_follow(source, peers, dev, clock)
+            served.append(peers_aead(peers))
+            check(node.failed is None and log["stop_raised"] is None and node.caught_up
+                  and node.syncer.state.last_block_height == NODE_SYNC_TO,
+                  f"phase 17b timed run: failed {node.failed!r}, stop raised {log['stop_raised']!r}")
+            check_converged(source, node.block_exec, node.syncer.state, "phase 17b timed run")
+            walls.append(wall)
+            clocks.append(clock)
+            logs.append(log)
+            nodes.append(node)
+        timed_launches = delta(before)
+        timed_store = store_delta(store)
+        check(timed_launches.get("verify_resident", 0) > 0, f"phase 17b launched no K3: {timed_launches}")
+        check(precompute.tables.builds == builds, "phase 17b: table builds after the cold run")
+
+        # a third peer corrupts a signature of one block's LastCommit
+        precompute.results.clear()
+        node, corrupt_s, corrupt_log = p2p_follow(source, [*peers, bad], dev)
+        banned = sorted(node.syncer.pool._banned)
+        bad_last = bad.stop()
+        corrupted = bad_last and bad_last["corrupted"]
+        check(node.failed is None and node.caught_up and corrupted is not None and bad.node_id in banned,
+              f"phase 17b corrupting peer: corrupted {corrupted}, banned {banned}, failed {node.failed!r}")
+        saved = node.block_store.load_block(corrupted).last_commit.signatures[0].signature
+        check(saved == src_exec.block_store.load_block(corrupted).last_commit.signatures[0].signature,
+              f"phase 17b corrupting peer: the corrupted block {corrupted} was saved")
+        check_converged(source, node.block_exec, node.syncer.state, "phase 17b corrupting-peer run")
+        # every run so far without a fallback or a health transition
+        check_healthy("phase 17b before its fault run")
+
+        # a permanent device fault after the first window
+        precompute.results.clear()
+        node, fault_s, fault_log = p2p_follow(source, peers, dev, fault=True)
+        check(isinstance(node.failed, DeviceFault) and node.failed.permanent
+              and fault_log["stop_raised"] is node.failed and fault_log["fault_at"] is not None
+              and node.height == fault_log["fault_at"] and not node.caught_up,
+              f"phase 17b fault: failed {node.failed!r}, stop raised {fault_log['stop_raised']!r}, "
+              f"fault at {fault_log['fault_at']}, height {node.height}")
+        fault_snapshot = device_policy.shared.snapshot()
+        check(fault_snapshot["state"] == "disabled" and fault_snapshot["transitions"] == [("healthy", "disabled")]
+              and fault_snapshot["fallback_batches"] == 0 and not any(fault_snapshot["fallback_lanes"].values())
+              and fault_snapshot["failures"]["transient"] == 0 and fault_snapshot["failures"]["permanent"] >= 1,
+              f"phase 17b fault: the health machine shows more than the permanent failure: {fault_snapshot}")
+        device_policy.shared.reset()
+    finally:
+        for p in peers:
+            p.stop()
+        if bad_last is None:
+            bad.stop()
+    host_costs = host_costs_one_thread(src_exec.block_store)
+    i = walls.index(statistics.median(walls))
+    keys = ("fetch_decode", "pipeline", "validate_block", "verify_commit", "apply_block",
+            "finalize_block", "save_block", "save_state")
+    split = {k + "_ms": clocks[i].seconds.get(k, 0.0) * 1e3 for k in keys}
+    node_aead, peer_aead = logs[i]["aead"], served[i]
+    blocks_per_s = NODE_SYNC_TO / statistics.median(walls)
+    counts = launches()
+    emit({"phase": "node_p2p_sync", "blocks": NODE_SYNC_TO, "validators": NODE_VALIDATORS,
+          "serving_peers": P2P_SYNC_PEERS, "peers_in_processes_of_their_own": True,
+          "transport": "tcp, SecretConnection + MConnection, 5,120,000 B/s", "peers_start_s": peers_start_s,
+          "cold": cold, "seconds": walls, "blocks_per_s_median": blocks_per_s,
+          "phase14_inprocess_blocks_per_s": inproc_blocks_per_s,
+          "inprocess_over_p2p": inproc_blocks_per_s / blocks_per_s,
+          "handshakes_ms_of_median_run": logs[i]["handshakes_ms"],
+          "split_ms_of_median_run": split,
+          "aead_of_median_run": {
+              "node": {"seal_ms": node_aead["seal_s"] * 1e3, "open_ms": node_aead["open_s"] * 1e3,
+                       "sealed_frames": node_aead["sealed_frames"], "opened_frames": node_aead["opened_frames"]},
+              "serving_peers": {"seal_ms": peer_aead["seal_s"] * 1e3, "open_ms": peer_aead["open_s"] * 1e3,
+                                "sealed_frames": peer_aead["sealed_frames"],
+                                "opened_frames": peer_aead["opened_frames"]}},
+          "host_costs_one_thread": host_costs,
+          "verify_commit_cache_of_median_run": clocks[i].cache,
+          "bytes_by_channel_of_median_run": p2p_bytes(nodes[i]),
+          "launches_timed_runs": timed_launches, "store_timed_runs": timed_store,
+          "corrupting_peer": {"corrupted_height": corrupted, "banned": banned, "s": corrupt_s},
+          "device_fault": {"after_height": fault_log["fault_at"], "failed": repr(node.failed), "s": fault_s,
+                           "health_before_reset": {k: fault_snapshot[k] for k in ("state", "transitions",
+                                                                                  "failures")}},
+          "launches": counts, "store_phase": store_delta(phase_store)})
+    precompute.reset()
+    return counts
+
 
 def main(argv=None) -> int:
     import argparse
@@ -5573,7 +6269,7 @@ def main(argv=None) -> int:
     health["phase_13"] = check_healthy("phase 13")
     cuda_verify.reset_launches()  # the node's block sync starts here
     cuda_hash.reset_launches()
-    node_counts = phase_node_blocksync(node_source, dev)
+    node_counts, node_blocks_per_s = phase_node_blocksync(node_source, dev)
     health["phase_14"] = check_healthy("phase 14")
     cuda_verify.reset_launches()  # the consensus node starts here
     cuda_hash.reset_launches()
@@ -5590,6 +6286,18 @@ def main(argv=None) -> int:
     health["phase_16c"] = check_healthy("phase 16c")
     check(evidence_counts["verify_resident"] + evidence_counts["verify"] > 0,
           f"phases 16a-c: launches {evidence_counts}")
+    cuda_verify.reset_launches()  # the nodes over p2p start here
+    cuda_hash.reset_launches()
+    sinks = node_sinks()
+    try:
+        phase_cluster(dev)
+        health["phase_17a"] = check_healthy("phase 17a")
+        phase_node_p2p_sync(node_source, dev, node_blocks_per_s)
+    finally:
+        restore_node_sinks(sinks)
+    p2p_counts = launches()
+    health["phase_17b"] = check_healthy("phase 17b")
+    check(p2p_counts["verify_resident"] > 0, f"phase 17: launches {p2p_counts}")
     crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
@@ -5609,6 +6317,7 @@ def main(argv=None) -> int:
         row["launches_node_blocksync"] = node_counts[name]
         row["launches_consensus"] = consensus_counts[name]
         row["launches_evidence"] = evidence_counts[name]
+        row["launches_p2p"] = p2p_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

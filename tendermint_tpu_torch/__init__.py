@@ -17,8 +17,9 @@ Entry points (``ops.verify_batch``, ``ops.sr25519_batch.verify_batch_sr``,
 ``parallel.pipeline.verify_commits_pipelined``, the ``light.verifier``
 entry points, ``light.batch.evaluate_candidates`` and
 ``light.client.LightClient``, which ``light.lightd.LightServer`` serves,
-``state.execution.BlockExecutor``, ``blocksync.syncer.BlockSyncer`` and
-``evidence.EvidencePool``) take ``device=``.
+``state.execution.BlockExecutor``, ``blocksync.syncer.BlockSyncer``,
+``evidence.EvidencePool`` and ``node.Node``, which hands its device to
+the last three) take ``device=``.
 Without it they use :data:`DEFAULT_DEVICE`, which is ``"cuda"``: where
 CUDA is absent they raise rather than run on the CPU. Tests set
 ``DEFAULT_DEVICE = "cpu"``. The shared scheduler

@@ -13,11 +13,22 @@ validation re-requests both heights of the pair and bans the peer that
 sent them (``syncer.py:136-138``). The reference's syncer saves the block
 first and lets a validation error escape ``step()`` (ROADMAP §C).
 ``mesh=`` raises, as the pipeline's does (ROADMAP §A item 10).
+
+:meth:`BlockSyncer.start` runs :meth:`step` on a thread of its own until
+the pool is caught up, then calls ``on_caught_up`` with the state (the
+node's switch to consensus); ``blocksync/reactor.py`` feeds the pool
+from peers. One divergence: the reference's thread ends silently when
+``step()`` raises (``syncer.py:80-87``), so a node that already left its
+grace period stays in block sync for good; the port's keeps the error in
+:attr:`BlockSyncer.error` and hands it to ``on_error`` (a node's
+``Node._fail``) before the thread ends.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import threading
+import time as _time
+from typing import Callable, List, Optional
 
 from tendermint_tpu_torch import resolve_device
 from tendermint_tpu_torch.blocksync.pool import BlockPool
@@ -51,6 +62,8 @@ class BlockSyncer:
         verify_window: int = DEFAULT_VERIFY_WINDOW,
         mesh=None,
         device=None,
+        on_caught_up: Optional[Callable[[State], None]] = None,
+        on_error: Optional[Callable[[BaseException], None]] = None,
     ):
         if mesh is not None:
             raise NotImplementedError(
@@ -63,6 +76,40 @@ class BlockSyncer:
         self.transport = transport
         self.pool = pool or BlockPool(max(block_store.height() + 1, state.initial_height))
         self.verify_window = verify_window
+        self.on_caught_up = on_caught_up
+        self.on_error = on_error
+        # The error that ended the thread (module note).
+        self.error: Optional[BaseException] = None
+        self._stop_flag = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # --- driving -------------------------------------------------------------
+
+    def start(self) -> None:
+        self._stop_flag.clear()
+        self._thread = threading.Thread(target=self._run, name="blocksync", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop_flag.set()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=10)
+        self._thread = None
+
+    def _run(self) -> None:
+        try:
+            while not self._stop_flag.is_set():
+                self.step()
+                if self.pool.is_caught_up() and self.pool.num_pending() == 0:
+                    if self.on_caught_up is not None:
+                        self.on_caught_up(self.state)
+                    return
+                _time.sleep(0.002)
+        except BaseException as exc:
+            self.error = exc
+            if self.on_error is not None:
+                self.on_error(exc)
 
     def step(self) -> int:
         """One scheduling + apply pass; returns blocks applied."""

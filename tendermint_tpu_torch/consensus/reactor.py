@@ -1,17 +1,28 @@
-"""Scheduler-batched signature pre-verification for the vote channel.
+"""Consensus reactor: targeted per-peer gossip of proposals, parts, votes,
+and the scheduler-batched signature pre-verification of the vote channel.
 
-The ``VotePreverifier`` of ``tendermint_tpu/consensus/reactor.py``
-(``:116-330``): a peer's vote goes through the shared scheduler
-(``crypto/batch.py`` ``get_shared_scheduler``) to the device engine, is
-tagged ``Vote.mark_pre_verified`` when its batch verdict is good, and is
-then forwarded to the consensus state, whose ``VoteSet.add_vote`` skips
-the inline verify for a tagged vote. In a node it runs in front of
-``consensus/state.py``'s ``ConsensusState``, and reads only the slice of
-it that :class:`ConsensusView` documents. The rest of the reactor
-(gossip, peer state, the wire) needs ``p2p.router`` and comes with it
-(ROADMAP §A item 8d).
+A copy of ``tendermint_tpu/consensus/reactor.py``. The reactor keeps
+internal/consensus/reactor.go's channel layout -- State(0x20),
+Data(0x21), Vote(0x22), VoteSetBits(0x23) (reactor.go:78-81) -- and its
+gossip discipline: one gossip routine per peer consults that peer's
+PeerState and sends only what the peer is missing (gossipDataRoutine
+reactor.go:501, gossipVotesRoutine reactor.go:736), with block-part +
+commit catch-up for peers on older heights (gossipDataForCatchup
+reactor.go:437). Peers announce state via NewRoundStep, HasVote, and
+periodic VoteSetBits; everything a peer sends also updates its
+PeerState, so re-sends converge to zero once a peer is caught up. Wire
+format per message: 1 tag byte + payload (struct-packed fields, proto
+payloads for types), the reference's byte for byte.
 
-Two divergences from the reference:
+A peer's vote goes through the ``VotePreverifier`` (``:116-330`` there):
+through the shared scheduler (``crypto/batch.py``
+``get_shared_scheduler``) to the device engine, tagged
+``Vote.mark_pre_verified`` when its batch verdict is good, and then
+forwarded to the consensus state, whose ``VoteSet.add_vote`` skips the
+inline verify for a tagged vote. It reads only the slice of
+``ConsensusState`` that :class:`ConsensusView` documents.
+
+Four divergences from the reference:
 
 - **The warm-up reaches the device.** The reference probes with 16
   submissions of one pad lane; the scheduler coalesces them into one
@@ -24,6 +35,22 @@ Two divergences from the reference:
 - **A failed warm-up is visible.** The reference swallows the
   exception; the port keeps it in ``warmup_error`` (the pre-verifier
   stays cold and every vote takes the inline path, as there).
+- **Catch-up parts wait for the peer's commit step.** The reference's
+  ``_gossip_catchup`` sends a lagging peer the stored block's parts at
+  once and marks them sent; a peer without +2/3 precommits for that
+  height has no part set yet, drops them, and is never sent them again,
+  so a node that leaves block sync a height or more behind can stall
+  there (gossipDataForCatchup sends a part only once the peer's
+  ProposalBlockPartSetHeader matches the stored block's). The port
+  sends the commit's votes first and the parts once the peer announces
+  ``RoundStep.COMMIT`` for that height.
+- **A device error stops the reactor.** The reference's channel loops
+  drop every exception of a handler (``:673-681``). The port's drop
+  malformed peer input as before (decode errors, ``ValueError``,
+  ``LookupError``, ``struct.error``, anything else a handler raises)
+  but not the errors of :data:`~tendermint_tpu_torch.consensus.state.DEVICE_ERRORS`:
+  the first is kept in :attr:`ConsensusReactor.error`, handed to
+  ``on_error`` (a node's ``Node._fail``), and the reactor stops.
 """
 
 from __future__ import annotations
@@ -31,15 +58,93 @@ from __future__ import annotations
 import hashlib
 import itertools
 import queue
+import struct
 import threading
 import time
-from typing import List, Optional, Protocol, Tuple
+from typing import Callable, Dict, List, Optional, Protocol, Tuple
 
+from tendermint_tpu_torch.consensus.cstypes import RoundStep
+from tendermint_tpu_torch.consensus.peer_state import PeerState
+from tendermint_tpu_torch.consensus.state import DEVICE_ERRORS, Broadcaster
 from tendermint_tpu_torch.crypto import batch as crypto_batch
 from tendermint_tpu_torch.crypto.keys import ED25519_KEY_TYPE
-from tendermint_tpu_torch.encoding.canonical import SIGNED_MSG_TYPE_PRECOMMIT
-from tendermint_tpu_torch.types.block import Vote
+from tendermint_tpu_torch.encoding.canonical import (
+    SIGNED_MSG_TYPE_PRECOMMIT,
+    SIGNED_MSG_TYPE_PREVOTE,
+)
+from tendermint_tpu_torch.libs.bits import BitArray
+from tendermint_tpu_torch.p2p.router import Channel, Envelope, Router
+from tendermint_tpu_torch.types.block import Proposal, Vote
+from tendermint_tpu_torch.types.part_set import Part
 from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+STATE_CHANNEL = 0x20
+DATA_CHANNEL = 0x21
+VOTE_CHANNEL = 0x22
+VOTE_SET_BITS_CHANNEL = 0x23
+
+TAG_NEW_ROUND_STEP = 1
+TAG_PROPOSAL = 2
+TAG_BLOCK_PART = 3
+TAG_VOTE = 4
+TAG_HAS_VOTE = 5
+TAG_VOTE_SET_BITS = 6
+
+# How long gossip routines sleep when a peer needs nothing
+# (peerGossipSleepDuration reactor.go:119 is 100ms; smaller here because
+# test networks run sub-second rounds).
+GOSSIP_SLEEP = 0.02
+# Votes sent per gossip iteration when a peer is behind on votes.
+VOTES_PER_ITER = 8
+# Interval between VoteSetBits announcements of our own vote bitmaps.
+BITS_INTERVAL = 0.5
+# Upper bound on wire-supplied validator indices / bit-array sizes; a
+# peer claiming more validators than this is lying (the reference bounds
+# set size via MaxTotalVotingPower, validator_set.go:18-25).
+MAX_WIRE_VALIDATORS = 65536
+
+
+def encode_new_round_step(height: int, round_: int, step: int, last_commit_round: int) -> bytes:
+    return bytes([TAG_NEW_ROUND_STEP]) + struct.pack(">qiii", height, round_, step, last_commit_round)
+
+
+def encode_proposal(p: Proposal) -> bytes:
+    return bytes([TAG_PROPOSAL]) + p.to_proto_bytes()
+
+
+def encode_block_part(height: int, round_: int, part: Part) -> bytes:
+    return bytes([TAG_BLOCK_PART]) + struct.pack(">qi", height, round_) + part.to_proto_bytes()
+
+
+def encode_vote(v: Vote) -> bytes:
+    return bytes([TAG_VOTE]) + v.to_proto_bytes()
+
+
+def encode_has_vote(height: int, round_: int, type_: int, index: int) -> bytes:
+    return bytes([TAG_HAS_VOTE]) + struct.pack(">qibi", height, round_, type_, index)
+
+
+def encode_vote_set_bits(height: int, round_: int, type_: int, bits: BitArray) -> bytes:
+    return (
+        bytes([TAG_VOTE_SET_BITS])
+        + struct.pack(">qibi", height, round_, type_, bits.size())
+        + bytes(bits._elems)
+    )
+
+
+def decode_vote_set_bits(payload: bytes):
+    """Returns (height, round, type, bits) or None for malformed/hostile
+    input (oversized nbits would allocate unboundedly; a short payload
+    would leave the BitArray's backing storage inconsistent)."""
+    height, round_, type_, nbits = struct.unpack_from(">qibi", payload)
+    if nbits < 0 or nbits > MAX_WIRE_VALIDATORS:
+        return None
+    ba = BitArray(nbits)
+    body = payload[struct.calcsize(">qibi") :]
+    if len(body) != len(ba._elems):
+        return None
+    ba._elems[:] = body
+    return height, round_, type_, ba
 
 
 class RoundStateView(Protocol):
@@ -313,3 +418,364 @@ class VotePreverifier:
                             target=self._warmup, name="vote-preverify-rewarm", daemon=True
                         ).start()
             self.cs.add_vote_from_peer(vote, peer_id)
+
+
+class ConsensusReactor(Broadcaster):
+    """The consensus state machine's peer: its four channels, per-peer
+    gossip and catch-up, the announce loop, and the vote pre-verifier
+    behind the vote channel. It is the state machine's ``Broadcaster``
+    (``cs.broadcaster = self``, ``:367`` there)."""
+
+    def __init__(self, cs, router: Router, on_error: Optional[Callable[[BaseException], None]] = None):
+        self.cs = cs
+        self.router = router
+        self.state_ch = router.open_channel(STATE_CHANNEL)
+        self.data_ch = router.open_channel(DATA_CHANNEL)
+        self.vote_ch = router.open_channel(VOTE_CHANNEL)
+        self.vote_bits_ch = router.open_channel(VOTE_SET_BITS_CHANNEL)
+        cs.broadcaster = self
+        self.preverifier = VotePreverifier(cs)
+        self.on_error = on_error
+        # The device error that stopped the reactor (module note).
+        self.error: Optional[BaseException] = None
+        self._stop_flag = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._peers: Dict[str, PeerState] = {}
+        self._gossip_threads: Dict[str, threading.Thread] = {}
+        self._peers_mtx = threading.Lock()
+
+    def start(self) -> None:
+        self._stop_flag.clear()
+        self.preverifier.start()
+        for ch, handler in (
+            (self.state_ch, self._handle_state),
+            (self.data_ch, self._handle_data),
+            (self.vote_ch, self._handle_vote),
+            (self.vote_bits_ch, self._handle_vote_bits),
+        ):
+            self._spawn(self._recv_loop, ch, handler)
+        self._spawn(self._peer_lifecycle_loop)
+        self._spawn(self._announce_loop)
+
+    def _spawn(self, fn, *args) -> None:
+        t = threading.Thread(target=fn, args=args, daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def stop(self) -> None:
+        self._stop_flag.set()
+        # Join the channel handlers FIRST: a vote-channel thread still in
+        # _handle_vote must not enqueue into a preverifier being drained.
+        for t in self._threads:
+            if t is not threading.current_thread():
+                t.join(timeout=2)
+        self.preverifier.stop()
+        self._threads.clear()
+        with self._peers_mtx:
+            gossipers = list(self._gossip_threads.values())
+            self._gossip_threads.clear()
+            self._peers.clear()
+        for t in gossipers:
+            if t is not threading.current_thread():
+                t.join(timeout=2)
+
+    def _fail(self, exc: BaseException) -> None:
+        """Keep the first device error, stop every loop, tell the node."""
+        if self.error is None:
+            self.error = exc
+        self._stop_flag.set()
+        if self.on_error is not None:
+            self.on_error(exc)
+
+    # --- peer lifecycle -------------------------------------------------------
+
+    def _peer_lifecycle_loop(self) -> None:
+        """Track router connections; one gossip routine per live peer
+        (the reference subscribes to PeerUpdates, reactor.go:392)."""
+        while not self._stop_flag.is_set():
+            try:
+                connected = set(self.router.connected_peers())
+                with self._peers_mtx:
+                    for pid in connected:
+                        if pid not in self._gossip_threads:
+                            ps = self._peers.get(pid) or PeerState(pid)
+                            self._peers[pid] = ps
+                            t = threading.Thread(
+                                target=self._gossip_routine, args=(ps,), daemon=True, name=f"cs-gossip-{pid[:8]}"
+                            )
+                            self._gossip_threads[pid] = t
+                            t.start()
+                    for pid in list(self._gossip_threads):
+                        if pid not in connected:
+                            del self._gossip_threads[pid]
+                            self._peers.pop(pid, None)
+            except Exception:
+                pass
+            self._stop_flag.wait(0.1)
+
+    def _peer(self, peer_id: str) -> PeerState:
+        with self._peers_mtx:
+            ps = self._peers.get(peer_id)
+            if ps is None:
+                ps = PeerState(peer_id)
+                self._peers[peer_id] = ps
+            return ps
+
+    # --- outbound (Broadcaster) ----------------------------------------------
+
+    def broadcast_proposal(self, proposal: Proposal) -> None:
+        self.data_ch.broadcast(encode_proposal(proposal))
+
+    def broadcast_block_part(self, height: int, round_: int, part: Part) -> None:
+        self.data_ch.broadcast(encode_block_part(height, round_, part))
+
+    def broadcast_vote(self, vote: Vote) -> None:
+        # The SM announces HasVote separately when the vote lands in a set.
+        self.vote_ch.broadcast(encode_vote(vote))
+
+    def broadcast_has_vote(self, height: int, round_: int, type_: int, index: int) -> None:
+        self.state_ch.broadcast(encode_has_vote(height, round_, type_, index))
+
+    def broadcast_new_round_step(self, rs) -> None:
+        lcr = rs.last_commit.round if rs.last_commit is not None else -1
+        self.state_ch.broadcast(encode_new_round_step(rs.height, rs.round, int(rs.step), lcr))
+
+    # --- periodic announcements ----------------------------------------------
+
+    def _announce_loop(self) -> None:
+        """Broadcast NewRoundStep + our vote bitmaps periodically so late
+        joiners and message-drop victims re-converge (the role of the
+        reference's VoteSetMaj23/VoteSetBits query cycle, reactor.go:808)."""
+        while not self._stop_flag.is_set():
+            try:
+                rs = self.cs.rs
+                if rs.votes is not None:
+                    self.broadcast_new_round_step(rs)
+                    for type_, vs in (
+                        (SIGNED_MSG_TYPE_PREVOTE, rs.votes.prevotes(rs.round)),
+                        (SIGNED_MSG_TYPE_PRECOMMIT, rs.votes.precommits(rs.round)),
+                    ):
+                        if vs is not None:
+                            bits = encode_vote_set_bits(rs.height, rs.round, type_, vs.bit_array())
+                            self.vote_bits_ch.broadcast(bits)
+            except Exception:
+                pass
+            self._stop_flag.wait(BITS_INTERVAL)
+
+    # --- per-peer gossip ------------------------------------------------------
+
+    def _gossip_routine(self, ps: PeerState) -> None:
+        """reactor.go gossipDataRoutine+gossipVotesRoutine merged: each
+        iteration sends the peer at most one part and a few votes."""
+        while not self._stop_flag.is_set():
+            with self._peers_mtx:
+                if self._gossip_threads.get(ps.peer_id) is not threading.current_thread():
+                    return  # unsubscribed
+            try:
+                sent = self._gossip_once(ps)
+            except Exception:
+                sent = False
+            if not sent:
+                self._stop_flag.wait(GOSSIP_SLEEP)
+
+    def _gossip_once(self, ps: PeerState) -> bool:
+        rs = self.cs.rs
+        p_height, p_round, p_step, p_lcr = ps.snapshot()
+        if p_height == 0:
+            return False  # no NewRoundStep from the peer yet
+        if p_height == rs.height:
+            return self._gossip_same_height(ps, rs, p_round)
+        if p_height < rs.height:
+            return self._gossip_catchup(ps, p_height, p_round, p_step, p_lcr)
+        return False  # peer ahead: blocksync pulls us forward, not gossip
+
+    def _gossip_same_height(self, ps: PeerState, rs, p_round: int) -> bool:
+        sent = False
+        # Proposal + parts for the peer's current round (reactor.go:501).
+        if p_round == rs.round and rs.proposal is not None and not ps.has_proposal:
+            self.data_ch.send(Envelope(DATA_CHANNEL, encode_proposal(rs.proposal), to_peer=ps.peer_id))
+            ps.set_has_proposal(rs.height, rs.round)
+            sent = True
+        parts = rs.proposal_block_parts
+        if p_round == rs.round and parts is not None:
+            ps.init_parts(rs.height, rs.round, parts.header())
+            idx = ps.pick_missing_part(parts.parts_bit_array)
+            if idx is not None:
+                part = parts.get_part(idx)
+                if part is not None:
+                    self.data_ch.send(
+                        Envelope(DATA_CHANNEL, encode_block_part(rs.height, rs.round, part), to_peer=ps.peer_id)
+                    )
+                    ps.set_has_part(rs.height, rs.round, idx)
+                    sent = True
+        # Votes: peer's round first, then our round, then POL round
+        # (gossipVotesForHeight reactor.go:640-700).
+        if rs.votes is not None:
+            rounds = []
+            for r in (p_round, rs.round, rs.valid_round):
+                if r >= 0 and r not in rounds:
+                    rounds.append(r)
+            for r in rounds:
+                for type_, vs in (
+                    (SIGNED_MSG_TYPE_PREVOTE, rs.votes.prevotes(r)),
+                    (SIGNED_MSG_TYPE_PRECOMMIT, rs.votes.precommits(r)),
+                ):
+                    if vs is None:
+                        continue
+                    if self._send_missing_votes(ps, vs, rs.height, r, type_):
+                        sent = True
+        return sent
+
+    def _send_missing_votes(self, ps, vote_set, height, round_, type_) -> bool:
+        ours = vote_set.bit_array()
+        sent = False
+        for _ in range(VOTES_PER_ITER):
+            idx = ps.pick_missing_vote(height, round_, type_, ours)
+            if idx is None:
+                break
+            vote = vote_set.get_by_index(idx)
+            if vote is None:
+                break
+            self.vote_ch.send(Envelope(VOTE_CHANNEL, encode_vote(vote), to_peer=ps.peer_id))
+            ps.set_has_vote(height, round_, type_, idx, ours.size())
+            sent = True
+        return sent
+
+    def _gossip_catchup(self, ps: PeerState, p_height, p_round, p_step, p_lcr) -> bool:
+        """Peer is on an older height: serve the decided block's parts and
+        its commit from the store (gossipDataForCatchup reactor.go:437)."""
+        store = self.cs.block_store
+        if p_height < store.base():
+            return False
+        meta = store.load_block_meta(p_height)
+        # With vote extensions enabled the peer REQUIRES extensions on
+        # every non-nil precommit, so when an extended commit is stored
+        # it is the ONLY source served -- its round/absence bookkeeping
+        # can legitimately differ from the canonical commit (written by
+        # the h+1 proposer), and mixing indices between the two would
+        # serve wrong-round or unsigned votes that the peer rejects
+        # while we mark them sent.
+        ext_commit = store.load_block_extended_commit(p_height)
+        commit = None
+        if ext_commit is None:
+            commit = store.load_block_commit(p_height)
+            if commit is None:
+                # The canonical commit for p_height is only stored once
+                # block p_height+1 lands; until then the seen commit
+                # covers it (reference serves rs.LastCommit to height-1
+                # peers, reactor.go:736).
+                seen = store.load_seen_commit()
+                if seen is not None and seen.height == p_height:
+                    commit = seen
+        if meta is None:
+            return False
+        n_parts = meta.block_id.part_set_header.total
+        if ext_commit is not None:
+            n_sigs = ext_commit.size()
+        else:
+            n_sigs = commit.size() if commit is not None else 0
+        ps.ensure_catchup(p_height, n_parts, n_sigs)
+        sent = False
+        # One part per iteration, preferring whatever the peer lacks, once
+        # the peer is in its commit step (module note): before it has +2/3
+        # precommits it has no part set for the block and drops the part.
+        theirs = ps.parts if ps.parts is not None else BitArray(0)
+        for i in range(n_parts if p_step == RoundStep.COMMIT else 0):
+            if ps.catchup_parts.get_index(i) or theirs.get_index(i):
+                continue
+            part = store.load_block_part(p_height, i)
+            if part is None:
+                break
+            self.data_ch.send(Envelope(DATA_CHANNEL, encode_block_part(p_height, p_round, part), to_peer=ps.peer_id))
+            ps.catchup_parts.set_index(i, True)
+            sent = True
+            break
+        # Commit precommits let the lagging peer finish its round
+        # (reactor.go:736 LastCommit case). One source drives the whole
+        # loop: the extended commit when stored, the canonical/seen
+        # commit otherwise.
+        if ext_commit is not None or commit is not None:
+            budget = VOTES_PER_ITER
+            for i in range(n_sigs):
+                if budget == 0:
+                    break
+                if ps.catchup_commit.get_index(i):
+                    continue
+                if ext_commit is not None:
+                    if not ext_commit.extended_signatures[i].commit_sig.signature:
+                        ps.catchup_commit.set_index(i, True)
+                        continue
+                    vote = ext_commit.get_extended_vote(i)
+                else:
+                    if not commit.signatures[i].signature:
+                        ps.catchup_commit.set_index(i, True)
+                        continue
+                    vote = commit.get_vote(i)
+                self.vote_ch.send(Envelope(VOTE_CHANNEL, encode_vote(vote), to_peer=ps.peer_id))
+                ps.catchup_commit.set_index(i, True)
+                ps.set_has_vote(vote.height, vote.round, vote.type, i, n_sigs)
+                sent = True
+                budget -= 1
+        return sent
+
+    # --- inbound --------------------------------------------------------------
+
+    def _recv_loop(self, ch: Channel, handler) -> None:
+        while not self._stop_flag.is_set():
+            env = ch.receive(timeout=0.2)
+            if env is None:
+                continue
+            try:
+                handler(env)
+            except DEVICE_ERRORS as exc:
+                self._fail(exc)
+                return
+            except Exception:
+                pass  # malformed peer input must not kill the reactor
+
+    def _handle_state(self, env: Envelope) -> None:
+        if not env.message:
+            return
+        tag = env.message[0]
+        if tag == TAG_NEW_ROUND_STEP:
+            height, round_, step, lcr = struct.unpack_from(">qiii", env.message, 1)
+            self._peer(env.from_peer).apply_new_round_step(height, round_, step, lcr)
+        elif tag == TAG_HAS_VOTE:
+            height, round_, type_, index = struct.unpack_from(">qibi", env.message, 1)
+            if 0 <= index < MAX_WIRE_VALIDATORS:
+                self._peer(env.from_peer).set_has_vote(height, round_, type_, index)
+
+    def _handle_data(self, env: Envelope) -> None:
+        if not env.message:
+            return
+        tag = env.message[0]
+        if tag == TAG_PROPOSAL:
+            proposal = Proposal.from_proto_bytes(env.message[1:])
+            ps = self._peer(env.from_peer)
+            ps.set_has_proposal(proposal.height, proposal.round)
+            self.cs.add_proposal_from_peer(proposal, env.from_peer)
+        elif tag == TAG_BLOCK_PART:
+            height, round_ = struct.unpack_from(">qi", env.message, 1)
+            part = Part.from_proto_bytes(env.message[13:])
+            self._peer(env.from_peer).set_has_part(height, round_, part.index)
+            self.cs.add_block_part_from_peer(height, round_, part, env.from_peer)
+
+    def _handle_vote(self, env: Envelope) -> None:
+        if not env.message or env.message[0] != TAG_VOTE:
+            return
+        vote = Vote.from_proto_bytes(env.message[1:])
+        if not (0 <= vote.validator_index < MAX_WIRE_VALIDATORS):
+            return
+        self._peer(env.from_peer).set_has_vote(vote.height, vote.round, vote.type, vote.validator_index)
+        # Batch the signature check on the device before the state loop
+        # sees the vote (fail-open: see VotePreverifier).
+        self.preverifier.submit(vote, env.from_peer)
+
+    def _handle_vote_bits(self, env: Envelope) -> None:
+        if not env.message or env.message[0] != TAG_VOTE_SET_BITS:
+            return
+        decoded = decode_vote_set_bits(env.message[1:])
+        if decoded is None:
+            return
+        height, round_, type_, bits = decoded
+        self._peer(env.from_peer).apply_vote_set_bits(height, round_, type_, bits)

@@ -140,8 +140,10 @@ class ConsensusState:
         self.double_sign_check_height = double_sign_check_height
         self._ds_cleared_height: Optional[int] = None
         # The error that stopped the receive routine (a device error, or
-        # anything else that escaped a handler); stop() raises it.
+        # anything else that escaped a handler); stop() raises it, and
+        # on_error (a node's ``Node._fail``) hears of it when it happens.
         self.error: Optional[BaseException] = None
+        self.on_error: Optional[Callable[[BaseException], None]] = None
 
         self.rs = cstypes.RoundState()
         self.state = SMState()  # set by _update_to_state
@@ -256,6 +258,8 @@ class ConsensusState:
             self._stop_flag.set()
             self.ticker.stop()
             self.logger.error("consensus stopped", err=repr(exc))
+            if self.on_error is not None:
+                self.on_error(exc)
 
     def _receive_once(self) -> bool:
         processed = False

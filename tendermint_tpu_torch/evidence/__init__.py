@@ -1,5 +1,4 @@
-"""Evidence pool and verification (internal/evidence/), the part a node
-runs in process; the evidence reactor needs ``p2p`` and is not ported."""
+"""Evidence pool, verification and gossip reactor (internal/evidence/)."""
 
 from tendermint_tpu_torch.evidence.pool import EvidencePool
 from tendermint_tpu_torch.evidence.verify import InvalidEvidenceError, verify_duplicate_vote, verify_light_client_attack

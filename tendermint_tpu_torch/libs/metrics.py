@@ -11,7 +11,7 @@ caches, the resident store, the challenge hash, the stage timings and
 the device-byte ledger), ``VerifydMetrics`` and ``EvloopMetrics`` (the
 verify service and its event loop), ``LightMetrics``, ``StateMetrics``
 (the block executor), ``ConsensusMetrics`` (the consensus state
-machine) and ``MempoolMetrics``. Family names, help texts
+machine), ``MempoolMetrics`` and ``P2PMetrics`` (the router). Family names, help texts
 and label sets are the reference's, so both expositions compare line by
 line. The other subsystems' structs and the flight-recorder sink are
 left out.
@@ -722,6 +722,26 @@ class StateMetrics(_NopMixin):
         self.validator_set_updates = reg.counter(
             _name(s, "validator_set_updates"),
             "Number of validator set updates by the application.",
+        )
+
+
+class P2PMetrics(_NopMixin):
+    """internal/p2p/metrics.gen.go (core subset): the router's peers and
+    its bytes by channel (``tendermint_tpu/libs/metrics.py:393-409``)."""
+
+    def __init__(self, reg: Optional[Registry]):
+        reg = reg or Registry()
+        s = "p2p"
+        self.peers = reg.gauge(_name(s, "peers"), "Number of connected peers.")
+        self.message_receive_bytes_total = reg.counter(
+            _name(s, "message_receive_bytes_total"),
+            "Total bytes received from peers.",
+            labels=("chID",),
+        )
+        self.message_send_bytes_total = reg.counter(
+            _name(s, "message_send_bytes_total"),
+            "Total bytes sent to peers.",
+            labels=("chID",),
         )
 
 

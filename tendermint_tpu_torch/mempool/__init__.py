@@ -1,5 +1,4 @@
-"""The priority mempool (internal/mempool/); the mempool reactor needs
-``p2p`` and is not ported."""
+"""The priority mempool and its gossip reactor (internal/mempool/)."""
 
 from tendermint_tpu_torch.mempool.cache import LRUTxCache
 from tendermint_tpu_torch.mempool.mempool import MempoolConfig, TxMempool

@@ -1,0 +1,404 @@
+"""Node: the container that wires every component.
+
+A copy of ``tendermint_tpu/node/node.py``, cut to what the port serves.
+It mirrors node/node.go makeNode (node.go:121-400) and its OnStart order
+(node.go:403-519): stores -> genesis/state -> ABCI client -> mempool /
+evidence -> executor -> consensus -> router + reactors -> block sync
+until caught up, then consensus. ``device=`` goes to the
+``BlockExecutor``, the ``BlockSyncer`` and the ``EvidencePool``; as
+every entry point of the port, it defaults to
+:data:`tendermint_tpu_torch.DEFAULT_DEVICE` (the card).
+
+Cut from this node, each refused rather than ignored (ROADMAP §A): the
+event bus, the indexer and its sinks and the RPC server (item 8e); the
+statesync reactor and syncer, the remote signers and
+``db_backend="filedb"`` (item 8f, so the stores are ``MemDB`` and a node
+always starts from its genesis); the shared-memory transport to verifyd
+(item 12); the verify mesh (item 10); the autotuner (item 9). The
+config file and the operator CLI that would start a node are item 8g.
+
+One divergence, with the reactors' and the syncer's: the reference
+hides a device error in five places (three reactors' loops, the
+syncer's thread, ``Node.stop``). In the port the first error of
+:data:`~tendermint_tpu_torch.consensus.state.DEVICE_ERRORS` that a
+reactor meets, any error that ends the syncer's thread or the consensus
+receive routine, is kept in :attr:`Node.failed` (the reference's field,
+``node.go:148``) by :meth:`Node._fail`; the component that met it stops;
+and :meth:`Node.stop` releases everything and then raises it.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time as _time
+from dataclasses import dataclass, field as dc_field
+from typing import List, Optional
+
+from tendermint_tpu_torch import resolve_device
+from tendermint_tpu_torch.abci import types as abci_types
+from tendermint_tpu_torch.abci.client import AbciClient
+from tendermint_tpu_torch.blocksync.reactor import BlockSyncReactor
+from tendermint_tpu_torch.blocksync.syncer import BlockSyncer
+from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+from tendermint_tpu_torch.consensus.state import ConsensusState
+from tendermint_tpu_torch.consensus.wal import WAL, NilWAL
+from tendermint_tpu_torch.evidence.pool import EvidencePool
+from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
+from tendermint_tpu_torch.libs.log import Logger
+from tendermint_tpu_torch.libs.metrics import (
+    ConsensusMetrics,
+    MempoolMetrics,
+    OpsMetrics,
+    P2PMetrics,
+    Registry,
+    StateMetrics,
+)
+from tendermint_tpu_torch.mempool.mempool import MempoolConfig, TxMempool
+from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+from tendermint_tpu_torch.p2p.key import NodeKey
+from tendermint_tpu_torch.p2p.mconn import MConnConfig
+from tendermint_tpu_torch.p2p.peermanager import PeerAddress, PeerManager
+from tendermint_tpu_torch.p2p.pex import PexReactor
+from tendermint_tpu_torch.p2p.router import Router
+from tendermint_tpu_torch.p2p.transport import MemoryNetwork, NodeInfo, TCPTransport, Transport
+from tendermint_tpu_torch.privval import FilePV
+from tendermint_tpu_torch.privval.base import PrivValidator
+from tendermint_tpu_torch.state import StateStore, state_from_genesis
+from tendermint_tpu_torch.state.execution import BlockExecutor
+from tendermint_tpu_torch.storage.blockstore import BlockStore
+from tendermint_tpu_torch.storage.kv import MemDB
+from tendermint_tpu_torch.types.genesis import GenesisDoc
+from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+# How long a syncing node waits for a peer taller than itself before it
+# starts consensus anyway (node.go:626).
+BLOCKSYNC_GRACE_S = 2.0
+
+
+@dataclass
+class NodeConfig:
+    """config/config.go condensed: the knobs the node assembly needs.
+
+    The reference's fields, less those of the features this slice cuts,
+    each with the ROADMAP §A item that brings it: ``rpc_laddr``,
+    ``rpc_unsafe`` (the RPC server), ``tx_index``, ``tx_index_sinks``
+    (the indexer and its sinks): item 8e; ``statesync``,
+    ``priv_validator_laddr``, ``signer_connect_timeout`` (the remote
+    signers): item 8f; ``verify_shm``: item 12; ``mesh_devices``: item
+    10. ``db_backend`` takes only ``"memdb"`` (``"filedb"`` is item 8f).
+    No field reads an environment variable."""
+
+    home: str = ""
+    chain_id: str = ""
+    listen_addr: str = "127.0.0.1:0"
+    persistent_peers: List[str] = dc_field(default_factory=list)
+    mempool: MempoolConfig = dc_field(default_factory=MempoolConfig)
+    blocksync: bool = True
+    wal_enabled: bool = True
+    max_connections: int = 16
+    moniker: str = "tpu-node"
+    # tm-db backend selection (config/db.go:29): "memdb" only here.
+    db_backend: str = "memdb"
+    # Structured logging level: debug/info/warn/error/none (libs/log).
+    log_level: str = "none"
+    # Per-peer connection rate limits (config.go P2P SendRate/RecvRate).
+    p2p_send_rate: int = 5120000
+    p2p_recv_rate: int = 5120000
+    # Per-peer send-queue discipline (router.go:216-238).
+    p2p_queue_type: str = "fifo"
+    # Refuse to join consensus if our key signed a commit within the
+    # last N blocks (config.go:961 double-sign-check-height; 0 = off).
+    double_sign_check_height: int = 0
+    # Span tracing (libs/tracing.py): "" leaves the tracer as it is,
+    # else "off", "ring" or a Chrome-trace JSON path.
+    trace: str = ""
+    # A verifyd daemon ("host:port") that takes the device-worthy
+    # signature batches ("" = local verification), and the tenant this
+    # node's traffic is filed under there.
+    verify_remote: str = ""
+    verify_tenant: str = ""
+    # The resident table store (ops/resident.py): "auto" | "on" | "off",
+    # "" leaves it as it is.
+    resident_tables: str = ""
+
+
+class Node:
+    def __init__(
+        self,
+        config: NodeConfig,
+        genesis: GenesisDoc,
+        app_client: AbciClient,
+        priv_validator: Optional[PrivValidator] = None,
+        node_key: Optional[NodeKey] = None,
+        transport: Optional[Transport] = None,
+        memory_network: Optional[MemoryNetwork] = None,
+        device=None,
+    ):
+        if config.db_backend != "memdb":
+            raise NotImplementedError(
+                f"Node: db_backend {config.db_backend!r} is not ported yet (ROADMAP.md A item 8f); use 'memdb'"
+            )
+        self.device = resolve_device(device)
+        self.config = config
+        self.genesis = genesis
+        self.app = app_client
+
+        # --- identity (node.go:85-103) --------------------------------------
+        if node_key is None:
+            if config.home:
+                os.makedirs(config.home, exist_ok=True)
+                node_key = NodeKey.load_or_gen(os.path.join(config.home, "node_key.json"))
+            else:
+                node_key = NodeKey.generate()
+        self.node_key = node_key
+        # The fatal error of a background routine (module note).
+        self.failed: Optional[BaseException] = None
+        self._fail_mtx = threading.Lock()
+        if priv_validator is None and config.home:
+            priv_validator = FilePV.load_or_generate(
+                os.path.join(config.home, "priv_validator_key.json"),
+                os.path.join(config.home, "priv_validator_state.json"),
+            )
+        self.priv_validator = priv_validator
+
+        # --- stores + state (node.go:136-156, initDBs) ------------------------
+        # MemDB stores are empty at construction: the node runs InitChain
+        # and starts from its genesis (a restart from stored state needs
+        # the file stores, item 8f).
+        self.state_store = StateStore(MemDB())
+        self.block_store = BlockStore(MemDB())
+        self.sm_state = state_from_genesis(genesis)
+        app_client.start()
+        init = app_client.init_chain(
+            abci_types.RequestInitChain(
+                time=genesis.genesis_time,
+                chain_id=genesis.chain_id,
+                consensus_params=genesis.consensus_params,
+                validators=[],
+                app_state_bytes=genesis.app_state,
+                initial_height=genesis.initial_height,
+            )
+        )
+        if init.app_hash:
+            self.sm_state.app_hash = init.app_hash
+        if init.validators:
+            vals = [vu.to_validator() for vu in init.validators]
+            self.sm_state.validators = ValidatorSet(vals)
+            self.sm_state.next_validators = ValidatorSet(vals)
+            self.sm_state.next_validators.increment_proposer_priority(1)
+        self.state_store.save(self.sm_state)
+
+        # --- observability (node.go:158-184 metrics, libs/log) ----------------
+        from tendermint_tpu_torch import ops as _ops
+        from tendermint_tpu_torch.libs import tracing as _tracing
+        from tendermint_tpu_torch.ops import introspect as _introspect
+        from tendermint_tpu_torch.ops import resident as _resident
+
+        self.metrics_registry = Registry()
+        self.logger = Logger(level=config.log_level or "none", moniker=config.moniker)
+        consensus_metrics = ConsensusMetrics(self.metrics_registry)
+        mempool_metrics = MempoolMetrics(self.metrics_registry)
+        self.p2p_metrics = P2PMetrics(self.metrics_registry)
+        state_metrics = StateMetrics(self.metrics_registry)
+        ops_metrics = OpsMetrics(self.metrics_registry)
+        # The process-wide units of the verify path, mirrored into this
+        # node's registry (the last node built wins, as in the
+        # reference): the health machine, both caches, the resident store,
+        # the challenge hash, the byte ledger; and the kernel profiler
+        # installed as the tracer's profile sink.
+        if config.resident_tables:
+            _resident.configure(config.resident_tables)
+        _ops.bind_metrics(ops_metrics)
+        _introspect.install()
+        if config.trace:
+            _tracing.configure(config.trace)
+        _tracing.tracer.set_metrics_observer(
+            _tracing.metrics_observer(ops=ops_metrics, consensus=consensus_metrics)
+        )
+        if config.verify_remote:
+            from tendermint_tpu_torch.verifyd import client as _vclient
+
+            _vclient.set_remote_addr(config.verify_remote)
+            if config.verify_tenant:
+                _vclient.set_remote_tenant(config.verify_tenant)
+
+        # --- pools + executor (node.go:258-297) ------------------------------
+        self.mempool = TxMempool(config.mempool, app_client, metrics=mempool_metrics)
+        self.evidence_pool = EvidencePool(MemDB(), self.state_store, self.block_store, device=self.device)
+        self.evidence_pool.set_state(self.sm_state)
+        self.block_exec = BlockExecutor(
+            self.state_store,
+            app_client,
+            self.block_store,
+            mempool=self.mempool,
+            evidence_pool=self.evidence_pool,
+            metrics=state_metrics,
+            device=self.device,
+        )
+
+        # --- p2p (node.go:206-256) -------------------------------------------
+        if transport is None:
+            if memory_network is not None:
+                transport = memory_network.transport(config.listen_addr)
+            else:
+                transport = TCPTransport(
+                    self.node_key,
+                    mconn_config=MConnConfig(send_rate=config.p2p_send_rate, recv_rate=config.p2p_recv_rate),
+                )
+                transport.listen(config.listen_addr)
+        self.transport = transport
+        self.node_info = NodeInfo(
+            node_id=self.node_key.node_id,
+            network=genesis.chain_id,
+            moniker=config.moniker,
+            listen_addr=getattr(transport, "listen_addr", config.listen_addr),
+        )
+        self.peer_manager = PeerManager(self.node_key.node_id, max_connected=config.max_connections)
+        self.router = Router(
+            self.node_info,
+            self.peer_manager,
+            transport,
+            metrics=self.p2p_metrics,
+            logger=self.logger,
+            queue_type=config.p2p_queue_type,
+        )
+
+        # --- consensus (node.go:297-325) -------------------------------------
+        if config.wal_enabled and config.home:
+            wal: WAL = WAL(os.path.join(config.home, "cs.wal"))
+        else:
+            wal = NilWAL()
+        self.consensus = ConsensusState(
+            self.sm_state,
+            self.block_exec,
+            self.block_store,
+            priv_validator=self.priv_validator,
+            wal=wal,
+            metrics=consensus_metrics,
+            logger=self.logger,
+            double_sign_check_height=config.double_sign_check_height,
+        )
+        self.consensus.on_error = self._fail
+        self.consensus_reactor = ConsensusReactor(self.consensus, self.router, on_error=self._fail)
+        self.mempool_reactor = MempoolReactor(self.mempool, self.router)
+        self.evidence_reactor = EvidenceReactor(self.evidence_pool, self.router, on_error=self._fail)
+
+        # --- blocksync (node.go:327-356) -------------------------------------
+        self._caught_up_event = threading.Event()
+        self.syncer: Optional[BlockSyncer] = None
+        if config.blocksync:
+            self.syncer = BlockSyncer(
+                self.sm_state,
+                self.block_exec,
+                self.block_store,
+                transport=None,
+                device=self.device,
+                on_caught_up=self._switch_to_consensus,
+                on_error=self._fail,
+            )
+        self.blocksync_reactor = BlockSyncReactor(self.syncer, self.block_store, self.router, on_error=self._fail)
+        self.pex_reactor = PexReactor(self.peer_manager, self.router)
+        self._started = False
+
+    # --- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        """OnStart ordering (node.go:403-519, :543-573 in the reference)."""
+        self.failed = None
+        # Double-sign risk check FIRST (state.go:2663 via OnStart:472):
+        # the common restart case must fail the whole node start, not a
+        # background sync thread later.
+        self.consensus.check_double_signing_risk()
+        self.router.start()
+        self.pex_reactor.start()
+        self.evidence_reactor.start()
+        self.mempool_reactor.start()
+        self.consensus_reactor.start()
+        self.blocksync_reactor.start()
+        for peer in self.config.persistent_peers:
+            self.peer_manager.add_address(PeerAddress.parse(peer), persistent=True)
+        if self.syncer is None:
+            self._switch_to_consensus(self.sm_state)
+        else:
+            # If there's nothing to sync from within a grace period, start
+            # consensus anyway (single node / all peers at same height).
+            threading.Thread(target=self._blocksync_grace, daemon=True).start()
+        self._started = True
+
+    def _blocksync_grace(self) -> None:
+        deadline = _time.monotonic() + BLOCKSYNC_GRACE_S
+        while _time.monotonic() < deadline:
+            if self._caught_up_event.is_set():
+                return
+            if self.syncer.pool.max_peer_height() > self.block_store.height():
+                return  # real sync in progress; on_caught_up will fire
+            _time.sleep(0.1)
+        if not self._caught_up_event.is_set():
+            self._switch_to_consensus(self.syncer.state)
+
+    def _switch_to_consensus(self, state) -> None:
+        """blocksync reactor.go:507-529 SwitchToConsensus."""
+        if self._caught_up_event.is_set():
+            return
+        self._caught_up_event.set()
+        if self.syncer is not None:
+            self.syncer.stop()
+            state = self.syncer.state  # adopt the synced state
+        if self.syncer is not None or state.last_block_height > self.consensus.state.last_block_height:
+            self.consensus._reconstruct_and_update(state)
+        try:
+            self.consensus.start()
+        except Exception as exc:
+            # Refusals after a sync (our signatures found in blocks we
+            # just synced) happen on a background thread; record them so
+            # the operator loop can exit instead of running a zombie
+            # node that never joins consensus.
+            self._fail(exc)
+            self.logger.error("consensus refused to start", err=str(exc))
+
+    def _fail(self, exc: BaseException) -> None:
+        """Keep the first fatal error of a background routine."""
+        with self._fail_mtx:
+            if self.failed is None:
+                self.failed = exc
+                self.logger.error("node failed", err=repr(exc))
+
+    def stop(self) -> None:
+        """Stop every routine and release the router; then raise
+        :attr:`failed`, or the error that stopped the consensus receive
+        routine (module note)."""
+        cs_error: Optional[BaseException] = None
+        try:
+            self.consensus.stop()
+        except BaseException as exc:
+            cs_error = exc
+        for r in (
+            self.blocksync_reactor,
+            self.consensus_reactor,
+            self.mempool_reactor,
+            self.evidence_reactor,
+            self.pex_reactor,
+        ):
+            r.stop()
+        self.router.stop()
+        self._started = False
+        if cs_error is not None:
+            self._fail(cs_error)
+        if self.failed is not None:
+            raise self.failed
+
+    # --- convenience ---------------------------------------------------------
+
+    @property
+    def caught_up(self) -> bool:
+        """Whether the node left block sync for consensus."""
+        return self._caught_up_event.is_set()
+
+    @property
+    def height(self) -> int:
+        return self.block_store.height()
+
+    def submit_tx(self, tx: bytes) -> None:
+        """Local tx submission: CheckTx + gossip (the RPC broadcast path)."""
+        self.mempool_reactor.check_and_broadcast_tx(tx)

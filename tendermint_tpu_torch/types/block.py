@@ -741,8 +741,12 @@ class Proposal:
 
     @classmethod
     def from_proto_bytes(cls, data: bytes) -> "Proposal":
+        """An absent pol_round is proto3's 0, which the encoder omits (-1
+        travels as a ten-byte varint). The JAX package's decoder leaves
+        the dataclass's -1 there, so a proposal with pol_round 0 changes
+        its sign-bytes on the wire and its signature fails (ROADMAP §C)."""
         r = Reader(data)
-        out = cls()
+        out = cls(pol_round=0)
         for f, w in r.fields():
             if f == 1 and w == 0:
                 out.type = r.read_varint()
