@@ -256,7 +256,42 @@ and, in order:
    ``Node.stop()``, no later block saved, the health machine showing
    that failure alone; reset after, as phase 6 does); then a block's
    store load, proto encode and decode and its frames' seal and open,
-   timed on one thread;
+   timed on one thread; each node indexes its blocks (``tx_index``, the
+   default), and the split has the kv sink's seconds (``index``);
+18. the node's RPC: 18b, rpc-cluster-4, runs inside 17a while its five
+   nodes are up, each serving its RPC: four client threads send
+   ``broadcast_tx_commit`` over HTTP, one validator each, at 3 txs/s
+   together for 10 more heights (every answer must carry the height its
+   tx was committed at), a websocket client subscribed to NewBlock on
+   the full node must see every height from its subscription on once,
+   in order, and ``tx_search("tx.height=h")`` on every node must find
+   each block's txs once and ``tx?hash=`` with ``prove=true`` every tx of
+   18b, its proof checking against the block's DataHash (no kernel: the
+   commits stay on the host tier); 18a, rpc-light-proxy-64x500
+   (BASELINE config 4 as a light client follows a full node): two of
+   17b's fresh nodes, which synced phase 14's chain with their RPC on
+   (its last timed run's and its corrupting-peer run's), stay up as the
+   primary and a witness; a ``LightProxy`` in this process
+   (``HTTPProvider`` primary and witness, trust at height 1 from the
+   primary's ``/commit``, the default bisection) answers
+   ``/commit?height=h`` for h = 2 ... 64 in order over HTTP, each checked
+   against the primary's header and commit and verified on the card
+   inside its own request (a K3 launch, lanes verified and none answered
+   by the verdict cache, which is emptied first, no lane on the host
+   tier, device-tier lanes where the proxy's verification is tiered), then
+   ``/validators`` at 64 (500, with the change at 33) and
+   ``/abci_query`` of the last key block 64 wrote; answers/s, p50, p99
+   and the split of a request (the primary's HTTP and decode, the
+   verification, the witness check); the same walk with ``sequential``
+   over heights 2-17, checked the same way; the health machine checked;
+   a wrapper over the witness's RPC serving phase 14's
+   forged block 40 (the height is refused, ``LightClientAttackEvidence``
+   reaches the primary's pool, which verifies it on the card); a device
+   fault at ``ed25519.chunk`` (an ``INTERNAL_ERROR`` naming
+   ``DeviceFault``, never the header; the health machine reset after, as
+   phase 6 does); then ``python -m tendermint_tpu_torch light`` and
+   ``lightd`` in processes of their own on the card, each answering
+   height 64 with the primary's header;
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -275,8 +310,9 @@ phase 4b (K1-K4), and again around each of phases 5 (K5, and the
 ed25519 kernels of the mixed commit), 5c, 7, 8, 9, 10, 11, 12, 13 (whose
 count is that of the served requests only: each sub-phase's deltas around
 what a server answered, without the in-process references, plus the
-daemon's own of 13e), 14 and 15, around 16a-c together and around 17a-b
-together. After each
+daemon's own of 13e), 14 and 15, around 16a-c together, around 17a-b
+together (less 18b's, which runs inside 17a) and around 18 (18a's from
+its walk on, after its nodes' sync, and 18b's). After each
 of these the health machine
 must show no host fallback, no transition and the healthy state (in
 phase 13 after 13b, and after 13c has reset it). Each phase prints one JSON line; then the kernel table,
@@ -294,6 +330,7 @@ import multiprocessing
 import os
 import queue
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -472,6 +509,14 @@ CLUSTER_WAIT_S = 120.0  # the longest a wait of the phase may take
 P2P_SYNC_PEERS = 2
 P2P_SYNC_REPS = 3
 P2P_SYNC_WAIT_S = 120.0
+# Phase 18a, rpc-light-proxy-64x500: two fresh nodes hold phase 14's chain
+# (BASELINE config 4) and serve their RPC; a light proxy follows them.
+# 18b, rpc-cluster-4: phase 17a's nodes with their RPC on.
+RPC_TRUSTING_PERIOD_S = 10 * 365 * 86400.0  # the chain's genesis time is in 2023
+RPC_CLI_WAIT_S = 300.0  # a command's start on the card: torch, CUDA, its first verification
+RPC_SEQUENTIAL_TO = 17  # the sequential walk's last height (the default walk's runs to NODE_SYNC_TO)
+RPC_CLUSTER_THREADS = 4
+RPC_CLUSTER_HEIGHTS = 10
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -5558,9 +5603,10 @@ def phase_cluster(dev):
     consensus params and a full node that starts at height
     CLUSTER_START_AT and block-syncs in, all ``Node``s on one
     ``MemoryNetwork``, found through one persistent peer and PEX, each
-    with a ``LocalClient`` kvstore; kvstore txs through ``Node.submit_tx``
-    at CLUSTER_TX_PER_S, on the nodes in turn, until height
-    CLUSTER_HEIGHTS. Returns the phase's launch counts."""
+    with a ``LocalClient`` kvstore and its RPC on 127.0.0.1; kvstore txs
+    through ``Node.submit_tx`` at CLUSTER_TX_PER_S, on the nodes in turn,
+    until height CLUSTER_HEIGHTS. Then, while the nodes are up, phase 18b
+    (:func:`phase_rpc_cluster`). Returns 18b's launch counts."""
     import tempfile
 
     from tendermint_tpu_torch.abci.client import LocalClient
@@ -5582,7 +5628,7 @@ def phase_cluster(dev):
 
     def make(name, pv, peers, blocksync=True):
         node = Node(NodeConfig(chain_id=CLUSTER_CHAIN_ID, listen_addr=name, moniker=name, persistent_peers=peers,
-                               blocksync=blocksync),
+                               blocksync=blocksync, rpc_laddr="127.0.0.1:0"),
                     genesis, LocalClient(KVStoreApplication()), priv_validator=pv, memory_network=net, device=dev)
         nodes.append(node)
         return node
@@ -5654,6 +5700,11 @@ def phase_cluster(dev):
                         "round_state": full.consensus.rs.height_round_step(), "cs_error": full.consensus.error,
                         "peers": len(full.router.connected_peers()), "v0": v0.height}))
         peers = [len(n.router.connected_peers()) for n in nodes]
+        lat = [committed[tx][0][1] - t for tx, t in submitted.items()]
+        submit_ms = {"p50": percentile(lat, 0.5) * 1e3, "p99": percentile(lat, 0.99) * 1e3, "max": max(lat) * 1e3}
+        wall = time.perf_counter() - t_phase
+        counts, top = ingest_delta(before), v0.height  # 17a's, before 18b
+        rpc_counts = phase_rpc_cluster(validators, full, submit_ms)
     finally:
         stop.set()
         stop_watching.set()
@@ -5665,8 +5716,6 @@ def phase_cluster(dev):
                 stopped.append(None)
             except Exception as exc:  # the phase checks what escaped
                 stopped.append(repr(exc))
-    wall = time.perf_counter() - t_phase
-    counts = ingest_delta(before)
     check(not errors and stopped == [None] * len(nodes) and all(n.failed is None for n in nodes),
           f"phase 17a: submit errors {errors[:3]}, stop {stopped}, failed {[n.failed for n in nodes]}")
     last = min(n.height for n in nodes)
@@ -5676,7 +5725,7 @@ def phase_cluster(dev):
         check(len({m.block_id for m in metas}) == 1 and len(app_hashes) == 1,
               f"phase 17a: the nodes disagree at height {h}")
     counted = {}
-    for h in range(1, v0.height + 1):
+    for h in range(1, top + 1):
         for tx in v0.block_store.load_block(h).data.txs:
             counted[bytes(tx)] = counted.get(bytes(tx), 0) + 1
     check(all(counted.get(tx) == 1 for tx in submitted) and set(counted) == set(submitted),
@@ -5687,15 +5736,13 @@ def phase_cluster(dev):
           f"phase 17a: the full node did not block-sync in (synced to {synced_to}, started at {full_started_at})")
     times = [v0.block_store.load_block(h).header.time.to_unix_ns() / 1e9 for h in range(1, CLUSTER_HEIGHTS + 1)]
     intervals = [b - a for a, b in zip(times, times[1:])]
-    lat = [committed[tx][0][1] - t for tx, t in submitted.items()]
     out = {
         "phase": "cluster", "validators": CLUSTER_VALIDATORS, "full_nodes": 1, "heights": CLUSTER_HEIGHTS,
         "last_common_height": last, "full_node_started_at": full_started_at, "full_node_synced_to": synced_to,
         "block_interval_s": {"mean": statistics.mean(intervals), "stdev": statistics.pstdev(intervals),
                              "min": min(intervals), "max": max(intervals), "n": len(intervals)},
         "txs_submitted": len(submitted), "txs_committed": len(counted), "tx_per_s": CLUSTER_TX_PER_S,
-        "submit_to_committed_ms": {"p50": percentile(lat, 0.5) * 1e3, "p99": percentile(lat, 0.99) * 1e3,
-                                   "max": max(lat) * 1e3},
+        "submit_to_committed_ms": submit_ms,
         "peers": peers, "wall_s": wall,
         "launches": counts["launches"], "verifier_lanes": counts["cache"]["misses"],
         "verdict_cache_answered": counts["cache"]["hits"], "host_tier_lanes": counts["tiers"]["host"],
@@ -5704,7 +5751,7 @@ def phase_cluster(dev):
     }
     emit(out)
     shutil.rmtree(home, ignore_errors=True)
-    return counts["launches"]
+    return rpc_counts
 
 
 class ServingPeer:
@@ -5880,16 +5927,18 @@ def peers_aead(peers):
     return out
 
 
-def p2p_follow(source, peers, dev, clock=None, fault=False):
+def p2p_follow(source, peers, dev, clock=None, fault=False, keep=False):
     """A fresh ``Node`` (non-validator, block sync on, memdb, no WAL, a new
-    node key, ``persistent_peers`` the serving ``peers``) syncing from
-    them over encrypted TCP until it switches to consensus. With
-    ``clock`` (a :class:`StageClock`) its stages are timed; with
-    ``fault``, a permanent device fault is installed once its first
-    window is applied. Returns the node (stopped), the wall seconds from
+    node key, ``persistent_peers`` the serving ``peers``, its RPC on
+    127.0.0.1) syncing from them over encrypted TCP until it switches to
+    consensus. With ``clock`` (a :class:`StageClock`) its stages are
+    timed; with ``fault``, a permanent device fault is installed once its
+    first window is applied. Returns the node (stopped; with ``keep``
+    still running, unless it failed), the wall seconds from
     ``Node.start()`` to the caught-up event (or to the failure), and a
     log (the handshakes, with ``clock`` the node's AEAD seconds and
-    frames, the height the fault came at, what ``stop()`` raised)."""
+    frames, the height the fault came at, what ``stop()`` raised, the
+    bytes by channel at the caught-up event)."""
     from tendermint_tpu_torch.abci.client import LocalClient
     from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
     from tendermint_tpu_torch.blocksync import syncer as syncer_mod
@@ -5902,7 +5951,7 @@ def p2p_follow(source, peers, dev, clock=None, fault=False):
 
     genesis_json = source[0]
     node = Node(NodeConfig(chain_id=CHAIN_ID, listen_addr="127.0.0.1:0", wal_enabled=False, moniker="follower",
-                           persistent_peers=[p.addr for p in peers]),
+                           persistent_peers=[p.addr for p in peers], rpc_laddr="127.0.0.1:0"),
                 GenesisDoc.from_json(genesis_json), LocalClient(KVStoreApplication()), device=dev)
     log = {"handshakes_ms": [], "fault_at": None, "stop_raised": None}
     patches = []
@@ -5938,6 +5987,9 @@ def p2p_follow(source, peers, dev, clock=None, fault=False):
         patch(ex.app, "finalize_block", clock.wrap("finalize_block", ex.app.finalize_block))
         patch(ex.block_store, "save_block", clock.wrap("save_block", ex.block_store.save_block))
         patch(ex.state_store, "save", clock.wrap("save_state", ex.state_store.save))
+        # the default tx_index: the kv sink indexes each block in apply_block
+        patch(node.event_sink, "index_finalized_block",
+              clock.wrap("index", node.event_sink.index_finalized_block))
         patch(node.blocksync_reactor, "_handle", clock.wrap("fetch_decode", node.blocksync_reactor._handle))
     if fault:
         real_apply = node.syncer._apply_ready_blocks
@@ -5957,17 +6009,22 @@ def p2p_follow(source, peers, dev, clock=None, fault=False):
         wait_until(lambda: node.caught_up or node.failed is not None, P2P_SYNC_WAIT_S,
                    "phase 17b: the follower's catch-up")
         wall = time.perf_counter() - t
+        log["bytes"] = p2p_bytes(node)
         if fault:
             # the syncer's thread has ended on the fault: no block after it
             wait_until(lambda: not node.syncer._thread or not node.syncer._thread.is_alive(), 30,
                        "phase 17b: the syncer's thread after the fault")
             time.sleep(0.5)
+    except BaseException:
+        keep = False
+        raise
     finally:
         fault_injection.uninstall()
-        try:
-            node.stop()
-        except Exception as exc:  # the phase checks what escaped
-            log["stop_raised"] = exc
+        if not keep or node.failed is not None:
+            try:
+                node.stop()
+            except Exception as exc:  # the phase checks what escaped
+                log["stop_raised"] = exc
         for obj, name, fn in reversed(patches):
             setattr(obj, name, fn)
         if undo_aead is not None:
@@ -6034,12 +6091,12 @@ def host_costs_one_thread(store):
             "open_ms_a_frame": statistics.median(open_) * 1e3 / len(frames)}
 
 
-def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
+def phase_node_p2p_sync(source, dev, inproc_blocks_per_s, peers, peers_start_s, kept):
     """17b, node-p2p-sync-64x500 (BASELINE config 4 as a node joins): phase
-    14's source chain served by P2P_SYNC_PEERS ``ServingPeer``s, each in a
+    14's source chain served by the P2P_SYNC_PEERS ``peers``, each in a
     process of its own over its own copy of the source's block store
-    (:class:`PeerProcess`); fresh ``Node``s sync NODE_SYNC_TO blocks from
-    them over encrypted TCP and switch to consensus. One cold run (the
+    (:func:`serving_peers`, which started them in ``peers_start_s``);
+    fresh ``Node``s sync NODE_SYNC_TO blocks from them over encrypted TCP and switch to consensus. One cold run (the
     host's table builds and the store's uploads), P2P_SYNC_REPS timed runs
     (the verdict cache emptied before each; no table build), a run with a
     third peer that serves one block with a corrupted signature (banned,
@@ -6048,8 +6105,11 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
     ``DeviceFault`` ends in ``Node.failed`` and ``Node.stop()`` raises
     it; the health machine shows that one permanent failure and no
     fallback, and is reset after, as phase 6 does). Then the per-block
-    host costs on one thread (:func:`host_costs_one_thread`). Returns the
-    phase's launch counts."""
+    host costs on one thread (:func:`host_costs_one_thread`). The last
+    timed run's node and the corrupting-peer run's stay up, serving
+    their RPC, as phase 18a's primary and witness: they are appended to
+    ``kept``, which the caller stops. The tables and the store are left
+    to that phase. Returns the phase's launch counts."""
     from tendermint_tpu_torch.ops import device_policy, precompute, resident
     from tendermint_tpu_torch.ops.fault_injection import DeviceFault
 
@@ -6061,13 +6121,11 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
 
     phase_store = resident.stats()
     t = time.perf_counter()
-    peers = [PeerProcess(src_exec.block_store, f"peer{i}") for i in range(P2P_SYNC_PEERS)]
     bad = PeerProcess(src_exec.block_store, "corrupting", corrupt=True)
     bad_last = None
     try:
-        for p in [*peers, bad]:
-            p.ready()
-        peers_start_s = time.perf_counter() - t
+        bad.ready()
+        bad_start_s = time.perf_counter() - t
         before, builds, store = launches(), precompute.tables.builds, resident.stats()
         node, cold_s, cold_log = p2p_follow(source, peers, dev)
         check(node.failed is None and cold_log["stop_raised"] is None and node.caught_up
@@ -6078,11 +6136,14 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
                 "table_builds": precompute.tables.builds - builds, "store": store_delta(store)}
         peers_aead(peers)  # the cold run's
         before, builds, store = launches(), precompute.tables.builds, resident.stats()
-        walls, clocks, logs, nodes, served = [], [], [], [], []
-        for _ in range(P2P_SYNC_REPS):
+        walls, clocks, logs, served = [], [], [], []
+        for rep in range(P2P_SYNC_REPS):
             precompute.results.clear()
             clock = StageClock()
-            node, wall, log = p2p_follow(source, peers, dev, clock)
+            last = rep == P2P_SYNC_REPS - 1
+            node, wall, log = p2p_follow(source, peers, dev, clock, keep=last)
+            if last and node.failed is None:
+                kept.append(node)
             served.append(peers_aead(peers))
             check(node.failed is None and log["stop_raised"] is None and node.caught_up
                   and node.syncer.state.last_block_height == NODE_SYNC_TO,
@@ -6091,7 +6152,6 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
             walls.append(wall)
             clocks.append(clock)
             logs.append(log)
-            nodes.append(node)
         timed_launches = delta(before)
         timed_store = store_delta(store)
         check(timed_launches.get("verify_resident", 0) > 0, f"phase 17b launched no K3: {timed_launches}")
@@ -6099,7 +6159,9 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
 
         # a third peer corrupts a signature of one block's LastCommit
         precompute.results.clear()
-        node, corrupt_s, corrupt_log = p2p_follow(source, [*peers, bad], dev)
+        node, corrupt_s, corrupt_log = p2p_follow(source, [*peers, bad], dev, keep=True)
+        if node.failed is None:
+            kept.append(node)
         banned = sorted(node.syncer.pool._banned)
         bad_last = bad.stop()
         corrupted = bad_last and bad_last["corrupted"]
@@ -6127,14 +6189,12 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
               f"phase 17b fault: the health machine shows more than the permanent failure: {fault_snapshot}")
         device_policy.shared.reset()
     finally:
-        for p in peers:
-            p.stop()
         if bad_last is None:
             bad.stop()
     host_costs = host_costs_one_thread(src_exec.block_store)
     i = walls.index(statistics.median(walls))
     keys = ("fetch_decode", "pipeline", "validate_block", "verify_commit", "apply_block",
-            "finalize_block", "save_block", "save_state")
+            "finalize_block", "index", "save_block", "save_state")
     split = {k + "_ms": clocks[i].seconds.get(k, 0.0) * 1e3 for k in keys}
     node_aead, peer_aead = logs[i]["aead"], served[i]
     blocks_per_s = NODE_SYNC_TO / statistics.median(walls)
@@ -6142,6 +6202,7 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
     emit({"phase": "node_p2p_sync", "blocks": NODE_SYNC_TO, "validators": NODE_VALIDATORS,
           "serving_peers": P2P_SYNC_PEERS, "peers_in_processes_of_their_own": True,
           "transport": "tcp, SecretConnection + MConnection, 5,120,000 B/s", "peers_start_s": peers_start_s,
+          "corrupting_peer_start_s": bad_start_s, "tx_index_sinks": ["kv"],
           "cold": cold, "seconds": walls, "blocks_per_s_median": blocks_per_s,
           "phase14_inprocess_blocks_per_s": inproc_blocks_per_s,
           "inprocess_over_p2p": inproc_blocks_per_s / blocks_per_s,
@@ -6155,14 +6216,570 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s):
                                 "opened_frames": peer_aead["opened_frames"]}},
           "host_costs_one_thread": host_costs,
           "verify_commit_cache_of_median_run": clocks[i].cache,
-          "bytes_by_channel_of_median_run": p2p_bytes(nodes[i]),
+          "bytes_by_channel_of_median_run": logs[i]["bytes"],
           "launches_timed_runs": timed_launches, "store_timed_runs": timed_store,
           "corrupting_peer": {"corrupted_height": corrupted, "banned": banned, "s": corrupt_s},
           "device_fault": {"after_height": fault_log["fault_at"], "failed": repr(node.failed), "s": fault_s,
                            "health_before_reset": {k: fault_snapshot[k] for k in ("state", "transitions",
                                                                                   "failures")}},
           "launches": counts, "store_phase": store_delta(phase_store)})
-    precompute.reset()
+    return counts
+
+
+class WSClient:
+    """A websocket client for phase 18b (RFC 6455: the upgrade at
+    ``/websocket``, masked text frames out, the server's frames in)."""
+
+    def __init__(self, host, port, timeout=30.0):
+        import base64
+        import socket
+
+        self.sock = socket.create_connection((host, port), timeout=timeout)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET /websocket HTTP/1.1\r\nHost: {host}:{port}\r\nUpgrade: websocket\r\n"
+                           f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                           "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            chunk = self.sock.recv(4096)
+            check(bool(chunk), "phase 18b: the websocket handshake")
+            head += chunk
+        head, self._buf = head.split(b"\r\n\r\n", 1)
+        check(head.startswith(b"HTTP/1.1 101"), f"phase 18b: the websocket upgrade was refused: {head[:80]!r}")
+
+    def _read(self, n):
+        while len(self._buf) < n:
+            chunk = self.sock.recv(65536)
+            if not chunk:
+                raise ConnectionError("websocket closed")
+            self._buf += chunk
+        out, self._buf = self._buf[:n], self._buf[n:]
+        return out
+
+    def send(self, doc):
+        import struct
+
+        payload, mask = json.dumps(doc).encode(), os.urandom(4)
+        n = len(payload)
+        head = bytes([0x81]) + (bytes([0x80 | n]) if n < 126 else bytes([0x80 | 126]) + struct.pack(">H", n))
+        self.sock.sendall(head + mask + bytes(b ^ mask[i % 4] for i, b in enumerate(payload)))
+
+    def recv(self):
+        """The next text frame as JSON; None when the server closes."""
+        import struct
+
+        while True:
+            hdr = self._read(2)
+            opcode, n = hdr[0] & 0x0F, hdr[1] & 0x7F
+            if n == 126:
+                (n,) = struct.unpack(">H", self._read(2))
+            elif n == 127:
+                (n,) = struct.unpack(">Q", self._read(8))
+            payload = self._read(n)
+            if opcode == 0x1:
+                return json.loads(payload)
+            if opcode == 0x8:
+                return None
+
+    def close(self):
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+def phase_rpc_cluster(validators, full, submit_ms):
+    """18b, rpc-cluster-4: phase 17a's four validators and full node while
+    they are up, each serving its RPC. RPC_CLUSTER_THREADS client threads
+    send ``broadcast_tx_commit`` over HTTP, one validator each, at
+    CLUSTER_TX_PER_S together, for RPC_CLUSTER_HEIGHTS more heights; every
+    answer must carry the height its tx was committed at. A websocket
+    client subscribed to NewBlock on the full node must see every height
+    from its subscription on once, in order; ``tx_search("tx.height=h")``
+    on every node must find each block's txs once, and ``tx?hash=`` with
+    ``prove=true`` every tx of this phase, with a proof that checks
+    against its block's DataHash. No kernel runs: four-lane commits stay
+    on the host tier. ``submit_ms`` is 17a's submit-to-committed figures,
+    printed beside this phase's. Returns the phase's launch counts."""
+    from tendermint_tpu_torch.crypto.merkle import Proof
+    from tendermint_tpu_torch.rpc import encoding as enc
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.types.block import tx_hash
+
+    nodes = [*validators, full]
+    v0 = validators[0]
+    before = ingest_counters()
+    t_phase = time.perf_counter()
+    ws = WSClient(*full.rpc_server.address)
+    pushed, ws_errors = [], []
+    try:
+        h_before = full.height
+        ws.send({"jsonrpc": "2.0", "id": 1, "method": "subscribe", "params": {"query": "tm.event = 'NewBlock'"}})
+        ack = ws.recv()
+        h_after = full.height
+        check(ack == {"jsonrpc": "2.0", "id": 1, "result": {}}, f"phase 18b: the subscription's answer {ack}")
+
+        def read_pushes():
+            try:
+                while True:
+                    msg = ws.recv()
+                    if msg is None:
+                        return
+                    pushed.append(int(msg["result"]["data"]["height"]))
+            except (OSError, ConnectionError, ValueError, KeyError) as exc:
+                ws_errors.append(repr(exc))
+
+        reader = threading.Thread(target=read_pushes, daemon=True)
+        reader.start()
+        last = v0.height + RPC_CLUSTER_HEIGHTS
+        stop, answers, errors = threading.Event(), [], []
+
+        def client(i):
+            rng = np.random.default_rng(SEED + 18 + i)
+            rpc = HTTPClient(validators[i].rpc_server.url, timeout=CLUSTER_WAIT_S)
+            period = RPC_CLUSTER_THREADS / CLUSTER_TX_PER_S
+            next_t, k = time.perf_counter() + i * period / RPC_CLUSTER_THREADS, 0
+            while not stop.wait(max(0.0, next_t - time.perf_counter())):
+                tx = b"rpc-%d-%04d=%s" % (i, k, rng.bytes(8).hex().encode())
+                t = time.perf_counter()
+                try:
+                    res = rpc.broadcast_tx_commit(tx, timeout=CLUSTER_WAIT_S)
+                    answers.append((tx, res, time.perf_counter() - t, i))
+                except Exception as exc:  # the phase checks what escaped
+                    errors.append(repr(exc))
+                k += 1
+                next_t = max(next_t + period, time.perf_counter())
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(RPC_CLUSTER_THREADS)]
+        for t in threads:
+            t.start()
+        try:
+            wait_until(lambda: v0.height >= last, CLUSTER_WAIT_S, "phase 18b: the last height")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(CLUSTER_WAIT_S)
+        end = max(n.height for n in nodes)
+        wait_until(lambda: min(n.height for n in nodes) >= end and pushed and pushed[-1] >= end, CLUSTER_WAIT_S,
+                   lambda: f"phase 18b: the nodes at {[n.height for n in nodes]}, pushes to {pushed[-1:]}")
+    finally:
+        ws.close()
+    load_s = time.perf_counter() - t_phase
+    check(not errors and not ws_errors and answers, f"phase 18b: errors {errors[:3]} {ws_errors[:3]}")
+    for tx, res, _, i in answers:
+        h = int(res.get("height", 0))
+        check(res["check_tx"]["code"] == 0 and res.get("tx_result") is not None and h > 0
+              and bytes(tx) in v0.block_store.load_block(h).data.txs,
+              f"phase 18b: broadcast_tx_commit of {tx!r} at node {i} answered {res}")
+    first = pushed[0]
+    check(h_before < first <= h_after + 1 and pushed == list(range(first, first + len(pushed))),
+          f"phase 18b: the websocket saw {pushed} (subscribed between heights {h_before} and {h_after})")
+    # every node's index: each block's txs once, and this phase's txs with proofs
+    t_check = time.perf_counter()
+    searches = proofs = 0
+    height_of = {bytes(tx): int(res["height"]) for tx, res, _, _ in answers}
+    for node in nodes:
+        rpc = HTTPClient(node.rpc_server.url)
+        for h in range(1, end + 1):
+            want = sorted(enc.hex_bytes(tx_hash(tx)) for tx in v0.block_store.load_block(h).data.txs)
+            found = rpc.tx_search(f"tx.height={h}", per_page=100)
+            got = sorted(t["hash"] for t in found["txs"])
+            check(got == want and int(found["total_count"]) == len(want),
+                  f"phase 18b: tx_search at height {h} on {node.config.moniker}: {len(got)} of {len(want)}")
+            searches += 1
+        for tx, h in height_of.items():
+            out = rpc.call("tx", {"hash": "0x" + tx_hash(tx).hex(), "prove": True})
+            p = out["proof"]["proof"]
+            proof = Proof(total=int(p["total"]), index=int(p["index"]), leaf_hash=enc.unb64(p["leaf_hash"]),
+                          aunts=[enc.unb64(a) for a in p["aunts"]])
+            root = bytes.fromhex(out["proof"]["root_hash"])
+            check(int(out["height"]) == h and enc.unb64(out["tx"]) == tx and proof.verify(root, tx_hash(tx))
+                  and root == node.block_store.load_block(h).header.data_hash,
+                  f"phase 18b: tx {tx!r} on {node.config.moniker}: its proof does not check")
+            proofs += 1
+    counts = ingest_delta(before)
+    lat = [a[2] for a in answers]
+    emit({"phase": "rpc_cluster", "nodes": len(nodes), "client_threads": RPC_CLUSTER_THREADS,
+          "tx_per_s_target": CLUSTER_TX_PER_S, "heights": [end - RPC_CLUSTER_HEIGHTS, end],
+          "txs_committed": len(answers), "tx_per_s": len(answers) / load_s,
+          "broadcast_tx_commit_ms": {"p50": percentile(lat, 0.5) * 1e3, "p99": percentile(lat, 0.99) * 1e3,
+                                     "max": max(lat) * 1e3},
+          "phase17a_submit_to_committed_ms": submit_ms,
+          "websocket_pushes": len(pushed), "websocket_heights": [pushed[0], pushed[-1]],
+          "tx_search_requests": searches, "proofs_checked": proofs, "check_s": time.perf_counter() - t_check,
+          "wall_s": time.perf_counter() - t_phase, "launches": counts["launches"],
+          "host_tier_lanes": counts["tiers"]["host"], "device_tier_lanes": counts["tiers"]["device"]})
+    return counts["launches"]
+
+
+def serving_peers(store):
+    """Phase 14's source chain served by P2P_SYNC_PEERS
+    :class:`PeerProcess`es, each over its own copy of ``store``, ready.
+    Returns them and the seconds they took to start."""
+    t = time.perf_counter()
+    peers = [PeerProcess(store, f"peer{i}") for i in range(P2P_SYNC_PEERS)]
+    try:
+        for p in peers:
+            p.ready()
+    except BaseException:
+        for p in peers:
+            p.stop()
+        raise
+    return peers, time.perf_counter() - t
+
+
+class ForkingRPC:
+    """A wrapper over a witness's RPC that serves the witness's answers,
+    except ``/commit`` at NODE_FORK_HEIGHT: phase 14's forged block there
+    (another AppHash) with its commit, signed by the height's set."""
+
+    def __init__(self, witness_url, fork):
+        from tendermint_tpu_torch.rpc.client import HTTPClient
+        from tendermint_tpu_torch.rpc.server import RPCServer
+        from tendermint_tpu_torch.types.block import Block
+
+        self.forged = Block.from_proto_bytes(fork[NODE_FORK_HEIGHT])
+        self.forged_commit = Block.from_proto_bytes(fork[NODE_FORK_HEIGHT + 1]).last_commit
+        self.witness = HTTPClient(witness_url)
+        self.server = RPCServer({"commit": self.commit, "validators": self.validators})
+        self.server.start()
+
+    def commit(self, height=None):
+        from tendermint_tpu_torch.rpc import encoding as enc
+
+        if height is not None and int(height) == NODE_FORK_HEIGHT:
+            return {"signed_header": {"header": enc.header_json(self.forged.header),
+                                      "commit": enc.commit_json(self.forged_commit)}, "canonical": True}
+        return self.witness.call("commit", {} if height is None else {"height": height})
+
+    def validators(self, height=None, page=1, per_page=30):
+        return self.witness.call("validators", {"height": height, "page": page, "per_page": per_page})
+
+
+def stop_nodes(nodes):
+    """Stop each of ``nodes``, emptying the list; what each ``stop()``
+    raised (None where it raised nothing)."""
+    out = []
+    while nodes:
+        try:
+            nodes.pop(0).stop()
+            out.append(None)
+        except Exception as exc:  # the phase checks what escaped
+            out.append(repr(exc))
+    return out
+
+
+def light_proxy(primary_url, witness_urls, anchor, dev, sequential=False):
+    """A ``LightProxy`` on 127.0.0.1 over a ``LightClient`` with
+    ``HTTPProvider``s, trusting height 1 at ``anchor``, on ``dev``;
+    started."""
+    from tendermint_tpu_torch.light.client import LightClient, TrustOptions
+    from tendermint_tpu_torch.light.provider import HTTPProvider
+    from tendermint_tpu_torch.light.proxy import LightProxy
+
+    client = LightClient(CHAIN_ID, TrustOptions(RPC_TRUSTING_PERIOD_S, 1, anchor), HTTPProvider(CHAIN_ID, primary_url),
+                         [HTTPProvider(CHAIN_ID, u) for u in witness_urls], sequential=sequential, device=dev)
+    proxy = LightProxy(client, primary_url)
+    proxy.start()
+    return proxy
+
+
+def proxy_walk(proxy, primary, clock, top, what, tiered=True):
+    """Ask ``proxy`` over HTTP for ``/commit?height=h``, h = 2 ... ``top``
+    in order, as a light client following the chain does; each answer
+    must be the primary's header and commit, and must have been verified
+    on the card inside its request: at least one K3 launch, lanes
+    verified (verdict-cache misses) and none answered from the cache, no
+    host-tier lane and, where the proxy's verification goes through the
+    shared scheduler's tiers (``tiered``; the sequential verifier calls
+    the engine directly), device-tier lanes. Returns the per-request
+    seconds and each request's stage seconds (``clock``'s deltas)."""
+    from tendermint_tpu_torch.rpc import encoding as enc
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+
+    rpc = HTTPClient(proxy.url, timeout=P2P_SYNC_WAIT_S)
+    walls, splits = [], []
+    for h in range(2, top + 1):
+        before, cache = dict(clock.seconds), ingest_counters()
+        t = time.perf_counter()
+        out = rpc.commit(h)
+        walls.append(time.perf_counter() - t)
+        splits.append({k: v - before.get(k, 0.0) for k, v in clock.seconds.items()})
+        got = ingest_delta(cache)
+        check(got["launches"].get("verify_resident", 0) >= 1 and got["cache"]["misses"] > 0
+              and got["cache"]["hits"] == 0 and got["tiers"]["host"] == got["tiers"]["host_cached"] == 0
+              and (got["tiers"]["device"] > 0 or not tiered),
+              f"{what}: height {h} was not verified on the card in its request: launches {got['launches']}, "
+              f"tiers {got['tiers']}, cache {got['cache']}")
+        meta = primary.block_store.load_block_meta(h)
+        commit = primary.block_store.load_block_commit(h) or primary.block_store.load_seen_commit()
+        check(out["signed_header"]["header"] == enc.header_json(meta.header)
+              and out["signed_header"]["commit"] == enc.commit_json(commit)
+              and out["signed_header"]["commit"]["block_id"]["hash"] == enc.hex_bytes(meta.block_id.hash),
+              f"{what}: the proxy's commit at height {h} is not the primary's")
+    return walls, splits
+
+
+def timed_proxy(proxy, clock):
+    """Time the proxy client's stages into ``clock``: each provider's
+    light block (the HTTP requests of ``commit`` and the ``validators``
+    pages with their JSON, and the decode), the verification and the
+    witness check."""
+    client = proxy.client
+    for name, p in [("primary", client.primary)] + [(f"witness", w) for w in client.witnesses]:
+        p.client.call = clock.wrap(f"{name}_http", p.client.call)
+        p.light_block = clock.wrap(f"{name}_light_block", p.light_block)
+    client._verify_skipping_batched = clock.wrap("verify", client._verify_skipping_batched)
+    client._verify_sequential = clock.wrap("verify", client._verify_sequential)
+    client._detect_divergence = clock.wrap("witness_check", client._detect_divergence)
+
+
+def split_summary(walls, splits):
+    """The stage split of the median request and the sums over the walk
+    (ms): the primary's fetch as HTTP and decode, the verification, the
+    witness check (the witness's fetch inside it), the rest (the proxy's
+    serving, JSON and the client's HTTP)."""
+
+    def shape(s, wall):
+        out = {"request": wall * 1e3,
+               "primary_http": s.get("primary_http", 0.0) * 1e3,
+               "primary_decode": (s.get("primary_light_block", 0.0) - s.get("primary_http", 0.0)) * 1e3,
+               "verify": s.get("verify", 0.0) * 1e3,
+               "witness_check": s.get("witness_check", 0.0) * 1e3,
+               "witness_http": s.get("witness_http", 0.0) * 1e3}
+        out["rest"] = out["request"] - out["primary_http"] - out["primary_decode"] - out["verify"] \
+            - out["witness_check"]
+        return out
+
+    i = walls.index(sorted(walls)[len(walls) // 2])
+    total = {}
+    for s in splits:
+        for k, v in s.items():
+            total[k] = total.get(k, 0.0) + v
+    return {"median_request_ms": shape(splits[i], walls[i]), "walk_total_ms": shape(total, sum(walls))}
+
+
+def proxy_cli(command, primary_url, witness_url, anchor, dev):
+    """``python -m tendermint_tpu_torch light|lightd`` in a process of its
+    own, on ``dev``'s type (the commands' default is the card), over the
+    two nodes: the process, a queue of its output lines and its start
+    time."""
+    flag = "--laddr" if command == "light" else "--listen"
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tendermint_tpu_torch", command, primary_url, "--chain-id", CHAIN_ID,
+         "--trust-height", "1", "--trust-hash", anchor.hex(), "--trust-period", str(RPC_TRUSTING_PERIOD_S),
+         "--witness", witness_url, flag, "127.0.0.1:0"] + ([] if dev.type == "cuda" else ["--device", dev.type]),
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    return proc, lines, time.perf_counter()
+
+
+def cli_answer(command, proc, lines, t_start, path):
+    """Wait for the command's banner, then GET ``path`` from it; the
+    answer and the seconds from the process's start."""
+    import urllib.request
+
+    try:
+        banner = lines.get(timeout=RPC_CLI_WAIT_S)
+    except queue.Empty:
+        banner = ""
+    check(" on http://" in banner, f"phase 18a: `{command}` printed no banner: {banner!r} "
+          f"(exit {proc.poll()}, stderr {proc.stderr.read()[-2000:] if proc.poll() is not None else ''})")
+    url = banner.split(" on ", 1)[1].split()[0]
+    with urllib.request.urlopen(f"{url}/{path}", timeout=RPC_CLI_WAIT_S) as resp:
+        doc = json.load(resp)
+    check("result" in doc, f"phase 18a: `{command}` answered {path} with {doc.get('error')}")
+    return doc["result"], time.perf_counter() - t_start
+
+
+def phase_rpc_light(source, nodes, dev):
+    """18a, rpc-light-proxy-64x500 (BASELINE config 4 as a light client
+    follows a full node): ``nodes``, two fresh ``Node``s that synced phase
+    14's chain in phase 17b and stay up with their RPC on, are the
+    primary and a witness; this phase stops them and empties the list.
+    A ``LightProxy`` in this process over ``HTTPProvider``s, trusting
+    height 1 (its hash from the primary's ``/commit``), answers
+    ``/commit?height=h`` for h = 2 ... NODE_SYNC_TO in order over HTTP,
+    each verified on the card inside its request (:func:`proxy_walk`),
+    then ``/validators`` at the top and ``/abci_query`` of a key the top
+    block wrote, each checked against the primary's stores; the same walk
+    with ``sequential`` up to RPC_SEQUENTIAL_TO. Faults: a wrapper over
+    the witness's RPC serves the forged block at NODE_FORK_HEIGHT (the
+    height is not answered, the client's evidence reaches the primary's
+    pool, which verifies it); with the health machine checked first, a
+    device fault reaches the client as an RPC error that names it. The
+    ``light`` and ``lightd`` commands run in processes of their own,
+    started after the timed walks (their start, about 10 s, overlaps the
+    faults) and asked last. Kernel launches are counted from the walk on;
+    the children's are their own. Returns them."""
+    from tendermint_tpu_torch.abci import types as abci
+    from tendermint_tpu_torch.ops import cuda_hash, cuda_verify, device_policy, fault_injection, precompute, resident
+    from tendermint_tpu_torch.rpc import encoding as enc
+    from tendermint_tpu_torch.rpc.client import HTTPClient, RPCClientError
+    from tendermint_tpu_torch.rpc.server import INTERNAL_ERROR, INVALID_PARAMS
+    from tendermint_tpu_torch.types.evidence import LightClientAttackEvidence
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    t_phase = time.perf_counter()
+    _, src_exec, _, changed, fork, _ = source
+    proxies, procs, cli = [], [], {}
+    forking = None
+    try:
+        check(len(nodes) == 2 and all(n.caught_up and n.failed is None and n.height == NODE_SYNC_TO for n in nodes),
+              f"phase 18a: the nodes at {[n.height for n in nodes]}, failed {[n.failed for n in nodes]}")
+        primary, witness = nodes
+        p_url, w_url = primary.rpc_server.url, witness.rpc_server.url
+        anchor = bytes.fromhex(HTTPClient(p_url).commit(1)["signed_header"]["commit"]["block_id"]["hash"])
+        check(anchor == src_exec.block_store.load_block_meta(1).block_id.hash, "phase 18a: the anchor")
+
+        # the walk, with the counts and the verdict cache from zero
+        precompute.results.clear()
+        cuda_verify.reset_launches()
+        cuda_hash.reset_launches()
+        before, lanes, store, builds = ingest_counters(), kernel_lanes(), resident.stats(), precompute.tables.builds
+        clock = StageClock()
+        proxy = light_proxy(p_url, [w_url], anchor, dev)
+        proxies.append(proxy)
+        timed_proxy(proxy, clock)
+        t = time.perf_counter()
+        walls, splits = proxy_walk(proxy, primary, clock, NODE_SYNC_TO, "phase 18a")
+        walk_s = time.perf_counter() - t
+        walk = ingest_delta(before)
+        walk_lanes, walk_store = lanes_since(lanes), resident.stats()
+        walk_store = {k: walk_store[k] - store[k] for k in ("uploads", "h2d_bytes", "invalidations")}
+        walk_builds = precompute.tables.builds - builds
+        check(walk["tiers"]["host"] == walk["tiers"]["host_cached"] == 0 and walk_lanes["hits"] == 0
+              and walk["launches"].get("verify_resident", 0) >= len(walls),
+              f"phase 18a: the walk's tiers {walk['tiers']}, lanes {walk_lanes}, launches {walk['launches']}")
+        rpc = HTTPClient(proxy.url)
+        vals = rpc.call("validators", {"height": NODE_SYNC_TO})
+        want = primary.state_store.load_validators(NODE_SYNC_TO)
+        check(vals["validators"] == [enc.validator_json(v) for v in want.validators]
+              and vals["total"] == str(NODE_VALIDATORS), "phase 18a: the proxy's validators at the top")
+        genesis = GenesisDoc.from_json(source[0])
+        power = {v.address: v.voting_power for v in want.validators}
+        check(all(power[genesis.validators[i].pub_key.address()] == p for i, p in changed.items())
+              and want.hash() == primary.block_store.load_block_meta(NODE_SYNC_TO).header.validators_hash,
+              "phase 18a: the set at the top does not carry the change at height 33")
+        key, value = primary.block_store.load_block(NODE_SYNC_TO).data.txs[-1].split(b"=", 1)
+        out = rpc.call("abci_query", {"data": "0x" + key.hex()})["response"]
+        check(enc.unb64(out["value"]) == value == primary.app.query(abci.RequestQuery(data=key)).value
+              and out["verified_height"] == str(NODE_SYNC_TO), f"phase 18a: abci_query of {key!r}: {out}")
+
+        # the same walk, sequential, over its first heights
+        precompute.results.clear()
+        before_seq = ingest_counters()
+        seq_clock = StageClock()
+        seq = light_proxy(p_url, [w_url], anchor, dev, sequential=True)
+        proxies.append(seq)
+        timed_proxy(seq, seq_clock)
+        t = time.perf_counter()
+        seq_walls, seq_splits = proxy_walk(seq, primary, seq_clock, RPC_SEQUENTIAL_TO, "phase 18a sequential",
+                                          tiered=False)
+        seq_s = time.perf_counter() - t
+        seq_delta = ingest_delta(before_seq)
+        check(seq_delta["launches"].get("verify_resident", 0) >= len(seq_walls),
+              f"phase 18a sequential: launches {seq_delta['launches']}")
+        # the commands start now, after the timed walks, so their start
+        # overlaps the fault checks below and not a walk
+        for command in ("light", "lightd"):
+            procs.append((command, *proxy_cli(command, p_url, w_url, anchor, dev)))
+
+        # a witness with a conflicting header
+        forking = ForkingRPC(w_url, fork)
+        attack = light_proxy(p_url, [forking.server.url], anchor, dev)
+        proxies.append(attack)
+        pending_before = len(primary.evidence_pool.pending_evidence(1 << 30)[0])
+        before_attack = launches()
+        t = time.perf_counter()
+        try:
+            HTTPClient(attack.url).commit(NODE_FORK_HEIGHT)
+            attack_error = None
+        except RPCClientError as exc:
+            attack_error = exc
+        attack_s = time.perf_counter() - t
+        pending = primary.evidence_pool.pending_evidence(1 << 30)[0]
+        check(attack_error is not None and attack_error.code == INVALID_PARAMS
+              and "conflicting headers detected" in attack_error.message
+              and attack.client.trusted_light_block(NODE_FORK_HEIGHT) is None,
+              f"phase 18a: the conflicting height was answered or mis-refused: {attack_error!r}")
+        evs = [e for e in pending if isinstance(e, LightClientAttackEvidence)]
+        check(len(pending) == pending_before + 1 and len(evs) == 1
+              and evs[0].conflicting_block.hash() == forking.forged.hash(),
+              f"phase 18a: the primary's pool holds {len(pending)} (before {pending_before})")
+
+        # a device fault in the proxy's verification, on a healthy machine
+        check_healthy("phase 18a before its fault")
+        precompute.results.clear()
+        faulted = light_proxy(p_url, [w_url], anchor, dev)
+        proxies.append(faulted)
+        fault_injection.install(fault_injection.FaultPlan(site="ed25519", fail_from=1, fail_count=1 << 30))
+        try:
+            HTTPClient(faulted.url).commit(NODE_SYNC_TO)
+            fault_error = None
+        except RPCClientError as exc:
+            fault_error = exc
+        finally:
+            fault_injection.uninstall()
+        fault_health = device_policy.shared.snapshot()
+        check(fault_error is not None and fault_error.code == INTERNAL_ERROR and "DeviceFault" in fault_error.data
+              and faulted.client.trusted_light_block(NODE_SYNC_TO) is None
+              and fault_health["fallback_batches"] == 0 and fault_health["failures"]["transient"] >= 1,
+              f"phase 18a: the device fault reached the client as {fault_error!r}, health {fault_health}")
+        device_policy.shared.reset()
+        recovered = HTTPClient(faulted.url).commit(NODE_SYNC_TO)
+        check(recovered["signed_header"]["header"]["height"] == str(NODE_SYNC_TO),
+              "phase 18a: the proxy after the fault")
+        counts = launches()
+
+        # the light and lightd commands, each in a process of its own
+        header = enc.header_json(primary.block_store.load_block_meta(NODE_SYNC_TO).header)
+        for command, proc, lines, t_start in procs:
+            path = f"commit?height={NODE_SYNC_TO}" if command == "light" else f"light_header?height={NODE_SYNC_TO}"
+            result, s = cli_answer(command, proc, lines, t_start, path)
+            got = result["signed_header"]["header"] if command == "light" else result["header"]
+            check(got == header, f"phase 18a: `{command}` answered another header at {NODE_SYNC_TO}")
+            cli[command] = {"start_to_answer_s": s}
+    finally:
+        for command, proc, _, _ in procs:
+            proc.send_signal(signal.SIGTERM)
+        for command, proc, _, _ in procs:
+            try:
+                rc = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            cli.setdefault(command, {})["exit"] = rc
+        for p in proxies:
+            p.stop()
+        if forking is not None:
+            forking.server.stop()
+        stopped = stop_nodes(nodes)
+        precompute.reset()
+    check(stopped == [None, None] and all(cli[c]["exit"] == 0 for c in ("light", "lightd")),
+          f"phase 18a: the nodes' stop {stopped}, the commands' exits {cli}")
+    k3 = walk["launches"].get("verify_resident", 0)
+    emit({"phase": "rpc_light_proxy", "heights": [2, NODE_SYNC_TO], "validators": NODE_VALIDATORS,
+          "nodes": "phase 17b's last timed run (primary) and corrupting-peer run (witness)",
+          "answers": len(walls), "answers_per_s": len(walls) / walk_s,
+          "request_ms": {"p50": percentile(walls, 0.5) * 1e3, "p99": percentile(walls, 0.99) * 1e3,
+                         "max": max(walls) * 1e3, "first": walls[0] * 1e3},
+          "split": split_summary(walls, splits),
+          "verification": {"launches": walk["launches"], "k3_share_of_launches": k3 / max(1, sum(
+              walk["launches"].values())), "lanes": walk_lanes, "tiers": walk["tiers"], "tier_s": walk["tier_s"],
+              "flushes": walk["sched"].get("flushes"), "table_builds": walk_builds},
+          "store": walk_store,
+          "sequential": {"heights": [2, RPC_SEQUENTIAL_TO], "answers_per_s": len(seq_walls) / seq_s,
+                         "request_ms": {"p50": percentile(seq_walls, 0.5) * 1e3,
+                                        "p99": percentile(seq_walls, 0.99) * 1e3},
+                         "split": split_summary(seq_walls, seq_splits), "launches": seq_delta["launches"]},
+          "attack": {"height": NODE_FORK_HEIGHT, "error": attack_error.message, "s": attack_s,
+                     "evidence_at_primary": len(evs), "launches": delta(before_attack)},
+          "device_fault": {"error": fault_error.message, "code": fault_error.code,
+                           "failures": fault_health["failures"]},
+          "cli": cli, "wall_s": time.perf_counter() - t_phase, "launches": counts})
     return counts
 
 
@@ -6289,15 +6906,24 @@ def main(argv=None) -> int:
     cuda_verify.reset_launches()  # the nodes over p2p start here
     cuda_hash.reset_launches()
     sinks = node_sinks()
+    peers, peers_start_s = serving_peers(node_source[1].block_store)
+    kept = []  # two of 17b's nodes, up until 18a stops them
     try:
-        phase_cluster(dev)
-        health["phase_17a"] = check_healthy("phase 17a")
-        phase_node_p2p_sync(node_source, dev, node_blocks_per_s)
+        rpc_cluster_counts = phase_cluster(dev)  # and 18b, while its nodes are up
+        health["phase_17a_18b"] = check_healthy("phases 17a and 18b")
+        phase_node_p2p_sync(node_source, dev, node_blocks_per_s, peers, peers_start_s, kept)
+        p2p_counts = {k: v - rpc_cluster_counts.get(k, 0) for k, v in launches().items()}
+        health["phase_17b"] = check_healthy("phase 17b")
+        check(p2p_counts["verify_resident"] > 0, f"phase 17: launches {p2p_counts}")
+        rpc_light_counts = phase_rpc_light(node_source, kept, dev)  # resets the counts at its walk
     finally:
+        stop_nodes(kept)  # where 18a was not reached
+        for p in peers:
+            p.stop()
         restore_node_sinks(sinks)
-    p2p_counts = launches()
-    health["phase_17b"] = check_healthy("phase 17b")
-    check(p2p_counts["verify_resident"] > 0, f"phase 17: launches {p2p_counts}")
+    rpc_counts = add_launches(rpc_light_counts, rpc_cluster_counts)
+    health["phase_18a"] = check_healthy("phase 18a")
+    check(rpc_counts["verify_resident"] > 0, f"phase 18: launches {rpc_counts}")
     crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
@@ -6318,6 +6944,7 @@ def main(argv=None) -> int:
         row["launches_consensus"] = consensus_counts[name]
         row["launches_evidence"] = evidence_counts[name]
         row["launches_p2p"] = p2p_counts[name]
+        row["launches_rpc"] = rpc_counts.get(name, 0)
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,12 @@ receive routine keeps it in :attr:`ConsensusState.error`, stops, and
 ``InvalidBlockError`` and ``InvalidCommitError`` stay ``ValueError``\\ s,
 so a bad block still draws a nil prevote.
 
-``_publish_event`` is a no-op until the event bus is ported (ROADMAP §A
-item 8e). A conflicting vote goes to the executor's evidence pool when
+The state machine publishes NewRound, NewRoundStep, CompleteProposal
+and Vote onto :attr:`ConsensusState.event_bus` (``eventbus.py``) when a
+node sets one, as the reference does; its ``_publish_event`` drops any
+error of a publish, the port's lets it escape (a publish cannot fail
+for a slow subscriber: a full subscription drops the message). A
+conflicting vote goes to the executor's evidence pool when
 it has ``report_conflicting_votes`` (``evidence/pool.py`` has; the
 executor's default no-op pool has not), as in the reference.
 """
@@ -42,6 +46,7 @@ import threading
 import time as _time
 from typing import Callable, Optional
 
+from tendermint_tpu_torch import eventbus as eb
 from tendermint_tpu_torch.consensus import cstypes
 from tendermint_tpu_torch.consensus.cstypes import HeightVoteSet, RoundStep
 from tendermint_tpu_torch.consensus.ticker import TimeoutTicker
@@ -144,6 +149,7 @@ class ConsensusState:
         # on_error (a node's ``Node._fail``) hears of it when it happens.
         self.error: Optional[BaseException] = None
         self.on_error: Optional[Callable[[BaseException], None]] = None
+        self.event_bus = None  # set by the node (node.go wires the event bus)
 
         self.rs = cstypes.RoundState()
         self.state = SMState()  # set by _update_to_state
@@ -390,12 +396,19 @@ class ConsensusState:
 
     def _new_step(self) -> None:
         self.broadcaster.broadcast_new_round_step(self.rs)
-        self._publish_event("publish_event_new_round_step")
+        self._publish_event(
+            "publish_event_new_round_step",
+            lambda: eb.EventDataRoundState(height=self.rs.height, round=self.rs.round, step=self.rs.step.name),
+        )
 
-    def _publish_event(self, publisher: str) -> None:
-        """A consensus event for the node's bus (state.go fires NewRound,
-        NewRoundStep, CompleteProposal and Vote): a no-op until the event
-        bus is ported (ROADMAP §A item 8e)."""
+    def _publish_event(self, publisher: str, build) -> None:
+        """Fire a consensus event onto the node's bus (state.go fires
+        NewRound, NewRoundStep, CompleteProposal and Vote through its event
+        bus). The bus is optional: tests drive the state machine without a
+        node."""
+        bus = self.event_bus
+        if bus is not None:
+            getattr(bus, publisher)(build())
 
     def _schedule_round_0(self) -> None:
         delay = max(0.0, (self.rs.start_time.to_unix_ns() - self._now().to_unix_ns()) / 1e9)
@@ -427,7 +440,12 @@ class ConsensusState:
         self.metrics.validators.set(len(validators.validators))
         self.logger.with_fields(height=height, round=round_).debug("entering new round")
         tracing.instant("new_round", height=height, round=round_)
-        self._publish_event("publish_event_new_round")
+        self._publish_event(
+            "publish_event_new_round",
+            lambda: eb.EventDataNewRound(
+                height=height, round=round_, step=rs.step.name, proposer_address=validators.get_proposer().address
+            ),
+        )
         self._enter_propose(height, round_)
 
     def _enter_propose(self, height: int, round_: int) -> None:
@@ -777,7 +795,13 @@ class ConsensusState:
     def _handle_complete_proposal(self) -> None:
         """state.go handleCompleteProposal:2255-2287."""
         rs = self.rs
-        self._publish_event("publish_event_complete_proposal")
+        self._publish_event(
+            "publish_event_complete_proposal",
+            lambda: eb.EventDataCompleteProposal(
+                height=rs.height, round=rs.round, step=rs.step.name,
+                block_id=rs.proposal.block_id if rs.proposal else None,
+            ),
+        )
         prevotes = rs.votes.prevotes(rs.round)
         block_id, has_maj = prevotes.two_thirds_majority() if prevotes else (BlockID(), False)
         if has_maj and not block_id.is_nil() and rs.valid_round < rs.round:
@@ -848,7 +872,7 @@ class ConsensusState:
             return False
         # Tell the peers, so their peer state marks us as having it.
         self.broadcaster.broadcast_has_vote(vote.height, vote.round, vote.type, vote.validator_index)
-        self._publish_event("publish_event_vote")
+        self._publish_event("publish_event_vote", lambda: eb.EventDataVote(vote=vote))
 
         if vote.type == SIGNED_MSG_TYPE_PREVOTE:
             prevotes = rs.votes.prevotes(vote.round)

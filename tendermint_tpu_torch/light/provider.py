@@ -2,10 +2,10 @@
 
 Counterpart of ``tendermint_tpu/light/provider.py``: a provider serves
 LightBlocks by height and accepts evidence of misbehaviour.
-``MemoryProvider`` is the in-process provider, and ``RetryingProvider``
-wraps any provider with retries and a failure budget. The RPC-backed
-``HTTPProvider`` is left out: it needs an RPC client and a full node's
-routes, which the port does not have yet.
+``MemoryProvider`` is the in-process provider, ``RetryingProvider``
+wraps any provider with retries and a failure budget, and
+``HTTPProvider`` builds light blocks from a full node's ``/commit`` and
+``/validators`` routes (``rpc/core.py``), paging the set 100 at a time.
 """
 
 from __future__ import annotations
@@ -15,8 +15,11 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
+from tendermint_tpu_torch.rpc import encoding as enc
+from tendermint_tpu_torch.rpc.client import HTTPClient, RPCClientError
 from tendermint_tpu_torch.types.evidence import Evidence
-from tendermint_tpu_torch.types.light import LightBlock
+from tendermint_tpu_torch.types.light import LightBlock, SignedHeader
+from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
 
 class ProviderError(Exception):
@@ -167,3 +170,60 @@ class RetryingProvider(Provider):
     def report_evidence(self, evidence: Evidence) -> None:
         # Evidence broadcast is best-effort upstream: no retry loop.
         self.inner.report_evidence(evidence)
+
+
+class HTTPProvider(Provider):
+    """RPC-backed provider (light/provider/http/http.go): builds
+    LightBlocks from /commit + /validators against a full node."""
+
+    def __init__(self, chain_id: str, url: str, timeout: float = 10.0):
+        self._chain_id = chain_id
+        self.client = HTTPClient(url, timeout=timeout)
+
+    def chain_id(self) -> str:
+        return self._chain_id
+
+    def light_block(self, height: int) -> LightBlock:
+        try:
+            c = self.client.commit(height if height > 0 else None)
+            h = int(c["signed_header"]["header"]["height"])
+            v = self.client.validators(h, per_page=100)
+            vals = [enc.validator_from_json(d) for d in v["validators"]]
+            total = int(v["total"])
+            page = 2
+            while len(vals) < total:
+                more = self.client.validators(h, page=page, per_page=100)
+                got = [enc.validator_from_json(d) for d in more["validators"]]
+                if not got:
+                    break
+                vals.extend(got)
+                page += 1
+        except RPCClientError as e:
+            msg = e.message + " " + e.data
+            if "no block" in msg or "no commit" in msg:
+                raise HeightTooHighError(msg)
+            raise LightBlockNotFoundError(msg)
+        except OSError as e:
+            raise ProviderError(str(e))
+        # The priorities the full node reported, kept: the set is restored
+        # as it came, not rebuilt by the change-set algorithm. A defective
+        # node (an empty set) is a ProviderError, so the caller drops the
+        # witness, not the whole verification.
+        try:
+            vset = ValidatorSet.restore(vals)
+            vset.get_proposer()
+        except ValueError as e:
+            raise ProviderError(f"bad validator set from node: {e}")
+        return LightBlock(
+            signed_header=SignedHeader(
+                header=enc.header_from_json(c["signed_header"]["header"]),
+                commit=enc.commit_from_json(c["signed_header"]["commit"]),
+            ),
+            validator_set=vset,
+        )
+
+    def report_evidence(self, evidence: Evidence) -> None:
+        try:
+            self.client.call("broadcast_evidence", {"evidence": "0x" + evidence.to_proto_bytes().hex()})
+        except Exception:
+            pass  # best effort, as in the reference

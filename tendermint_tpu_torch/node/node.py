@@ -9,8 +9,18 @@ until caught up, then consensus. ``device=`` goes to the
 every entry point of the port, it defaults to
 :data:`tendermint_tpu_torch.DEFAULT_DEVICE` (the card).
 
+The node publishes onto an event bus (``eventbus.py``): the consensus
+state machine's round events, and for every applied block
+(:meth:`Node._fire_events`, the executor's ``event_publisher``)
+NewBlock, NewBlockHeader, one Tx event a tx and the validator-set
+updates. With ``tx_index`` (the default) the block is first indexed, in
+the same call, by the configured sinks (``indexer/sink.py``: ``kv``,
+``null``, ``sql`` over stdlib ``sqlite3`` in memory). With
+``rpc_laddr`` the node serves the reference's routes
+(``rpc/core.py``, the unsafe set with ``rpc_unsafe``) and websocket
+subscriptions over ``rpc/server.py``.
+
 Cut from this node, each refused rather than ignored (ROADMAP §A): the
-event bus, the indexer and its sinks and the RPC server (item 8e); the
 statesync reactor and syncer, the remote signers and
 ``db_backend="filedb"`` (item 8f, so the stores are ``MemDB`` and a node
 always starts from its genesis); the shared-memory transport to verifyd
@@ -30,11 +40,13 @@ and :meth:`Node.stop` releases everything and then raises it.
 from __future__ import annotations
 
 import os
+import sqlite3
 import threading
 import time as _time
 from dataclasses import dataclass, field as dc_field
 from typing import List, Optional
 
+from tendermint_tpu_torch import eventbus as events_mod
 from tendermint_tpu_torch import resolve_device
 from tendermint_tpu_torch.abci import types as abci_types
 from tendermint_tpu_torch.abci.client import AbciClient
@@ -45,6 +57,8 @@ from tendermint_tpu_torch.consensus.state import ConsensusState
 from tendermint_tpu_torch.consensus.wal import WAL, NilWAL
 from tendermint_tpu_torch.evidence.pool import EvidencePool
 from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
+from tendermint_tpu_torch.indexer.kv import KVIndexer
+from tendermint_tpu_torch.indexer.sink import KVEventSink, MultiSink, NullEventSink, SQLEventSink
 from tendermint_tpu_torch.libs.log import Logger
 from tendermint_tpu_torch.libs.metrics import (
     ConsensusMetrics,
@@ -64,6 +78,8 @@ from tendermint_tpu_torch.p2p.router import Router
 from tendermint_tpu_torch.p2p.transport import MemoryNetwork, NodeInfo, TCPTransport, Transport
 from tendermint_tpu_torch.privval import FilePV
 from tendermint_tpu_torch.privval.base import PrivValidator
+from tendermint_tpu_torch.rpc.core import Environment
+from tendermint_tpu_torch.rpc.server import RPCServer
 from tendermint_tpu_torch.state import StateStore, state_from_genesis
 from tendermint_tpu_torch.state.execution import BlockExecutor
 from tendermint_tpu_torch.storage.blockstore import BlockStore
@@ -80,10 +96,8 @@ BLOCKSYNC_GRACE_S = 2.0
 class NodeConfig:
     """config/config.go condensed: the knobs the node assembly needs.
 
-    The reference's fields, less those of the features this slice cuts,
-    each with the ROADMAP §A item that brings it: ``rpc_laddr``,
-    ``rpc_unsafe`` (the RPC server), ``tx_index``, ``tx_index_sinks``
-    (the indexer and its sinks): item 8e; ``statesync``,
+    The reference's fields, less those of the features the port has not
+    yet, each with the ROADMAP §A item that brings it: ``statesync``,
     ``priv_validator_laddr``, ``signer_connect_timeout`` (the remote
     signers): item 8f; ``verify_shm``: item 12; ``mesh_devices``: item
     10. ``db_backend`` takes only ``"memdb"`` (``"filedb"`` is item 8f).
@@ -98,6 +112,13 @@ class NodeConfig:
     wal_enabled: bool = True
     max_connections: int = 16
     moniker: str = "tpu-node"
+    rpc_laddr: str = ""  # "host:port" enables the RPC server ("" = off)
+    rpc_unsafe: bool = False  # register unsafe operator routes
+    tx_index: bool = True
+    # Event sinks (indexer/sink.py): any of "kv", "null", "sql"
+    # (reference internal/state/indexer/sink/; all configured sinks
+    # receive every block, indexer_service.go).
+    tx_index_sinks: List[str] = dc_field(default_factory=lambda: ["kv"])
     # tm-db backend selection (config/db.go:29): "memdb" only here.
     db_backend: str = "memdb"
     # Structured logging level: debug/info/warn/error/none (libs/log).
@@ -189,6 +210,36 @@ class Node:
             self.sm_state.next_validators.increment_proposer_priority(1)
         self.state_store.save(self.sm_state)
 
+        # --- event bus + indexer (node.go:158-184) ---------------------------
+        # Indexing is synchronous inside _fire_events rather than through a
+        # pubsub subscription: subscriptions are bounded queues that drop
+        # under backpressure (fine for RPC subscribers, lossy for an
+        # index). The reference's indexer subscription is lossless and
+        # blocks the publisher for the same reason (indexer_service.go).
+        self.event_bus = events_mod.EventBus()
+        self.indexer: Optional[KVIndexer] = None
+        self.event_sink: Optional[MultiSink] = None
+        if config.tx_index:
+            sinks = []
+            # dedupe after normalizing the alias ("psql" == "sql"): a
+            # duplicate must not open the same store twice
+            normalized = ["sql" if s == "psql" else s for s in (config.tx_index_sinks or ["kv"])]
+            for sink_name in dict.fromkeys(normalized):
+                if sink_name == "kv":
+                    self.indexer = KVIndexer(MemDB())
+                    sinks.append(KVEventSink(self.indexer))
+                elif sink_name == "null":
+                    sinks.append(NullEventSink())
+                elif sink_name == "sql":
+                    # the psql schema over stdlib sqlite3, in memory (the
+                    # file stores are item 8f)
+                    conn = sqlite3.connect(":memory:", check_same_thread=False)
+                    sinks.append(SQLEventSink(conn, genesis.chain_id))
+                else:
+                    raise ValueError(f"unknown indexer sink {sink_name!r} (kv|null|sql)")
+            if sinks:
+                self.event_sink = MultiSink(sinks)
+
         # --- observability (node.go:158-184 metrics, libs/log) ----------------
         from tendermint_tpu_torch import ops as _ops
         from tendermint_tpu_torch.libs import tracing as _tracing
@@ -233,6 +284,7 @@ class Node:
             self.block_store,
             mempool=self.mempool,
             evidence_pool=self.evidence_pool,
+            event_publisher=self._fire_events,
             metrics=state_metrics,
             device=self.device,
         )
@@ -280,6 +332,7 @@ class Node:
             double_sign_check_height=config.double_sign_check_height,
         )
         self.consensus.on_error = self._fail
+        self.consensus.event_bus = self.event_bus
         self.consensus_reactor = ConsensusReactor(self.consensus, self.router, on_error=self._fail)
         self.mempool_reactor = MempoolReactor(self.mempool, self.router)
         self.evidence_reactor = EvidenceReactor(self.evidence_pool, self.router, on_error=self._fail)
@@ -299,6 +352,37 @@ class Node:
             )
         self.blocksync_reactor = BlockSyncReactor(self.syncer, self.block_store, self.router, on_error=self._fail)
         self.pex_reactor = PexReactor(self.peer_manager, self.router)
+
+        # --- RPC (node.go:512, internal/rpc/core) ----------------------------
+        self.rpc_server: Optional[RPCServer] = None
+        if config.rpc_laddr:
+            host, _, port = config.rpc_laddr.rpartition(":")
+            self.rpc_env = Environment(
+                node_info=self.node_info,
+                genesis=self.genesis,
+                block_store=self.block_store,
+                state_store=self.state_store,
+                consensus=self.consensus,
+                mempool=self.mempool,
+                evidence_pool=self.evidence_pool,
+                app_client=self.app,
+                event_bus=self.event_bus,
+                indexer=self.indexer,
+                peer_manager=self.peer_manager,
+                get_state=lambda: self.consensus.state,
+                is_syncing=lambda: not self._caught_up_event.is_set(),
+                consensus_reactor=self.consensus_reactor,
+                router=self.router,
+                mempool_reactor=self.mempool_reactor,
+                unsafe=config.rpc_unsafe,
+            )
+            self.rpc_server = RPCServer(
+                self.rpc_env.routes(),
+                host=host or "127.0.0.1",
+                port=int(port),
+                metrics_registry=self.metrics_registry,
+                event_bus=self.event_bus,
+            )
         self._started = False
 
     # --- lifecycle -----------------------------------------------------------
@@ -324,6 +408,8 @@ class Node:
             # If there's nothing to sync from within a grace period, start
             # consensus anyway (single node / all peers at same height).
             threading.Thread(target=self._blocksync_grace, daemon=True).start()
+        if self.rpc_server is not None:
+            self.rpc_server.start()
         self._started = True
 
     def _blocksync_grace(self) -> None:
@@ -347,6 +433,9 @@ class Node:
             state = self.syncer.state  # adopt the synced state
         if self.syncer is not None or state.last_block_height > self.consensus.state.last_block_height:
             self.consensus._reconstruct_and_update(state)
+        self.event_bus.publish_event_block_sync_status(
+            events_mod.EventDataBlockSyncStatus(complete=True, height=state.last_block_height)
+        )
         try:
             self.consensus.start()
         except Exception as exc:
@@ -368,6 +457,8 @@ class Node:
         """Stop every routine and release the router; then raise
         :attr:`failed`, or the error that stopped the consensus receive
         routine (module note)."""
+        if self.rpc_server is not None:
+            self.rpc_server.stop()
         cs_error: Optional[BaseException] = None
         try:
             self.consensus.stop()
@@ -382,11 +473,36 @@ class Node:
         ):
             r.stop()
         self.router.stop()
+        if self.event_sink is not None:
+            self.event_sink.close()
         self._started = False
         if cs_error is not None:
             self._fail(cs_error)
         if self.failed is not None:
             raise self.failed
+
+    def _fire_events(self, block, block_id, fres, validator_updates) -> None:
+        """execution.go:600-648 fireEvents: index the block, then publish
+        NewBlock, its header, one event a tx, and the validator-set
+        updates onto the bus."""
+        if self.event_sink is not None:
+            self.event_sink.index_finalized_block(block.header.height, block.data.txs, fres)
+        bus = self.event_bus
+        bus.publish_event_new_block(
+            events_mod.EventDataNewBlock(block=block, block_id=block_id, result_finalize_block=fres)
+        )
+        bus.publish_event_new_block_header(
+            events_mod.EventDataNewBlockHeader(header=block.header, num_txs=len(block.data.txs))
+        )
+        txs = list(block.data.txs)
+        for i, r in enumerate(fres.tx_results):
+            if i >= len(txs):
+                break
+            bus.publish_event_tx(events_mod.EventDataTx(height=block.header.height, index=i, tx=txs[i], result=r))
+        if validator_updates:
+            bus.publish_event_validator_set_updates(
+                events_mod.EventDataValidatorSetUpdates(validator_updates=list(validator_updates))
+            )
 
     # --- convenience ---------------------------------------------------------
 

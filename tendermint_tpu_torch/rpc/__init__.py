@@ -1,3 +1,3 @@
-"""JSON-RPC serving; counterpart of :mod:`tendermint_tpu.rpc`, reduced to
-the threaded HTTP server and the JSON encodings the light-client serving
-tier (``light/lightd.py``) answers with."""
+"""JSON-RPC serving; counterpart of :mod:`tendermint_tpu.rpc`: the
+threaded HTTP server with its websocket sessions, a node's route table
+(``core.py``), the JSON encodings and the HTTP client."""

@@ -1,12 +1,20 @@
 """JSON encoding of core types for RPC responses.
 
-The part of ``tendermint_tpu/rpc/encoding.py`` the light-client serving
-tier answers with, and the RFC 3339 parser the light client's
-conformance traces are read with. It follows the reference's RPC JSON
-conventions (rpc/coretypes/responses.go with proto-JSON encodings):
+A copy of ``tendermint_tpu/rpc/encoding.py``, whole: the encoders the
+node's routes, the light proxy and lightd answer with, and the decoders
+``light/provider.py`` ``HTTPProvider`` builds light blocks with. It
+follows the reference's RPC JSON conventions (rpc/coretypes/responses.go with proto-JSON encodings):
 hashes hex-encoded, signatures base64, timestamps RFC 3339, int64 fields
 as strings (Go's proto-JSON renders 64-bit ints as strings; clients
 depend on that).
+
+One divergence: the reference's ``rfc3339`` writes the year as the C
+library's ``%Y`` does, without padding, so Go's zero time (an absent
+commit signature's timestamp) comes out as ``1-01-01T00:00:00Z``, which
+its own ``parse_rfc3339`` refuses: the reference's ``HTTPProvider``
+cannot read a commit with an absent signature. The port writes four
+digits (``0001-01-01T00:00:00Z``, as Go's RFC 3339 does) and reads
+either form.
 """
 
 from __future__ import annotations
@@ -15,8 +23,18 @@ import base64
 import datetime
 from typing import Any, Dict
 
+from tendermint_tpu_torch.abci import types as abci
+from tendermint_tpu_torch.crypto.keys import pubkey_from_type_and_bytes
 from tendermint_tpu_torch.encoding.canonical import Timestamp
-from tendermint_tpu_torch.types.block import BlockID, Commit, CommitSig, Header
+from tendermint_tpu_torch.types.block import (
+    Block,
+    BlockID,
+    Commit,
+    CommitSig,
+    Consensus,
+    Header,
+    PartSetHeader,
+)
 from tendermint_tpu_torch.types.validator import Validator
 
 
@@ -28,10 +46,14 @@ def b64(b: bytes) -> str:
     return base64.b64encode(b).decode()
 
 
+def unb64(s: str) -> bytes:
+    return base64.b64decode(s)
+
+
 def rfc3339(ts: Timestamp) -> str:
     dt = datetime.datetime.fromtimestamp(ts.seconds, tz=datetime.timezone.utc)
     frac = f".{ts.nanos:09d}".rstrip("0").rstrip(".")
-    return dt.strftime("%Y-%m-%dT%H:%M:%S") + frac + "Z"
+    return f"{dt.year:04d}" + dt.strftime("-%m-%dT%H:%M:%S") + frac + "Z"
 
 
 def parse_rfc3339(s: str) -> Timestamp:
@@ -42,7 +64,8 @@ def parse_rfc3339(s: str) -> Timestamp:
         nanos = int(frac.ljust(9, "0")[:9])
     else:
         main, nanos = s, 0
-    dt = datetime.datetime.strptime(main, "%Y-%m-%dT%H:%M:%S").replace(
+    year, _, rest = main.partition("-")
+    dt = datetime.datetime.strptime(f"{year.zfill(4)}-{rest}", "%Y-%m-%dT%H:%M:%S").replace(
         tzinfo=datetime.timezone.utc
     )
     return Timestamp(int(dt.timestamp()), nanos)
@@ -95,6 +118,15 @@ def commit_json(c: Commit) -> Dict[str, Any]:
     }
 
 
+def block_json(b: Block) -> Dict[str, Any]:
+    return {
+        "header": header_json(b.header),
+        "data": {"txs": [b64(tx) for tx in b.data.txs]},
+        "evidence": {"evidence": []},
+        "last_commit": commit_json(b.last_commit) if b.last_commit else None,
+    }
+
+
 def validator_json(v: Validator) -> Dict[str, Any]:
     return {
         "address": hex_bytes(v.address),
@@ -104,4 +136,83 @@ def validator_json(v: Validator) -> Dict[str, Any]:
         },
         "voting_power": str(v.voting_power),
         "proposer_priority": str(v.proposer_priority),
+    }
+
+
+# --- decoders (client side: the light provider) -----------------------------
+
+
+def block_id_from_json(d: Dict[str, Any]) -> BlockID:
+    return BlockID(
+        hash=bytes.fromhex(d.get("hash", "")),
+        part_set_header=PartSetHeader(
+            total=int(d.get("parts", {}).get("total", 0)),
+            hash=bytes.fromhex(d.get("parts", {}).get("hash", "")),
+        ),
+    )
+
+
+def header_from_json(d: Dict[str, Any]) -> Header:
+    return Header(
+        version=Consensus(block=int(d["version"]["block"]), app=int(d["version"]["app"])),
+        chain_id=d["chain_id"],
+        height=int(d["height"]),
+        time=parse_rfc3339(d["time"]),
+        last_block_id=block_id_from_json(d["last_block_id"]),
+        last_commit_hash=bytes.fromhex(d["last_commit_hash"]),
+        data_hash=bytes.fromhex(d["data_hash"]),
+        validators_hash=bytes.fromhex(d["validators_hash"]),
+        next_validators_hash=bytes.fromhex(d["next_validators_hash"]),
+        consensus_hash=bytes.fromhex(d["consensus_hash"]),
+        app_hash=bytes.fromhex(d["app_hash"]),
+        last_results_hash=bytes.fromhex(d["last_results_hash"]),
+        evidence_hash=bytes.fromhex(d["evidence_hash"]),
+        proposer_address=bytes.fromhex(d["proposer_address"]),
+    )
+
+
+def commit_from_json(d: Dict[str, Any]) -> Commit:
+    return Commit(
+        height=int(d["height"]),
+        round=int(d["round"]),
+        block_id=block_id_from_json(d["block_id"]),
+        signatures=[
+            CommitSig(
+                block_id_flag=int(s["block_id_flag"]),
+                validator_address=bytes.fromhex(s["validator_address"]),
+                timestamp=parse_rfc3339(s["timestamp"]),
+                signature=base64.b64decode(s["signature"]) if s.get("signature") else b"",
+            )
+            for s in d["signatures"]
+        ],
+    )
+
+
+def validator_from_json(d: Dict[str, Any]) -> Validator:
+    pub = pubkey_from_type_and_bytes(d["pub_key"]["type"], base64.b64decode(d["pub_key"]["value"]))
+    return Validator(
+        address=bytes.fromhex(d["address"]),
+        pub_key=pub,
+        voting_power=int(d["voting_power"]),
+        proposer_priority=int(d.get("proposer_priority", 0)),
+    )
+
+
+def event_json(e: abci.Event) -> Dict[str, Any]:
+    return {
+        "type": e.type,
+        "attributes": [{"key": a.key, "value": a.value, "index": a.index} for a in e.attributes],
+    }
+
+
+def exec_tx_result_json(r: abci.ExecTxResult) -> Dict[str, Any]:
+    return {
+        "code": r.code,
+        "data": b64(r.data),
+        "log": r.log,
+        "info": r.info,
+        "gas_wanted": str(r.gas_wanted),
+        "gas_used": str(r.gas_used),
+        "events": [event_json(e) for e in (r.events or [])],
+        "codespace": r.codespace,
     }

@@ -1,9 +1,9 @@
 """JSON-RPC 2.0 server over HTTP.
 
-The part of ``tendermint_tpu/rpc/server.py`` the light-client serving
-tier needs: a route table served over ``ThreadingHTTPServer`` (the
-reference's ``evloop=False`` transport, the same HTTP surface, with the
-listen backlog of the reference's event-loop listener, 128), with
+A copy of ``tendermint_tpu/rpc/server.py`` cut to one transport: a
+route table served over ``ThreadingHTTPServer`` (the reference's
+``evloop=False`` transport, the same HTTP surface, with the listen
+backlog of the reference's event-loop listener, 128), with
 
 - POST: a JSON-RPC envelope, single or batch (an empty batch is one
   ``INVALID_REQUEST`` error), its body bounded at 64 MiB;
@@ -16,13 +16,17 @@ listen backlog of the reference's event-loop listener, 128), with
   after the read, ``?format=chrome`` keeps only the epoch anchor of
   ``otherData``), written outside the tracer lock; GET ``/debug/memstats``: the device-tier
   snapshot of ``ops/introspect.py``;
+- GET ``/websocket``: the upgrade to a websocket session
+  (``rpc/websocket.py``) that serves the route table and, over
+  ``event_bus``, ``subscribe``, ``unsubscribe`` and ``unsubscribe_all``
+  (a request without the upgrade headers gets 400);
 - a request's optional ``trace`` member (``<trace_id>-<span_id>-<flags>``,
   ``TraceContext.to_header``): the handler runs in an ``rpc_dispatch``
   span under the caller's span, so the spans it causes share the
   caller's trace. A missing or malformed member changes nothing.
 
-Left out: the selector event-loop transport and its knob, and the
-websocket upgrade.
+Left out: the selector event-loop transport and its knob (ROADMAP §A
+item 12).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qsl, urlparse
 
 from tendermint_tpu_torch.libs import tracing
+from tendermint_tpu_torch.rpc import websocket as ws
 
 
 class RPCError(Exception):
@@ -55,6 +60,10 @@ INTERNAL_ERROR = -32603
 
 _MAX_BODY_BYTES = 64 << 20
 
+# what _get_response returns for GET /websocket: the handler owns the
+# upgrade (it needs the raw connection, not a body)
+_WS_UPGRADE = object()
+
 
 class _HTTPServer(ThreadingHTTPServer):
     daemon_threads = True
@@ -72,11 +81,14 @@ class RPCServer:
         host: str = "127.0.0.1",
         port: int = 0,
         metrics_registry=None,
+        event_bus=None,
     ):
         self.routes = routes
         # Prometheus text exposition at GET /metrics (the reference serves
         # it on the RPC listener too).
         self.metrics_registry = metrics_registry
+        # the bus behind websocket subscribe/unsubscribe (routes.go:31-34)
+        self.event_bus = event_bus
         self._thread: Optional[threading.Thread] = None
         server = self
 
@@ -99,7 +111,26 @@ class RPCServer:
                 self._send(200, "application/json", server._post_body(body))
 
             def do_GET(self):
-                self._send(*server._get_response(self.path))
+                got = server._get_response(self.path)
+                if got is _WS_UPGRADE:
+                    self._upgrade()
+                    return
+                self._send(*got)
+
+            def _upgrade(self):
+                if not ws.is_upgrade_request(self.headers):
+                    self._send(400, "application/json", b'{"error": "websocket upgrade required"}')
+                    return
+                self.send_response_only(101)
+                self.send_header("Upgrade", "websocket")
+                self.send_header("Connection", "Upgrade")
+                self.send_header("Sec-WebSocket-Accept", ws.accept_key(self.headers["Sec-WebSocket-Key"]))
+                self.end_headers()
+                self.close_connection = True
+                try:
+                    ws.WSSession(ws.WSConn(self.rfile, self.wfile), server.routes, server.event_bus).run()
+                except OSError:
+                    pass  # the peer vanished mid-session
 
             def _send(self, status: int, ctype: str, body: bytes):
                 self.send_response(status)
@@ -155,11 +186,13 @@ class RPCServer:
             return json.dumps([self._dispatch(r) for r in req]).encode()
         return json.dumps(self._dispatch(req)).encode()
 
-    def _get_response(self, target: str) -> Tuple[int, str, bytes]:
+    def _get_response(self, target: str):
         """GET surface: target (path?query) -> (status, content-type,
-        body)."""
+        body), or ``_WS_UPGRADE`` for GET /websocket."""
         parsed = urlparse(target)
         method = parsed.path.strip("/")
+        if method == "websocket":
+            return _WS_UPGRADE
         if method == "":
             return 200, "application/json", self._index().encode()
         if method == "debug/traces":

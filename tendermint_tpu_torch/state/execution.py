@@ -5,8 +5,9 @@ internal/state/execution.go:53-420: CreateProposalBlock (reap mempool +
 evidence, ABCI PrepareProposal), ProcessProposal, ValidateBlock
 (header/state linkage + LastCommit batch verification on the card),
 ApplyBlock (FinalizeBlock -> state.Update -> Commit -> save), ExtendVote
-and VerifyVoteExtension (the consensus state machine's calls). The event
-publisher is left out until the event bus (ROADMAP §A item 8e).
+and VerifyVoteExtension (the consensus state machine's calls).
+``event_publisher`` (a node's ``_fire_events``) hears of every applied
+block with its FinalizeBlock response and validator updates.
 ``BlockExecutor(device=)`` and
 :func:`validate_block` take the device the LastCommit is verified on
 (``validation.verify_commit``). The ``Mempool`` and ``EvidencePool``
@@ -100,6 +101,7 @@ class BlockExecutor:
         block_store: BlockStore,
         mempool: Optional[Mempool] = None,
         evidence_pool: Optional[EvidencePool] = None,
+        event_publisher: Optional[Callable] = None,
         now: Optional[Callable[[], Timestamp]] = None,
         metrics=None,
         device=None,
@@ -116,6 +118,7 @@ class BlockExecutor:
             evidence_pool if evidence_pool is not None else EvidencePool()
         )
         self._now = now or (lambda: Timestamp.from_unix_ns(_time.time_ns()))
+        self.event_publisher = event_publisher
         self._validate_cache: set = set()
 
     # --- proposal -----------------------------------------------------------
@@ -274,6 +277,8 @@ class BlockExecutor:
             except ValueError:
                 pass
         self._validate_cache = set()
+        if self.event_publisher is not None:
+            self.event_publisher(block, block_id, fres, validator_updates)
         return new_state
 
     def _commit(

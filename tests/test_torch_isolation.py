@@ -309,3 +309,31 @@ def test_the_consensus_modules_are_checked_and_default_to_cuda(no_cuda):
     assert "device" not in inspect.signature(ConsensusState).parameters
     with pytest.raises(RuntimeError, match="cuda"):
         BlockExecutor(StateStore(MemDB()), None, BlockStore(MemDB()))
+
+
+def test_the_rpc_event_and_index_modules_are_checked_and_default_to_cuda(no_cuda):
+    """The node's RPC, its event bus and index, the light proxy and the
+    HTTP provider stand alone too and read no environment knob; a node
+    that serves them raises without CUDA unless asked for the CPU."""
+    from tendermint_tpu_torch import cli
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    mods = _port_modules()
+    new = ("libs.pubsub", "eventbus", "indexer", "indexer.kv", "indexer.sink", "rpc.core", "rpc.client",
+           "rpc.websocket", "rpc.server", "rpc.encoding", "light.provider", "light.proxy")
+    for mod in new:
+        assert f"tendermint_tpu_torch.{mod}" in mods
+    for rel in ("libs/pubsub.py", "eventbus.py", "indexer/kv.py", "indexer/sink.py", "rpc/core.py", "rpc/client.py",
+                "rpc/websocket.py", "rpc/server.py", "light/provider.py", "light/proxy.py", "node/node.py"):
+        with open(os.path.join(PKG, rel)) as fh:
+            src = fh.read()
+        assert "os.environ" not in src and "getenv" not in src, rel
+    with pytest.raises(RuntimeError, match="cuda"):
+        Node(NodeConfig(rpc_laddr="127.0.0.1:0"), GenesisDoc(chain_id="c"), LocalClient(KVStoreApplication()))
+    for command in ("light", "lightd"):
+        args = cli.build_parser().parse_args([command, "http://127.0.0.1:9", "--chain-id", "c",
+                                              "--trust-height", "1", "--trust-hash", "00" * 32])
+        assert args.device is None  # the package's device, CUDA

@@ -5,7 +5,9 @@
   PEX spreads the addresses; a late non-validator block-syncs in; two
   validators commit over encrypted TCP.
 - ``NodeConfig``'s fields are the reference's less exactly the fields of
-  the features this slice cuts (ROADMAP §A items 8e, 8f, 10, 12).
+  the features the port has not yet (ROADMAP §A items 8f, 10, 12); a
+  memory-network node with ``rpc_laddr`` answers ``status``, ``commit``
+  and ``tx_search`` from its index.
 - The held divergences: a device error that the reference's evidence
   reactor, block-sync thread or ``Node.stop`` hides ends, in the port,
   in ``Node.failed`` and is raised by ``Node.stop()``.
@@ -54,13 +56,9 @@ from tendermint_tpu_torch.types.params import ConsensusParams, TimeoutParams
 CHAIN = "node-chain"
 BASE_NS = 1_700_000_000_000_000_000
 
-# The reference's fields this slice leaves out, by the item that brings
+# The reference's fields the port leaves out, by the item that brings
 # each (NodeConfig's docstring).
 CUT_FIELDS = {
-    "rpc_laddr": "8e",
-    "rpc_unsafe": "8e",
-    "tx_index": "8e",
-    "tx_index_sinks": "8e",
     "statesync": "8f",
     "priv_validator_laddr": "8f",
     "signer_connect_timeout": "8f",
@@ -178,6 +176,12 @@ class TestMemoryNetworkCluster:
             observer.start()
             target = max(n.height for n in nodes)
             assert wait_for(lambda: observer.height >= target, timeout=90), (observer.height, target)
+            # The height can reach the target through block sync before the
+            # switch: the syncer switches once it is level with its tallest
+            # peer, and the validators keep committing meanwhile. So wait
+            # for the switch itself, within the same bound.
+            assert wait_for(lambda: observer.caught_up or observer.failed is not None, timeout=90), (
+                observer.height, max(n.height for n in nodes))
             assert observer.caught_up and observer.failed is None
             for h in range(1, target + 1):
                 want = nodes[0].block_store.load_block_meta(h).block_id
@@ -186,6 +190,36 @@ class TestMemoryNetworkCluster:
         finally:
             for node in nodes:
                 node.stop()
+
+
+    def test_a_node_answers_status_commit_and_tx_search_over_rpc(self, port_node_env, four_privs):
+        """A memory-network validator with ``rpc_laddr`` and the default
+        ``tx_index`` serves its chain and its index over HTTP."""
+        from tendermint_tpu_torch.libs.pubsub import Query
+        from tendermint_tpu_torch.rpc.client import HTTPClient
+
+        assert NodeConfig().tx_index and NodeConfig().tx_index_sinks == ["kv"] and not NodeConfig().rpc_laddr
+        cfg = NodeConfig(chain_id=CHAIN, listen_addr="rpc0", wal_enabled=False, blocksync=False,
+                         rpc_laddr="127.0.0.1:0")
+        node = Node(cfg, fast_genesis(four_privs[:1]), LocalClient(KVStoreApplication()),
+                    priv_validator=four_privs[0], memory_network=MemoryNetwork(), device="cpu")
+        node.start()
+        try:
+            client = HTTPClient(node.rpc_server.url)
+            node.submit_tx(b"rpc=node")
+            assert wait_for(lambda: node.indexer.search_tx_keys(Query.parse("app.key = 'rpc'")), timeout=60)
+            st = client.status()
+            assert st["node_info"]["id"] == node.node_key.node_id and int(st["sync_info"]["latest_block_height"]) >= 1
+            found = client.tx_search("app.key = 'rpc'")
+            height = int(found["txs"][0]["height"])
+            assert found["total_count"] == "1" and found["txs"][0]["tx"] == "cnBjPW5vZGU="
+            commit = client.commit(height)["signed_header"]
+            assert commit["header"]["height"] == str(height)
+            assert commit["commit"]["block_id"]["hash"] == node.block_store.load_block_meta(height).block_id.hash.hex().upper()
+            assert node.failed is None
+        finally:
+            node.stop()
+        assert node.rpc_server._thread is None
 
 
 class TestTCPCluster:
