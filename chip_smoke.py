@@ -102,7 +102,10 @@ and, in order:
    a bad signature on 16 must give one error in all three modes; 11c,
    a ``LightServer`` on 127.0.0.1 answers ``light_header`` over HTTP: a
    cold miss (3 rounds), a hit with the same bytes, 2,000 hits from 8
-   threads (latency p50/p99, hits/s), 8 threads on a fresh server's cold
+   threads (latency p50/p99, hits/s) on its event loop (the default
+   transport) and 2,000 on a ``ThreadingHTTPServer`` over the same client
+   and cache (``evloop=False``), in two turns each, 8 threads on a fresh
+   server's cold
    16 (one verification), bad heights (``INVALID_PARAMS``),
    ``light_status`` and ``/metrics``; 11d, a witness with a conflicting
    16 gives ``DivergedHeaderError`` with its evidence at the primary,
@@ -137,9 +140,13 @@ and, in order:
 13. verifyd on the card (``verifyd/server.py`` and its client): 13a, an
    in-process ``VerifydServer`` with the reference's defaults and
    ``vclient.set_remote_addr``: phase 4's 10,000-validator commit through
-   ``verify_commit`` over the wire (three requests of at most 4,096
-   lanes), one cold run then 5 in turns with the in-process path, and
-   the bad commit rejected with the in-process error's message; 13b,
+   ``verify_commit`` over the zero-copy shm ingress (``shm.set_shm_mode
+   ("on")``) and over TCP (``"off"``), three requests of at most 4,096
+   lanes each way, one cold TCP run then 5 of each in turns with
+   the in-process path, the bad commit rejected with the in-process
+   error's message over both; every lane sent over shm counted by the
+   server and the client, no torn slab, no shm fallback, K3 on both
+   transports; 13b,
    four clients at once on a server with room for the mix (admission
    cap, ``max_pending`` and tenant cap 16,384, service budget 60 s; the
    reference's defaults shed a 667-lane light request outright):
@@ -157,10 +164,25 @@ and, in order:
    verdicts; 13d, set-less traffic from phase 3's 256 signers seen 3
    times under two tenants of 128 pins: K1, then the store (K3), pins
    within quota and the ledger's tenant rows summing to the store's
-   bytes; 13e, ``python -m tendermint_tpu_torch verifyd`` as a child
-   process: phase 8's header commits (its verdicts equal the in-process
-   ones) and one ``verify_commit`` from this process, its STATS_PATH
-   snapshot (with its own launch counts), ``/metrics`` and SIGTERM;
+   bytes; 13e, ``python -m tendermint_tpu_torch verifyd --shard-id 0
+   --shards A,B`` as a child process, started beside 13f's shard 1 (the
+   two share the card): phase 8's header commits (its verdicts equal
+   the in-process ones; three warm-ups over TCP, which pin the set's keys
+   and build their tables, then 3 over shm and 3 over TCP in turns) and ``verify_commit`` from this process (2 over each, in
+   turns), its STATS_PATH snapshot (with its own launch counts and shm
+   counters), ``/metrics``, and, after 13f, SIGTERM, which must leave a
+   flight-recorder dump (``tendermint-tpu-flightrec/1``) holding its
+   served ``verifyd_*`` spans; 13f, federation: a ``FederationClient``
+   over both shards (TCP hops, so every response carries its shard id)
+   routes phase 7's 500-validator committee (config 4), phase 8's 1,000
+   (config 3) and 16 of phase 3's set-less signers a round (32 lanes
+   each), 3 rounds: every verdict right, the shard ids, the pinned
+   slices each round's traffic added disjoint and inside their routes,
+   each shard's lanes and K1/K3 launches; ``verifyd stats --shards``
+   prints both shards and the fleet roll-up; then shard 1 is SIGKILLed
+   and the next round fails over (``failovers`` >= 1, ``route_epoch``
+   bumped, no lane on the host). One card: this is placement and
+   failover, not a speed-up;
 14. a node syncing (BASELINE config 4 as a node runs it): a source chain
    of 65 heights under 500 validators (powers from the seed in [1, 100],
    200 kvstore txs a block, 10 powers changed at height 33, each commit
@@ -303,14 +325,20 @@ and, in order:
    stay right, the host-fallback lanes counted must be the chunk's, and
    the health machine must come back to healthy after the next success
    (or stay disabled, with the batch answered on the host); a hand-built
-   ``CudaError`` 700 must classify permanent and 2 transient.
+   ``CudaError`` 700 must classify permanent and 2 transient. Last, the
+   flight recorder installed in this process: transient faults on the
+   retry budget's worth of batches escalate the card to cooldown, and
+   the transition dumps the ring with reason ``device_cooldown``.
+
+Phases 15-18 ride the RPC's default transport, the event loop, as the
+reference's nodes do; their lines name it.
 
 Kernel launch counts are reset just before phase 3 and read just after
 phase 4b (K1-K4), and again around each of phases 5 (K5, and the
 ed25519 kernels of the mixed commit), 5c, 7, 8, 9, 10, 11, 12, 13 (whose
 count is that of the served requests only: each sub-phase's deltas around
 what a server answered, without the in-process references, plus the
-daemon's own of 13e), 14 and 15, around 16a-c together, around 17a-b
+shard daemons' own of 13e and 13f), 14 and 15, around 16a-c together, around 17a-b
 together (less 18b's, which runs inside 17a) and around 18 (18a's from
 its walk on, after its nodes' sync, and 18b's). After each
 of these the health machine
@@ -412,7 +440,8 @@ LIGHTD_REPS = 5
 LIGHTD_BAD_INDEX = 300  # inside the +2/3 pass of every mode
 LIGHTD_HERD = 8  # threads asking for one cold height at once
 LIGHTD_HIT_THREADS = 8
-LIGHTD_HIT_REQUESTS = 2000
+LIGHTD_HIT_REQUESTS = 2000  # a transport's hits: the event loop's, then the threaded server's
+LIGHTD_HIT_TURNS = 2  # 11c's hits alternate between the transports in this many turns each
 
 # Phase 5c: BASELINE config 5 with its third key type, a commit of
 # THREE_TYPE_VALIDATORS validators whose keys alternate ed25519, sr25519
@@ -2835,27 +2864,44 @@ def phase_lightd(workload, dev):
               and cold_rounds == LIGHTD_ROUNDS and cold_counts["launches"],
               f"phase 11c: cold serve {result.get('trust_path')}, {cold_rounds} rounds")
         check(get(url) == miss, "phase 11c: the hit's payload differs from the miss's")
-        lat, lat_mtx = [], threading.Lock()
+        # the same client and cache behind a threaded server, for the
+        # hits in turns with the event loop
+        threaded = LightServer(srv.client, cache=srv.cache, metrics=srv.metrics,
+                               registry=srv.server.metrics_registry, evloop=False)
+        threaded.start()
+        check(srv.server.transport == "evloop" and threaded.server.transport == "threaded",
+              f"phase 11c: transports {srv.server.transport}, {threaded.server.transport}")
+        lat = {"evloop": [], "threaded": []}
+        hit_wall = {"evloop": 0.0, "threaded": 0.0}
+        lat_mtx = threading.Lock()
 
-        def hits(n):
+        def hits(turl, side, n):
             mine = []
             for _ in range(n):
                 t = time.perf_counter()
-                body = get(url)
+                body = get(turl)
                 mine.append(time.perf_counter() - t)
                 check(body == miss, "phase 11c: a hit's payload differs")
             with lat_mtx:
-                lat.extend(mine)
+                lat[side].extend(mine)
 
-        threads = [threading.Thread(target=hits, args=(LIGHTD_HIT_REQUESTS // LIGHTD_HIT_THREADS,))
-                   for _ in range(LIGHTD_HIT_THREADS)]
-        t = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(300)
-        hit_wall = time.perf_counter() - t
-        check(len(lat) == LIGHTD_HIT_REQUESTS, f"phase 11c: {len(lat)} hits answered")
+        try:
+            per_thread = LIGHTD_HIT_REQUESTS // LIGHTD_HIT_TURNS // LIGHTD_HIT_THREADS
+            for _ in range(LIGHTD_HIT_TURNS):
+                for side, server in (("evloop", srv), ("threaded", threaded)):
+                    turl = server.url + f"/light_header?height={top}"
+                    threads = [threading.Thread(target=hits, args=(turl, side, per_thread))
+                               for _ in range(LIGHTD_HIT_THREADS)]
+                    t = time.perf_counter()
+                    for th in threads:
+                        th.start()
+                    for th in threads:
+                        th.join(300)
+                    hit_wall[side] += time.perf_counter() - t
+        finally:
+            threaded.stop()
+        check(all(len(v) == LIGHTD_HIT_REQUESTS for v in lat.values()),
+              f"phase 11c: {[len(v) for v in lat.values()]} hits answered")
         bad_params = {h: json.loads(get(srv.url + f"/light_header?height={h}"))["error"]["code"]
                       for h in ("0", "x")}
         check(set(bad_params.values()) == {INVALID_PARAMS}, f"phase 11c: bad params {bad_params}")
@@ -2865,7 +2911,7 @@ def phase_lightd(workload, dev):
         metrics_text = get(srv.url + "/metrics").decode()
         families = sorted({line.split()[2] for line in metrics_text.splitlines()
                            if line.startswith("# TYPE tendermint_light_")})
-        hits_line = f"tendermint_light_cache_hits_total {LIGHTD_HIT_REQUESTS + 1}"
+        hits_line = f"tendermint_light_cache_hits_total {2 * LIGHTD_HIT_REQUESTS + 1}"
         check(len(families) == 5 and hits_line in metrics_text, f"phase 11c: metrics families {families}")
     finally:
         srv.stop()
@@ -2904,9 +2950,14 @@ def phase_lightd(workload, dev):
         srv.stop()
     emit({"phase": "lightd", "cold_serve_ms": cold_ms, "cold_launches": cold_counts["launches"],
           "cold_rounds": cold_rounds, "cold_flushes": cold_counts["sched"]["flushes"],
-          "hit_requests": LIGHTD_HIT_REQUESTS, "hit_threads": LIGHTD_HIT_THREADS,
-          "hit_p50_ms": statistics.median(lat) * 1e3, "hit_p99_ms": percentile(lat, 0.99) * 1e3,
-          "hits_per_s": LIGHTD_HIT_REQUESTS / hit_wall, "herd_threads": LIGHTD_HERD,
+          "hit_requests": LIGHTD_HIT_REQUESTS, "hit_threads": LIGHTD_HIT_THREADS, "hit_turns": LIGHTD_HIT_TURNS,
+          "hit_p50_ms": statistics.median(lat["evloop"]) * 1e3,
+          "hit_p99_ms": percentile(lat["evloop"], 0.99) * 1e3,
+          "hits_per_s": LIGHTD_HIT_REQUESTS / hit_wall["evloop"],
+          "threaded": {"hit_p50_ms": statistics.median(lat["threaded"]) * 1e3,
+                       "hit_p99_ms": percentile(lat["threaded"], 0.99) * 1e3,
+                       "hits_per_s": LIGHTD_HIT_REQUESTS / hit_wall["threaded"]},
+          "herd_threads": LIGHTD_HERD,
           "herd_rounds": herd_rounds, "herd_new_store_heights": new_heights,
           "bad_params": bad_params, "status": status, "metrics_families": families,
           "host_profile_miss": miss_profile})
@@ -2956,6 +3007,7 @@ def phase_faults(ed_lanes, sr_lanes, dev):
     import warnings
 
     from tendermint_tpu_torch.crypto import ed25519_ref as ref, sr25519 as sr
+    from tendermint_tpu_torch.libs import flightrec
     from tendermint_tpu_torch.ops import _build, device_policy, fault_injection, precompute
     from tendermint_tpu_torch.ops import verify_batch
     from tendermint_tpu_torch.ops.sr25519_batch import verify_batch_sr
@@ -3024,10 +3076,34 @@ def phase_faults(ed_lanes, sr_lanes, dev):
     typed = {code: device_policy.classify_failure(_build.CudaError("sr25519_verify_launch", code))
              for code in (700, 2)}
     check(typed == {700: "permanent", 2: "transient"}, f"CudaError classes {typed}")
+    # the flight recorder, installed in this process: transient faults
+    # on the retry budget's worth of batches escalate the card to
+    # cooldown, and the transition's instant dumps the ring
+    root = os.path.dirname(os.path.abspath(__file__))
+    rec = flightrec.FlightRecorder(dump_dir=os.path.join(root, "build", "flightrec"))
     health.reset()
+    rec.install(signals=False)
+    try:
+        for _ in range(health.retry_budget):
+            exc, _ = raised("ed25519", site="ed25519.chunk", fail_calls=(1,))
+            check(isinstance(exc, fault_injection.DeviceFault), f"flight recorder: {exc!r} escaped")
+        state, path = health.state, rec.last_dump_path()
+    finally:
+        rec.uninstall()
+        health.reset()
+    check(state == "cooldown" and path is not None, f"flight recorder: state {state}, dump {path}")
+    with open(path) as f:
+        doc = json.load(f)
+    check(doc["schema"] == flightrec.DUMP_SCHEMA and doc["reason"] == "device_cooldown"
+          and any(r["name"] == "device_health_transition" and r["fields"].get("to_state") == "cooldown"
+                  for r in doc["records"]),
+          f"flight recorder: dump {doc.get('schema')} {doc.get('reason')}")
+    dumped = {"path": path, "reason": doc["reason"], "records": len(doc["records"]),
+              "kinds": sorted({r["kind"] for r in doc["records"]})}
     emit({"phase": "faults", "ed25519_lanes": FAULT_ED_LANES, "sr25519_lanes": FAULT_SR_LANES,
           "bad_lanes": {e: w.count(False) for e, w in wants.items()}, "without_host_fallback": strict,
-          "with_host_fallback": cases, "cuda_error_classes": {str(k): v for k, v in typed.items()}})
+          "with_host_fallback": cases, "cuda_error_classes": {str(k): v for k, v in typed.items()},
+          "flight_recorder": dumped})
 
 
 def fallback_cases(health, wants, runs, injected) -> dict:
@@ -3684,10 +3760,17 @@ VERIFYD_LADDER_LANES = 256  # 13c: consensus, past the default tenant cap's shru
 VERIFYD_HOT_SIGNERS = BATCH_SIGNERS  # 13d: phase 3's 256 signers, each seen 3 times
 VERIFYD_HOT_SIGHTINGS = 3
 VERIFYD_HOT_QUOTA = 128  # 13d: pins a tenant may hold (two tenants of 128 signers)
-VERIFYD_CHILD_HEADERS = 3  # 13e: header commits sent to the daemon, then one verify_commit
+VERIFYD_CHILD_HEADERS = 3  # 13e: header commits over each transport, in turns, after the warm-ups
+VERIFYD_CHILD_WARMUPS = 3  # 13e: a key is pinned at its second sighting, its table built at the third
+VERIFYD_CHILD_COMMITS = 2  # 13e: cross-process verify_commit runs over each transport, in turns
 VERIFYD_CHILD_WAIT_S = 180.0  # 13e: the daemon's start, its CUDA context and kernel load
 VERIFYD_CHILD_STOP_S = 10.0
-VERIFYD_PHASE_S = 60.0  # the phase's time limit
+VERIFYD_PHASE_S = 60.0  # 13a-13e's time limit
+VERIFYD_SHARDS = 2  # 13f: shard processes sharing the card (13e's daemon is shard 0)
+VERIFYD_FLEET_ROUNDS = 3  # 13f: routed rounds before the kill (a key is pinned at its second sighting)
+VERIFYD_FLEET_SIGNERS = 16  # 13f: phase 3's set-less signers a round, their 32 lanes each
+VERIFYD_FLEET_PIN_QUOTA = 4096  # 13f: the shards' tenant pin quota (a 1,000-key committee fits)
+VERIFYD_FLEET_S = 60.0  # 13f's time limit, the stats command's start included
 
 
 def commit_lanes(vset, commit, n=None):
@@ -3725,10 +3808,11 @@ def in_process(requests, dev, algo="ed25519"):
 
 def verifyd_remote_commit(srv, commit_wl, commit_tables, dev):
     """13a: phase 4's 10,000-validator commit through ``verify_commit``
-    with the remote set, against the in-process path in turns."""
+    with the remote set, over the shm ingress and over TCP, against the
+    in-process path, in turns."""
     from tendermint_tpu_torch.ops import precompute
     from tendermint_tpu_torch.types.validation import InvalidCommitError, verify_commit
-    from tendermint_tpu_torch.verifyd import client as vclient, protocol
+    from tendermint_tpu_torch.verifyd import client as vclient, protocol, shm
 
     part = "phase 13a"
     vset, block_id, commits = commit_wl
@@ -3737,13 +3821,17 @@ def verifyd_remote_commit(srv, commit_wl, commit_tables, dev):
     restore_tables(vset, commit_tables)
     served0 = srv.stats()["requests_served"]
     sched0 = srv.scheduler.stats()
+    check(srv.shm_socket_path != "", f"{part}: the server published no shm endpoint")
     remote_client = None
+    sides = ("shm", "tcp", "in_process")
 
-    def run(remote, commit):
+    def run(side, commit):
         nonlocal remote_client
-        vclient.set_remote_addr(addr if remote else "")
-        if remote:
+        vclient.set_remote_addr("" if side == "in_process" else addr)
+        if side != "in_process":
+            shm.set_shm_mode("on" if side == "shm" else "off")
             remote_client = vclient.remote_client()
+            check(vclient.remote_transport() == side, f"{part}: the client rides {vclient.remote_transport()}")
         precompute.results.clear()
         before = launches()
         t = time.perf_counter()
@@ -3754,54 +3842,70 @@ def verifyd_remote_commit(srv, commit_wl, commit_tables, dev):
             err = str(exc)
         return time.perf_counter() - t, delta(before), err
 
-    cold_s, cold_d, err = run(True, commits[1])
-    check(err is None, f"{part}: the cold remote commit failed: {err}")
-    times = {"remote": [], "in_process": []}
-    per_side = {"remote": {}, "in_process": {}}
-    for _ in range(VERIFYD_REPS):
-        for side in ("remote", "in_process"):
-            s, d, err = run(side == "remote", commits[1])
-            check(err is None, f"{part}: the {side} commit failed: {err}")
-            times[side].append(s)
-            for k, v in d.items():
-                per_side[side][k] = per_side[side].get(k, 0) + v
-    bad = {side: run(side == "remote", commits[2]) for side in ("remote", "in_process")}
+    try:
+        cold_s, cold_d, err = run("tcp", commits[1])
+        check(err is None, f"{part}: the cold remote commit failed: {err}")
+        times = {side: [] for side in sides}
+        per_side = {side: {} for side in sides}
+        for _ in range(VERIFYD_REPS):
+            for side in sides:
+                s, d, err = run(side, commits[1])
+                check(err is None, f"{part}: the {side} commit failed: {err}")
+                times[side].append(s)
+                for k, v in d.items():
+                    per_side[side][k] = per_side[side].get(k, 0) + v
+        bad = {side: run(side, commits[2]) for side in sides}
+    finally:
+        vclient.set_remote_addr("")
+        shm.set_shm_mode("")
     errors = {side: r[2] for side, r in bad.items()}
-    vclient.set_remote_addr("")
-    check(errors["remote"] is not None and errors["remote"] == errors["in_process"]
-          and f"(#{BAD_COMMIT_INDEX})" in errors["remote"],
-          f"{part}: bad commit remote {errors['remote']!r}, in process {errors['in_process']!r}")
-    calls = VERIFYD_REPS + 2
-    per_call = -(-COMMIT_VALIDATORS // protocol.MAX_LANES)
+    check(errors["shm"] is not None and errors["shm"] == errors["tcp"] == errors["in_process"]
+          and f"(#{BAD_COMMIT_INDEX})" in errors["shm"], f"{part}: bad commit {errors}")
+    def slabs(commit):
+        lanes = commit_lanes(vset, commit)
+        sent = protocol.VerifyRequest(pks=lanes[0], msgs=lanes[1], sigs=lanes[2])
+        return len(vclient._slab_parts(sent, shm.DEFAULT_SLAB_BYTES))
+
+    per_call = {"tcp": -(-COMMIT_VALIDATORS // protocol.MAX_LANES), "shm": slabs(commits[1])}
+    calls = {"tcp": VERIFYD_REPS + 2, "shm": VERIFYD_REPS + 1}
     stats, sched = srv.stats(), srv.scheduler.stats()
     served = stats["requests_served"] - served0
     flushes = sched["flushes"] - sched0["flushes"]
     reasons = {k: sched["flush_reasons"][k] - sched0["flush_reasons"][k] for k in sched["flush_reasons"]}
     cstats = remote_client.stats()
-    check(served == calls * per_call, f"{part}: {served} requests served for {calls} commits")
+    shm_lanes = calls["shm"] * COMMIT_VALIDATORS
+    expected = calls["tcp"] * per_call["tcp"] + VERIFYD_REPS * per_call["shm"] + slabs(commits[2])
+    check(served == expected,
+          f"{part}: {served} requests served for {calls} commits of {per_call} requests")
+    check(stats["shm_lanes"] == cstats["shm_lanes"] == shm_lanes and cstats["shm_calls"] == calls["shm"]
+          and stats["shm_torn_slabs"] == 0 and stats["shm_fallbacks"] == 0 and cstats["shm_fallbacks"] == 0,
+          f"{part}: shm lanes {stats['shm_lanes']} (client {cstats['shm_lanes']}, sent {shm_lanes}), "
+          f"torn {stats['shm_torn_slabs']}, fallbacks {stats['shm_fallbacks']}/{cstats['shm_fallbacks']}")
     check(reasons["size"] + reasons["deadline"] == flushes > 0, f"{part}: flush reasons {reasons}")
     check(sched["flush_errors"] == sched0["flush_errors"]
           and sched["fallback_flushes"] == sched0["fallback_flushes"],
           f"{part}: failed or fallback flushes {sched}")
     check(stats["host_direct_lanes"] == 0 and stats["pin_errors"] == 0 and stats["failed_closed"] == 0
           and cstats["fallback_calls"] == 0, f"{part}: stats {stats} client {cstats}")
-    check(cold_d.get("verify_resident", 0) > 0 and per_side["remote"].get("verify_resident", 0) > 0
-          and set(cold_d) <= {"verify_resident", "challenge"},
-          f"{part}: remote launches cold {cold_d}, steady {per_side['remote']}")
+    check(cold_d.get("verify_resident", 0) > 0 and set(cold_d) <= {"verify_resident", "challenge"}
+          and all(per_side[t].get("verify_resident", 0) > 0 for t in ("shm", "tcp")),
+          f"{part}: remote launches cold {cold_d}, steady {per_side}")
     p50 = {side: statistics.median(v) for side, v in times.items()}
     return {"validators": COMMIT_VALIDATORS, "requests_per_commit": per_call,
             "cold_remote_ms": cold_s * 1e3, "cold_remote_launches": cold_d,
-            "remote_ms": [x * 1e3 for x in times["remote"]],
-            "in_process_ms": [x * 1e3 for x in times["in_process"]],
-            "remote_p50_ms": p50["remote"] * 1e3, "in_process_p50_ms": p50["in_process"] * 1e3,
-            "remote_over_in_process": p50["remote"] / p50["in_process"],
-            "launches_per_remote_commit": {k: v / VERIFYD_REPS for k, v in per_side["remote"].items()},
-            "launches_per_in_process_commit": {k: v / VERIFYD_REPS
-                                                for k, v in per_side["in_process"].items()},
-            "flushes_per_remote_commit": flushes / (VERIFYD_REPS + 2), "flush_reasons": reasons,
-            "bad_commit_error": errors["remote"], "client": cstats,
+            **{f"{side}_ms": [x * 1e3 for x in times[side]] for side in sides},
+            **{f"{side}_p50_ms": p50[side] * 1e3 for side in sides},
+            "shm_over_in_process": p50["shm"] / p50["in_process"],
+            "tcp_over_in_process": p50["tcp"] / p50["in_process"],
+            "shm_over_tcp": p50["shm"] / p50["tcp"],
+            "launches_per_commit": {side: {k: v / VERIFYD_REPS for k, v in per_side[side].items()}
+                                    for side in sides},
+            "flushes_per_remote_commit": flushes / sum(calls.values()), "flush_reasons": reasons,
+            "bad_commit_error": errors["shm"], "client": cstats,
+            "shm": {k: stats[k] for k in ("shm_lanes", "shm_torn_slabs", "shm_fallbacks", "shm_sessions")},
             "scheduler_knobs": stats["scheduler"], "cross_client_flushes": stats["cross_client_flushes"],
-            "served_launches": add_launches(cold_d, per_side["remote"], bad["remote"][1])}
+            "served_launches": add_launches(cold_d, per_side["shm"], per_side["tcp"], bad["shm"][1],
+                                            bad["tcp"][1])}
 
 
 def verifyd_mix(commit_wl, sync, mixed_sync, light, dev):
@@ -4076,67 +4180,136 @@ def verifyd_hot_keys(batch, dev):
             "store_bytes": sum(rows.values())}
 
 
-def verifyd_daemon(light, dev):
+def free_ports(n):
+    """``n`` TCP ports of 127.0.0.1 that were free a moment ago."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+class Shards:
+    """13e's daemon and 13f's second shard: ``python -m
+    tendermint_tpu_torch verifyd --shard-id i --shards A,B`` processes,
+    started together so that their CUDA starts overlap; shard 0 also
+    serves ``/metrics``."""
+
+    def __init__(self, dev):
+        import queue
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        os.makedirs(os.path.join(root, "build"), exist_ok=True)
+        env = dict(os.environ, PYTHONPATH=root, PYTHONUNBUFFERED="1")
+        self.addrs = ["127.0.0.1:%d" % p for p in free_ports(VERIFYD_SHARDS)]
+        self.procs, self.lines = [], []
+        self.t_start = time.perf_counter()
+        for sid in range(VERIFYD_SHARDS):
+            # the daemon's default device is CUDA; a CPU rehearsal names its own
+            argv = ([sys.executable, "-m", "tendermint_tpu_torch", "verifyd", "--listen", self.addrs[sid],
+                     "--shard-id", str(sid), "--shards", ",".join(self.addrs),
+                     "--tenant-pin-quota", str(VERIFYD_FLEET_PIN_QUOTA)]
+                    + (["--metrics", "127.0.0.1:0"] if sid == 0 else [])
+                    + ([] if dev.type == "cuda" else ["--device", dev.type]))
+            with open(os.path.join(root, "build", f"verifyd_shard{sid}.stderr"), "w") as err:
+                proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+            lines = queue.Queue()
+            threading.Thread(target=lambda p=proc, q=lines: [q.put(x) for x in p.stdout], daemon=True).start()
+            self.procs.append(proc)
+            self.lines.append(lines)
+
+    def readline(self, sid):
+        return self.lines[sid].get(timeout=VERIFYD_CHILD_WAIT_S).strip()
+
+    def stop(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def verifyd_daemon(light, dev, shards):
     """13e: ``python -m tendermint_tpu_torch verifyd`` as its own process
-    on the card: phase 8's header commits from this process, the
-    STATS_PATH snapshot, ``/metrics``, and SIGTERM."""
-    import queue
-    import signal
+    on the card (shard 0 of 13f): phase 8's header commits from this
+    process and ``verify_commit`` of 1,000 validators against it, over
+    the shm ingress and over TCP in turns, its STATS_PATH snapshot and
+    ``/metrics``. Its SIGTERM and flight-recorder dump come after 13f."""
     import urllib.request
 
     from tendermint_tpu_torch.libs.metrics import Registry, VerifydMetrics
+    from tendermint_tpu_torch.ops import precompute
     from tendermint_tpu_torch.types.validation import verify_commit
-    from tendermint_tpu_torch.verifyd import client as vclient, protocol
+    from tendermint_tpu_torch.verifyd import client as vclient, protocol, shm
     from tendermint_tpu_torch.verifyd.client import VerifydClient
 
     part = "phase 13e"
     chain, lvset, _ = light
+    n_req = VERIFYD_CHILD_WARMUPS + 2 * VERIFYD_CHILD_HEADERS
     requests = [plant_bad(commit_lanes(lvset, sh.commit), ((h * 131 + 17) % LIGHT_VALIDATORS,))
-                for h, sh in enumerate(chain[:VERIFYD_CHILD_HEADERS])]
+                for h, sh in enumerate(chain[:n_req])]
     want = in_process(requests, dev)
     check(all(sum(not x for x in w) == 1 for w in want), f"{part}: in-process verdicts")
-    sh = chain[VERIFYD_CHILD_HEADERS]
+    commit_heads = chain[n_req:n_req + 2 * VERIFYD_CHILD_COMMITS]
+    sh = commit_heads[0]
     verify_commit(CHAIN_ID, lvset, sh.commit.block_id, sh.height, sh.commit, device=dev)
-    root = os.path.dirname(os.path.abspath(__file__))
-    os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    err_path = os.path.join(root, "build", "verifyd_daemon.stderr")
-    env = dict(os.environ, PYTHONPATH=root, PYTHONUNBUFFERED="1")
-    t_start = time.perf_counter()
-    with open(err_path, "w") as err:
-        # the daemon's default device is CUDA; a CPU rehearsal names its own
-        argv = [sys.executable, "-m", "tendermint_tpu_torch", "verifyd", "--listen", "127.0.0.1:0",
-                "--metrics", "127.0.0.1:0"] + ([] if dev.type == "cuda" else ["--device", dev.type])
-        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
-    lines = queue.Queue()
-    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
-    c = None
+    precompute.results.clear()
+    banner = shards.readline(0)
+    metrics_line = shards.readline(0)
+    start_s = time.perf_counter() - shards.t_start
+    check(banner.startswith(f"verifyd serving on {shards.addrs[0]} ") and ".sock, shard=0/2)" in banner
+          and f"device={dev.type}" in metrics_line, f"{part}: banner {banner!r} {metrics_line!r}")
+    addr = shards.addrs[0]
+    murl = "http://" + metrics_line.split()[3] + "/metrics"
+    clients = {t: VerifydClient(addr, timeout=60.0, shm="on" if t == "shm" else "off") for t in ("shm", "tcp")}
+    header_ms = {"shm": [], "tcp": []}
+    commit_ms = {"shm": [], "tcp": []}
     try:
-        banner = lines.get(timeout=VERIFYD_CHILD_WAIT_S).strip()
-        metrics_line = lines.get(timeout=VERIFYD_CHILD_WAIT_S).strip()
-        start_s = time.perf_counter() - t_start
-        check(banner.startswith("verifyd serving on ") and "shm=off, shard=standalone)" in banner
-              and f"device={dev.type}" in metrics_line, f"{part}: banner {banner!r} {metrics_line!r}")
-        addr = banner.split()[3]
-        murl = "http://" + metrics_line.split()[3] + "/metrics"
-        c = VerifydClient(addr, timeout=60.0)
-        header_ms = []
-        for r, w in zip(requests, want):
+        warmup_ms = []
+        for i in range(VERIFYD_CHILD_WARMUPS):
             t = time.perf_counter()
-            got = c.verify(*r, klass=protocol.CLASS_CONSENSUS)
-            header_ms.append((time.perf_counter() - t) * 1e3)
-            check(got == w, f"{part}: the daemon's verdicts differ from the in-process ones")
+            check(clients["tcp"].verify(*requests[i], klass=protocol.CLASS_CONSENSUS) == want[i],
+                  f"{part}: the daemon's verdicts differ from the in-process ones")
+            warmup_ms.append((time.perf_counter() - t) * 1e3)
+        for i in range(VERIFYD_CHILD_WARMUPS, n_req):
+            side = "shm" if (i - VERIFYD_CHILD_WARMUPS) % 2 == 0 else "tcp"
+            t = time.perf_counter()
+            got = clients[side].verify(*requests[i], klass=protocol.CLASS_CONSENSUS)
+            header_ms[side].append((time.perf_counter() - t) * 1e3)
+            check(got == want[i], f"{part}: the daemon's verdicts over {side} differ from the in-process ones")
+        check(clients["shm"].transport == "shm" and clients["tcp"].transport == "tcp",
+              f"{part}: transports {[c.transport for c in clients.values()]}")
         vclient.set_remote_addr(addr)
         try:
-            t = time.perf_counter()
-            verify_commit(CHAIN_ID, lvset, sh.commit.block_id, sh.height, sh.commit, device=dev)
-            commit_ms = (time.perf_counter() - t) * 1e3
+            for i, sh in enumerate(commit_heads):
+                side = "shm" if i % 2 == 0 else "tcp"
+                shm.set_shm_mode("on" if side == "shm" else "off")
+                check(vclient.remote_transport() == side, f"{part}: the remote rides {vclient.remote_transport()}")
+                t = time.perf_counter()
+                verify_commit(CHAIN_ID, lvset, sh.commit.block_id, sh.height, sh.commit, device=dev)
+                commit_ms[side].append((time.perf_counter() - t) * 1e3)
+            remote_stats = vclient.remote_client().stats()
         finally:
-            vclient.set_remote_addr("")
-        snap = c.server_stats(timeout=30.0)
+            vclient.reset_remote()
+            shm.set_shm_mode("")
+        snap = clients["tcp"].server_stats(timeout=30.0)
         stats = snap["stats"]
-        check(stats["requests_served"] == VERIFYD_CHILD_HEADERS + 1 and stats["host_direct_lanes"] == 0
-              and stats["pin_errors"] == 0 and stats["admission_rejections"] == 0,
+        cstats = {t: c.stats() for t, c in clients.items()}
+        sent_shm = cstats["shm"]["shm_lanes"] + remote_stats["shm_lanes"]
+        check(stats["requests_served"] == n_req + len(commit_heads) and stats["host_direct_lanes"] == 0
+              and stats["pin_errors"] == 0 and stats["admission_rejections"] == 0 and stats["shard_id"] == 0,
               f"{part}: daemon stats {stats}")
+        check(stats["shm_lanes"] == sent_shm == VERIFYD_CHILD_HEADERS * LIGHT_VALIDATORS
+              + VERIFYD_CHILD_COMMITS * len(sh.commit.signatures)
+              and stats["shm_torn_slabs"] == 0 and stats["shm_fallbacks"] == 0
+              and cstats["shm"]["shm_fallbacks"] == 0 and remote_stats["shm_fallbacks"] == 0
+              and remote_stats["fallback_calls"] == 0 and cstats["shm"]["fallback_calls"] == 0,
+              f"{part}: shm lanes {stats['shm_lanes']} (sent {sent_shm}), torn {stats['shm_torn_slabs']}, "
+              f"fallbacks {stats['shm_fallbacks']}, clients {cstats} remote {remote_stats}")
         check(all(s["flush_errors"] == 0 and s["fallback_flushes"] == 0
                   for s in snap["schedulers"].values())
               and snap["health"]["state"] == "healthy" and snap["health"]["fallback_batches"] == 0,
@@ -4152,34 +4325,192 @@ def verifyd_daemon(light, dev):
         want_families = sorted({ln.split()[2] for ln in ref_reg.expose().splitlines()
                                 if ln.startswith("# TYPE ")})
         check(families == want_families
-              and 'tendermint_verifyd_requests_total{kind="commit",status="ok"}' in text,
+              and 'tendermint_verifyd_requests_total{kind="commit",status="ok"}' in text
+              and f"tendermint_verifyd_shm_lanes_total {sent_shm}" in text,
               f"{part}: /metrics families {families}")
-        c.close()
-        c = None
-        t = time.perf_counter()
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=VERIFYD_CHILD_STOP_S)
-        stop_s = time.perf_counter() - t
-        check(rc == 0, f"{part}: the daemon exited {rc}")
     finally:
-        if c is not None:
+        for c in clients.values():
             c.close()
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=30)
+    p50 = lambda xs: statistics.median(xs) if xs else None  # noqa: E731
     return {"start_s": start_s, "banner": banner, "header_lanes": LIGHT_VALIDATORS,
-            "header_ms": header_ms, "cross_process_commit_ms": commit_ms,
-            "requests_served": stats["requests_served"], "resident": snap["resident"],
-            "pinned_keys": len(snap["pinned_keys"]), "tenant_pins": snap["tenant_pins"],
-            "launches": child_launches, "metrics_families": len(families), "stop_s": stop_s}
+            "warmup_header_ms": warmup_ms, "header_ms": header_ms,
+            "header_p50_ms": {t: p50(v) for t, v in header_ms.items()},
+            "cross_process_commit_ms": commit_ms,
+            "cross_process_commit_p50_ms": {t: p50(v) for t, v in commit_ms.items()},
+            "requests_served": stats["requests_served"],
+            "shm": {k: stats[k] for k in ("shm_lanes", "shm_torn_slabs", "shm_fallbacks", "shm_sessions")},
+            "resident": snap["resident"], "pinned_keys": len(snap["pinned_keys"]),
+            "tenant_pins": snap["tenant_pins"], "launches": child_launches,
+            "metrics_families": len(families)}
+
+
+def verifyd_fleet(shards, sync, light, batch, dev):
+    """13f: a ``FederationClient`` over the two shard processes routes
+    phase 7's 500-validator committee (config 4), phase 8's 1,000 (config
+    3) and phase 3's set-less signers; then shard 1 is SIGKILLed and the
+    next round fails over; ``verifyd stats --shards`` prints the fleet
+    roll-up. One card: placement and failover, not a speed-up."""
+    from tendermint_tpu_torch.verifyd import protocol
+    from tendermint_tpu_torch.verifyd.federation import FederationClient
+
+    part = "phase 13f"
+    banner = shards.readline(1)
+    start_s = time.perf_counter() - shards.t_start
+    check(banner.startswith(f"verifyd serving on {shards.addrs[1]} ") and "shard=1/2)" in banner,
+          f"{part}: banner {banner!r}")
+    chain, bvset, _ = sync
+    lchain, lvset, _ = light
+    pks, msgs, sigs, bwant = batch
+    sync_lanes = SYNC_VALIDATORS * 2 // 3 + 1
+    light_lanes = LIGHT_VALIDATORS * 2 // 3 + 1
+    # the light committee's headers after 13e's; the round after the kill
+    # takes 13e's last commit again (a verdict the survivor may have cached)
+    light_from = VERIFYD_CHILD_WARMUPS + 2 * VERIFYD_CHILD_HEADERS + 2 * VERIFYD_CHILD_COMMITS
+    rounds = VERIFYD_FLEET_ROUNDS + 1
+    light_rows = list(range(light_from, light_from + VERIFYD_FLEET_ROUNDS)) + [light_from - 1]
+    check(light_rows[-2] < LIGHT_HEADERS and rounds <= SYNC_BLOCKS
+          and rounds * VERIFYD_FLEET_SIGNERS <= BATCH_SIGNERS, f"{part}: workload too small")
+    requests = []
+    for r in range(rounds):
+        sync_req = plant_bad(commit_lanes(bvset, chain[r].commit, sync_lanes), ((r * 37) % sync_lanes,))
+        light_req = plant_bad(commit_lanes(lvset, lchain[light_rows[r]].commit, light_lanes),
+                              ((r * 53 + 1) % light_lanes,))
+        signers = range(r * VERIFYD_FLEET_SIGNERS, (r + 1) * VERIFYD_FLEET_SIGNERS)
+        idx = [i for i in range(BATCH_LANES) if i % BATCH_SIGNERS in signers]
+        setless = ([pks[i] for i in idx], [msgs[i] for i in idx], [sigs[i] for i in idx])
+        requests.append(tuple(sync_req[k] + light_req[k] + setless[k] for k in range(3)))
+    want = in_process(requests, dev)
+    for r, (w, req) in enumerate(zip(want, requests)):
+        setless_want = [bool(bwant[i]) for i in range(BATCH_LANES) if i % BATCH_SIGNERS
+                        in range(r * VERIFYD_FLEET_SIGNERS, (r + 1) * VERIFYD_FLEET_SIGNERS)]
+        check(w[sync_lanes + light_lanes:] == setless_want and w.count(False) >= 2,
+              f"{part}: in-process verdicts of round {r}")
+    # a tenant of its own: 13e's repeat sightings spent the default
+    # tenant's pin quota on shard 0 (a re-pinned key counts again)
+    fed = FederationClient(shards.addrs, tenant="chip-smoke-13f", timeout=60.0, shm="off", dead_retry_s=600.0)
+    ids = [set() for _ in shards.addrs]
+    for sid, c in enumerate(fed._clients):
+        def call(req, timeout=None, _orig=c.call, _sid=sid):
+            resp = _orig(req, timeout=timeout)
+            ids[_sid].add(resp.shard_id)
+            return resp
+        c.call = call
+    try:
+        committees = {"config4_500": sorted(v.pub_key.bytes() for v in bvset.validators),
+                      "config3_1000": sorted(v.pub_key.bytes() for v in lvset.validators)}
+        owners = {name: fed.ring.route(fed.note_validator_set(keys)) for name, keys in committees.items()}
+        epoch0 = fed.route_epoch
+        snaps0 = fed.refresh()
+        check(sorted(snaps0) == [0, 1], f"{part}: shards answering {sorted(snaps0)}")
+        pinned0 = [set(snaps0[sid]["pinned_keys"]) for sid in (0, 1)]
+        launches0 = [snaps0[sid]["launches"] for sid in (0, 1)]
+        lanes0 = [snaps0[sid]["tenants"].get(fed.tenant, {}).get("lanes", 0) for sid in (0, 1)]
+        round_ms = []
+        for r in range(VERIFYD_FLEET_ROUNDS):
+            t = time.perf_counter()
+            got = fed.verify(*requests[r], klass=protocol.CLASS_CONSENSUS)
+            round_ms.append((time.perf_counter() - t) * 1e3)
+            check(got == want[r], f"{part}: round {r} verdicts differ from the in-process ones")
+        snaps = fed.refresh()
+        slices = [set(snaps[sid]["pinned_keys"]) - pinned0[sid] for sid in (0, 1)]
+        shard_launches = [{k: v - launches0[sid].get(k, 0) for k, v in snaps[sid]["launches"].items()
+                           if v - launches0[sid].get(k, 0)} for sid in (0, 1)]
+        shard_lanes = [snaps[sid]["tenants"].get(fed.tenant, {}).get("lanes", 0) - lanes0[sid] for sid in (0, 1)]
+        routed = [set() for _ in (0, 1)]
+        for r in range(VERIFYD_FLEET_ROUNDS):
+            for pk in requests[r][0]:
+                routed[fed.shard_for(pk)].add(pk.hex())
+        st = fed.stats()
+        check(not (slices[0] & slices[1]) and slices[0] and slices[1]
+              and slices[0] <= routed[0] and slices[1] <= routed[1],
+              f"{part}: pinned slices {len(slices[0])} and {len(slices[1])} keys, "
+              f"{len(slices[0] & slices[1])} shared, outside their routes "
+              f"{len(slices[0] - routed[0])}, {len(slices[1] - routed[1])}; routed {[len(r) for r in routed]}, "
+              f"tenant pins {[snaps[sid]['tenant_pins'] for sid in (0, 1)]}, "
+              f"denials {[snaps[sid]['resident'].get('pin_quota_denials') for sid in (0, 1)]}")
+        check(ids == [{0}, {1}] and all(snaps[sid]["stats"]["misroutes"] == 0 for sid in (0, 1)),
+              f"{part}: response shard ids {ids}")
+        check(all(shard_lanes) and all(d.get("verify", 0) + d.get("verify_resident", 0) > 0
+                                       for d in shard_launches)
+              and sum(d.get("verify_resident", 0) for d in shard_launches) > 0,
+              f"{part}: lanes {shard_lanes}, launches {shard_launches}")
+        check(st["failovers"] == 0 and st["host_fallback_lanes"] == 0 and st["unanswered_lanes"] == 0,
+              f"{part}: router {st}")
+        root = os.path.dirname(os.path.abspath(__file__))
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "tendermint_tpu_torch", "verifyd", "stats",
+                              "--shards", ",".join(shards.addrs)], cwd=root, capture_output=True, text=True,
+                             env=dict(os.environ, PYTHONPATH=root), timeout=VERIFYD_CHILD_WAIT_S)
+        stats_s = time.perf_counter() - t
+        rollup = out.stdout.splitlines()
+        check(out.returncode == 0 and any(ln.startswith("shard0 ") for ln in rollup)
+              and any(ln.startswith("shard1 ") for ln in rollup)
+              and any(ln.startswith("fleet ") for ln in rollup),
+              f"{part}: verifyd stats exited {out.returncode}: {out.stdout!r} {out.stderr[-2000:]!r}")
+        # the kill: the next round's shard-1 groups fail over to shard 0
+        last = requests[VERIFYD_FLEET_ROUNDS]
+        check(any(fed.shard_for(pk) == 1 for pk in last[0]), f"{part}: nothing of the last round on shard 1")
+        shards.procs[1].kill()
+        shards.procs[1].wait(timeout=30)
+        epoch1 = fed.route_epoch
+        t = time.perf_counter()
+        got = fed.verify(*last, klass=protocol.CLASS_CONSENSUS)
+        failover_ms = (time.perf_counter() - t) * 1e3
+        st = fed.stats()
+        check(got == want[VERIFYD_FLEET_ROUNDS] and st["failovers"] >= 1 and st["rerouted_lanes"] > 0
+              and fed.route_epoch > epoch1 and st["host_fallback_lanes"] == 0 and st["unanswered_lanes"] == 0
+              and fed.alive_shards() == [0], f"{part}: after the kill {st}, alive {fed.alive_shards()}")
+        final0 = fed._clients[0].server_stats(timeout=30.0)
+    finally:
+        fed.close()
+    launches_served = add_launches(final0["launches"], snaps[1]["launches"])
+    return {"shards": shards.addrs, "second_start_s": start_s, "banner": banner,
+            "note": "one card: two processes share it; this measures placement and failover, not a speed-up",
+            "committees": {k: len(v) for k, v in committees.items()}, "committee_shard": owners,
+            "setless_signers": VERIFYD_FLEET_ROUNDS * VERIFYD_FLEET_SIGNERS,
+            "round_ms": round_ms, "round_lanes": len(requests[0][0]),
+            "per_shard": [{"shard_id": sid, "response_shard_ids": sorted(ids[sid]), "lanes": shard_lanes[sid],
+                           "pinned_slice": len(slices[sid]), "pinned_total": len(snaps[sid]["pinned_keys"]),
+                           "launches": shard_launches[sid]} for sid in (0, 1)],
+            "route_epoch": [epoch0, epoch1, fed.route_epoch], "failover_ms": failover_ms,
+            "router": {k: st[k] for k in ("routed_calls", "failovers", "rerouted_lanes", "host_fallback_lanes",
+                                          "unanswered_lanes", "route_epoch")},
+            "stats_rollup": rollup, "stats_command_s": stats_s, "launches": launches_served}
+
+
+def stop_shard0(shards):
+    """13e's end: SIGTERM to shard 0, which must exit 0 and leave a
+    flight-recorder dump (schema, its served ``verifyd_*`` spans)."""
+    import glob
+    import tempfile
+
+    part = "phase 13e"
+    proc = shards.procs[0]
+    t = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=VERIFYD_CHILD_STOP_S)
+    stop_s = time.perf_counter() - t
+    check(rc == 0, f"{part}: the daemon exited {rc}")
+    dumps = sorted(glob.glob(os.path.join(tempfile.gettempdir(), "tendermint_tpu_flightrec",
+                                          f"flightrec-{proc.pid}-sigterm-*.json")))
+    check(len(dumps) == 1, f"{part}: flight-recorder dumps {dumps}")
+    with open(dumps[0]) as f:
+        doc = json.load(f)
+    spans = {r["name"] for r in doc["records"] if r["kind"] == "span"}
+    check(doc["schema"] == "tendermint-tpu-flightrec/1" and doc["reason"] == "sigterm"
+          and {"verifyd_enqueue", "verifyd_wait", "verifyd_respond"} <= spans,
+          f"{part}: dump {doc.get('schema')} {doc.get('reason')}, spans {sorted(spans)}")
+    return {"stop_s": stop_s, "flightrec": {"path": dumps[0], "records": len(doc["records"]),
+                                            "span_names": sorted(spans)[:12],
+                                            "memstats_keys": sorted(doc["memstats"])}}
 
 
 def phase_verifyd(commit_wl, commit_tables, batch, sync, mixed_sync, light, dev):
     """Phase 13: verifyd on the card (see the module note). Returns the
     launches of the requests the servers answered: each sub-phase's
     deltas around its served requests only (13a's and 13b's in-process
-    references and 13e's warm-up are left out), plus the daemon's own
-    counts from its snapshot."""
+    references and 13e's and 13f's are left out), plus the two shard
+    daemons' own counts from their snapshots."""
     from tendermint_tpu_torch.ops import precompute
     from tendermint_tpu_torch.verifyd import client as vclient
     from tendermint_tpu_torch.verifyd.server import VerifydServer
@@ -4206,22 +4537,35 @@ def phase_verifyd(commit_wl, commit_tables, batch, sync, mixed_sync, light, dev)
     finally:
         vclient.reset_remote()
         srv.stop()
-    t = time.perf_counter()
-    out = verifyd_hot_keys(batch, dev)
-    served["13d"] = add_launches(*(r["launches"] for r in out["rounds"]))
-    emit({"phase": "verifyd_13d_hot_keys", "seconds": time.perf_counter() - t, **out})
-    t = time.perf_counter()
-    daemon = verifyd_daemon(light, dev)
-    served["13e"] = daemon["launches"]
-    emit({"phase": "verifyd_13e_daemon", "seconds": time.perf_counter() - t, **daemon})
+    shards = Shards(dev)  # 13e's and 13f's daemons start now, beside 13d
+    try:
+        t = time.perf_counter()
+        out = verifyd_hot_keys(batch, dev)
+        served["13d"] = add_launches(*(r["launches"] for r in out["rounds"]))
+        emit({"phase": "verifyd_13d_hot_keys", "seconds": time.perf_counter() - t, **out})
+        t = time.perf_counter()
+        daemon = verifyd_daemon(light, dev, shards)
+        emit({"phase": "verifyd_13e_daemon", "seconds": time.perf_counter() - t, **daemon})
+        seconds_13a_e = time.perf_counter() - t_phase
+        t = time.perf_counter()
+        fleet = verifyd_fleet(shards, sync, light, batch, dev)
+        served["13e_13f"] = fleet["launches"]  # both daemons' own counts
+        fleet_s = time.perf_counter() - t
+        emit({"phase": "verifyd_13f_federation", "seconds": fleet_s, **fleet})
+        stopped = stop_shard0(shards)
+        emit({"phase": "verifyd_13e_stop", **stopped})
+    finally:
+        shards.stop()
     precompute.reset()
     counts = launches()
     summed = add_launches(*served.values())
     total = {k: summed.get(k, 0) for k in counts}
     seconds = time.perf_counter() - t_phase
-    emit({"phase": "verifyd", "seconds": seconds, "launches_this_process": counts,
-          "launches_served": served, "launches": total, "health_13a_13b": health})
-    check(seconds <= VERIFYD_PHASE_S, f"phase 13 took {seconds:.1f} s")
+    emit({"phase": "verifyd", "seconds": seconds, "seconds_13a_13e": seconds_13a_e, "seconds_13f": fleet_s,
+          "launches_this_process": counts, "launches_served": served, "launches": total,
+          "health_13a_13b": health})
+    check(seconds_13a_e <= VERIFYD_PHASE_S, f"phases 13a-13e took {seconds_13a_e:.1f} s")
+    check(fleet_s <= VERIFYD_FLEET_S, f"phase 13f took {fleet_s:.1f} s")
     return total
 
 
@@ -5207,7 +5551,8 @@ def phase_consensus(keys, dev):
     lat = {name: harness.latency[t] for name, t in (("prevote", SIGNED_MSG_TYPE_PREVOTE),
                                                      ("precommit", SIGNED_MSG_TYPE_PRECOMMIT))}
     decisions = [r["decision_ms"] for r in per_height]
-    emit({"phase": "consensus", "validators": CONSENSUS_VALIDATORS, "silent": CONSENSUS_SILENT,
+    emit({"phase": "consensus", "rpc_transport": "none: the validator serves no RPC listener",
+          "validators": CONSENSUS_VALIDATORS, "silent": CONSENSUS_SILENT,
           "heights": CONSENSUS_HEIGHTS, "restart_heights": CONSENSUS_RESTART_HEIGHTS,
           "nil_height": CONSENSUS_NIL_HEIGHT, "txs_per_block": CONSENSUS_TXS,
           "spread_ms": CONSENSUS_SPREAD_S * 1e3, "timeouts": vars(params.timeout),
@@ -5737,7 +6082,8 @@ def phase_cluster(dev):
     times = [v0.block_store.load_block(h).header.time.to_unix_ns() / 1e9 for h in range(1, CLUSTER_HEIGHTS + 1)]
     intervals = [b - a for a, b in zip(times, times[1:])]
     out = {
-        "phase": "cluster", "validators": CLUSTER_VALIDATORS, "full_nodes": 1, "heights": CLUSTER_HEIGHTS,
+        "phase": "cluster", "rpc_transport": sorted({n.rpc_server.transport for n in nodes}),
+        "validators": CLUSTER_VALIDATORS, "full_nodes": 1, "heights": CLUSTER_HEIGHTS,
         "last_common_height": last, "full_node_started_at": full_started_at, "full_node_synced_to": synced_to,
         "block_interval_s": {"mean": statistics.mean(intervals), "stdev": statistics.pstdev(intervals),
                              "min": min(intervals), "max": max(intervals), "n": len(intervals)},
@@ -6199,7 +6545,8 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s, peers, peers_start_s, 
     node_aead, peer_aead = logs[i]["aead"], served[i]
     blocks_per_s = NODE_SYNC_TO / statistics.median(walls)
     counts = launches()
-    emit({"phase": "node_p2p_sync", "blocks": NODE_SYNC_TO, "validators": NODE_VALIDATORS,
+    emit({"phase": "node_p2p_sync", "rpc_transport": sorted({n.rpc_server.transport for n in kept}),
+          "blocks": NODE_SYNC_TO, "validators": NODE_VALIDATORS,
           "serving_peers": P2P_SYNC_PEERS, "peers_in_processes_of_their_own": True,
           "transport": "tcp, SecretConnection + MConnection, 5,120,000 B/s", "peers_start_s": peers_start_s,
           "corrupting_peer_start_s": bad_start_s, "tx_index_sinks": ["kv"],
@@ -6399,7 +6746,8 @@ def phase_rpc_cluster(validators, full, submit_ms):
             proofs += 1
     counts = ingest_delta(before)
     lat = [a[2] for a in answers]
-    emit({"phase": "rpc_cluster", "nodes": len(nodes), "client_threads": RPC_CLUSTER_THREADS,
+    emit({"phase": "rpc_cluster", "rpc_transport": sorted({n.rpc_server.transport for n in nodes}),
+          "nodes": len(nodes), "client_threads": RPC_CLUSTER_THREADS,
           "tx_per_s_target": CLUSTER_TX_PER_S, "heights": [end - RPC_CLUSTER_HEIGHTS, end],
           "txs_committed": len(answers), "tx_per_s": len(answers) / load_s,
           "broadcast_tx_commit_ms": {"p50": percentile(lat, 0.5) * 1e3, "p99": percentile(lat, 0.99) * 1e3,
@@ -6631,6 +6979,7 @@ def phase_rpc_light(source, nodes, dev):
               f"phase 18a: the nodes at {[n.height for n in nodes]}, failed {[n.failed for n in nodes]}")
         primary, witness = nodes
         p_url, w_url = primary.rpc_server.url, witness.rpc_server.url
+        node_transports = sorted({n.rpc_server.transport for n in nodes})
         anchor = bytes.fromhex(HTTPClient(p_url).commit(1)["signed_header"]["commit"]["block_id"]["hash"])
         check(anchor == src_exec.block_store.load_block_meta(1).block_id.hash, "phase 18a: the anchor")
 
@@ -6761,7 +7110,9 @@ def phase_rpc_light(source, nodes, dev):
     check(stopped == [None, None] and all(cli[c]["exit"] == 0 for c in ("light", "lightd")),
           f"phase 18a: the nodes' stop {stopped}, the commands' exits {cli}")
     k3 = walk["launches"].get("verify_resident", 0)
-    emit({"phase": "rpc_light_proxy", "heights": [2, NODE_SYNC_TO], "validators": NODE_VALIDATORS,
+    emit({"phase": "rpc_light_proxy", "rpc_transport": {"nodes": node_transports,
+                                                        "proxy": proxies[0].server.transport},
+          "heights": [2, NODE_SYNC_TO], "validators": NODE_VALIDATORS,
           "nodes": "phase 17b's last timed run (primary) and corrupting-peer run (witness)",
           "answers": len(walls), "answers_per_s": len(walls) / walk_s,
           "request_ms": {"p50": percentile(walls, 0.5) * 1e3, "p99": percentile(walls, 0.99) * 1e3,

@@ -1,22 +1,28 @@
 """Operator command line; counterpart of ``tendermint_tpu/cli.py``, cut
 to its ``verifyd``, ``light`` and ``lightd`` subcommands.
 
-    python -m tendermint_tpu_torch verifyd [--listen HOST:PORT]
-        [--device cuda|cpu] [--metrics HOST:PORT] [--trace MODE] ...
+    python -m tendermint_tpu_torch verifyd [serve|stats] [--listen HOST:PORT]
+        [--device cuda|cpu] [--metrics HOST:PORT] [--trace MODE]
+        [--shm auto|on|off] [--shard-id N] [--shards H:P,H:P,...] ...
     python -m tendermint_tpu_torch light PRIMARY_URL --chain-id ID
         --trust-height H --trust-hash HEX [--witness URL ...]
         [--laddr HOST:PORT] [--sequential] [--device cuda|cpu]
     python -m tendermint_tpu_torch lightd PRIMARY_URL --chain-id ID
         --trust-height H --trust-hash HEX [--witness URL ...]
-        [--listen HOST:PORT] [--device cuda|cpu] ...
+        [--listen HOST:PORT] [--workers N] [--device cuda|cpu] ...
 
 The daemon (``verifyd/server.py``) owns the card (``--device``, default
-CUDA) and serves batched signature verification over gRPC. It prints
-the reference's banner line, then, with ``--metrics``, a line naming the
-HTTP listener that serves ``/metrics`` and ``/debug/memstats``
-(``rpc/server.py``), and runs until SIGTERM or SIGINT. Left out of the
-reference's subcommand: ``--shm``, ``--shard-id``, ``--shards``,
-``--mesh`` and the ``stats`` action.
+CUDA) and serves batched signature verification over gRPC and, for
+co-located clients, over the shared-memory ingress (``--shm``). With
+``--shard-id``/``--shards`` it serves as one shard of a federation
+(``verifyd/federation.py``), and its ``/debug/memstats`` grows the
+fleet roll-up. It prints the reference's banner line, then, with
+``--metrics``, a line naming the HTTP listener that serves ``/metrics``
+and ``/debug/memstats`` (``rpc/server.py``), and runs until SIGTERM or
+SIGINT; the flight recorder (``libs/flightrec.py``) is installed after
+its signal handlers, so a SIGTERM dumps the ring first. ``verifyd
+stats`` prints the fleet roll-up of ``--shards`` (else ``--listen``) and
+exits. Left out of the reference's subcommand: ``--mesh``.
 
 ``light`` runs a light-client RPC proxy (``light/proxy.py``) and
 ``lightd`` the serving tier (``light/lightd.py``), both over
@@ -25,8 +31,8 @@ each verifies on ``--device`` (default CUDA), prints the reference's
 banner line and runs until SIGTERM or SIGINT. ``--device`` is the
 port's own: a client that bisects in rounds rides the shared
 scheduler, which verifies on the package's device, so the flag sets
-that. Left out of ``lightd``: ``--workers`` (the event-loop transport,
-ROADMAP §A item 12) and the flight recorder it installs (item 12).
+that. ``lightd`` serves on the event loop with ``--workers`` handler
+threads and installs the flight recorder, as the reference does.
 """
 
 from __future__ import annotations
@@ -38,13 +44,68 @@ import time
 from typing import List, Optional
 
 
+def _verifyd_stats(args) -> int:
+    """``verifyd stats``: poll every shard's STATS_PATH snapshot and print
+    the fleet roll-up: a row a shard and the owner-wise aggregate, under
+    the ledger's owner labels."""
+    from tendermint_tpu_torch.verifyd.federation import FederationClient
+
+    shards = [a.strip() for a in (args.shards or "").split(",") if a.strip()]
+    if not shards:
+        shards = [args.listen]
+    fed = FederationClient(shards)
+    try:
+        rows = fed.memstats_rows(timeout=2.0)
+        if not rows:
+            print("verifyd stats: no shard reachable", flush=True)
+            return 1
+        print(f"{'shard':<8} {'addr':<22} {'served':>8} {'misroute':>9} "
+              f"{'pinned':>7} {'host_B':>10} {'device_B':>10}")
+        agg_owner: dict = {}
+        agg = {"served": 0, "misroutes": 0, "pinned": 0, "host": 0}
+        for label in sorted(rows):
+            row = rows[label]
+            dev = row.get("device_bytes") or {}
+            dev_total = sum(int(v) for v in dev.values())
+            for owner, n in dev.items():
+                agg_owner[owner] = agg_owner.get(owner, 0) + int(n)
+            served = int(row.get("requests_served", 0))
+            mis = int(row.get("misroutes", 0))
+            pinned = int(row.get("pinned_keys", 0))
+            host_b = int(row.get("host_staged_bytes", 0))
+            agg["served"] += served
+            agg["misroutes"] += mis
+            agg["pinned"] += pinned
+            agg["host"] += host_b
+            print(f"{label:<8} {row.get('addr', ''):<22} {served:>8} "
+                  f"{mis:>9} {pinned:>7} {host_b:>10} {dev_total:>10}")
+        print(f"{'fleet':<8} {'(aggregate)':<22} {agg['served']:>8} "
+              f"{agg['misroutes']:>9} {agg['pinned']:>7} {agg['host']:>10} "
+              f"{sum(agg_owner.values()):>10}")
+        for owner in sorted(agg_owner):
+            print(f"  {owner}: {agg_owner[owner]} bytes (fleet)")
+        tenants = fed.fleet_tenants()
+        for label in sorted(tenants):
+            ts = tenants[label]
+            print(f"  tenant {label}: p99={ts['p99_ms']}ms "
+                  f"slo={ts['slo_ms'] or 'none'} "
+                  f"slo_sheds={ts['slo_sheds']} lanes={ts['lanes']}")
+        sys.stdout.flush()
+        return 0
+    finally:
+        fed.close()
+
+
 def cmd_verifyd(args) -> int:
-    """Run the verification service until SIGTERM or SIGINT."""
-    from tendermint_tpu_torch.libs import tracing
+    """Run the verification service until SIGTERM or SIGINT, or, with
+    the ``stats`` action, print the fleet roll-up."""
+    from tendermint_tpu_torch.libs import flightrec, tracing
     from tendermint_tpu_torch.libs.metrics import EvloopMetrics, Registry, VerifydMetrics
     from tendermint_tpu_torch.ops import introspect
     from tendermint_tpu_torch.verifyd.server import VerifydServer
 
+    if args.action == "stats":
+        return _verifyd_stats(args)
     if args.trace:
         tracing.configure(args.trace)
     tenant_slos = {}
@@ -70,8 +131,10 @@ def cmd_verifyd(args) -> int:
         max_tenants=args.max_tenants,
         metrics=VerifydMetrics(reg),
         evloop_metrics=EvloopMetrics(reg),
+        shm=args.shm,
         dyn_batch=args.dyn_batch == "on",
         tenant_slos=tenant_slos,
+        shard_id=args.shard_id,
         device=args.device,
     )
     metrics_server = None
@@ -83,9 +146,31 @@ def cmd_verifyd(args) -> int:
     stop: List[int] = []
     signal.signal(signal.SIGINT, lambda *_: stop.append(1))
     signal.signal(signal.SIGTERM, lambda *_: stop.append(1))
+    # installed after the daemon's own handlers, so a SIGTERM dumps the
+    # flight recorder's ring first and then chains into the stop
+    flightrec.install()
     # the kernel profiler and the device-byte ledger answer
     # GET /debug/memstats on the metrics listener
     introspect.install()
+    introspect.set_shard_identity(args.shard_id)
+    # a federated daemon's memstats grow a fleet section: each shard's
+    # ledger rows polled from the shard list, cached for 2 s so polling
+    # memstats is not a gossip storm
+    fleet_fed = None
+    if args.shards:
+        from tendermint_tpu_torch.verifyd.federation import FederationClient
+
+        fleet_fed = FederationClient([a.strip() for a in args.shards.split(",") if a.strip()])
+        fleet_cache = {"t": -10.0, "rows": {}}
+
+        def _fleet_rows():
+            now = time.monotonic()
+            if now - fleet_cache["t"] >= 2.0:
+                fleet_cache["t"] = now
+                fleet_cache["rows"] = fleet_fed.memstats_rows(timeout=1.0)
+            return fleet_cache["rows"]
+
+        introspect.set_fleet_provider(_fleet_rows)
     server.start()
     if metrics_server is not None:
         metrics_server.start()
@@ -102,8 +187,9 @@ def cmd_verifyd(args) -> int:
             f"dyn_batch={'on' if server.dyn_batch else 'off'}, "
             f"tenant_slos={sorted(tenant_slos) if tenant_slos else 'none'}, "
             f"tenant_cap={args.tenant_cap}, "
-            f"shm=off, "
-            f"shard=standalone)",
+            f"shm={server.shm_socket_path or 'off'}, "
+            f"shard={args.shard_id if args.shard_id >= 0 else 'standalone'}"
+            f"{'/' + str(len(args.shards.split(','))) if args.shards else ''})",
             flush=True,
         )
         if metrics_server is not None:
@@ -115,6 +201,10 @@ def cmd_verifyd(args) -> int:
         if metrics_server is not None:
             metrics_server.stop()
         server.stop()
+        if fleet_fed is not None:
+            introspect.set_fleet_provider(None)
+            fleet_fed.close()
+        introspect.set_shard_identity(-1)
         introspect.uninstall()
     return 0
 
@@ -145,10 +235,15 @@ def _light_client(args, metrics=None, retrying=False):
     )
 
 
-def _serve_until_signalled(server, banner: str) -> int:
+def _serve_until_signalled(server, banner: str, flight: bool = False) -> int:
     stop: List[int] = []
     signal.signal(signal.SIGINT, lambda *_: stop.append(1))
     signal.signal(signal.SIGTERM, lambda *_: stop.append(1))
+    if flight:
+        # after the handlers above: a SIGTERM dumps the ring, then stops
+        from tendermint_tpu_torch.libs import flightrec
+
+        flightrec.install()
     server.start()
     print(banner.format(url=server.url), flush=True)
     try:
@@ -174,7 +269,7 @@ def cmd_lightd(args) -> int:
     ``light_status``; the Prometheus registry (cache traffic, serve
     latency) is exposed on the same listener at GET /metrics."""
     from tendermint_tpu_torch.libs import tracing
-    from tendermint_tpu_torch.libs.metrics import LightMetrics, Registry
+    from tendermint_tpu_torch.libs.metrics import EvloopMetrics, LightMetrics, Registry
     from tendermint_tpu_torch.light.lightd import LightServer
 
     if args.trace:
@@ -184,9 +279,11 @@ def cmd_lightd(args) -> int:
     client = _light_client(args, metrics=light_metrics, retrying=True)
     host, _, port = args.listen.rpartition(":")
     server = LightServer(client, host=host or "127.0.0.1", port=int(port or 0),
-                         cache_capacity=args.cache_capacity, metrics=light_metrics, registry=reg)
+                         cache_capacity=args.cache_capacity, metrics=light_metrics, registry=reg,
+                         evloop_metrics=EvloopMetrics(reg), workers=args.workers)
     return _serve_until_signalled(
-        server, f"lightd for {args.chain_id} on {{url}} (cache_capacity={args.cache_capacity})"
+        server, f"lightd for {args.chain_id} on {{url}} (cache_capacity={args.cache_capacity})",
+        flight=True,
     )
 
 
@@ -205,8 +302,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="tendermint_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("verifyd", help="run the shared verification daemon")
+    p.add_argument("action", nargs="?", choices=("serve", "stats"), default="serve",
+                   help="serve (default) runs the daemon; stats prints a fleet roll-up "
+                   "(per-shard rows and their aggregate) from --shards, else --listen")
     p.add_argument("--listen", default="127.0.0.1:26670", metavar="HOST:PORT",
                    help="gRPC listen address (port 0 picks a free one)")
+    p.add_argument("--shard-id", type=int, default=-1,
+                   help="this daemon's federation shard ordinal (stamped on every "
+                   "response; -1 = standalone)")
+    p.add_argument("--shards", default="", metavar="HOST:PORT,HOST:PORT,...",
+                   help="the federation's shard list: a serving daemon polls it for the "
+                   "/debug/memstats fleet roll-up, and `verifyd stats` prints it")
     p.add_argument("--device", default=None,
                    help="device the kernels run on: cuda (the default) or cpu")
     p.add_argument("--max-batch", type=int, default=None,
@@ -228,6 +334,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resident-table pins one tenant may hold (ops/resident.py)")
     p.add_argument("--max-tenants", type=int, default=16,
                    help="distinct tenant metric/budget buckets; overflow shares one")
+    p.add_argument("--shm", choices=("auto", "on", "off"), default="auto",
+                   help="zero-copy shared-memory ingress for co-located callers "
+                   "(verifyd/shm.py); off is TCP only")
     p.add_argument("--dyn-batch", choices=("on", "off"), default="on",
                    help="deadline-aware dynamic batching (crypto/adaptive.py); off "
                    "pins the static max-batch/max-delay config")
@@ -250,6 +359,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSON-RPC listen address (also serves /metrics)")
     p.add_argument("--cache-capacity", type=int, default=10_000,
                    help="verified-header cache size (LRU entries)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="event-loop worker threads (default: the event loop's)")
     p.add_argument("--trace", default="", help="span tracing: off | ring | <chrome-trace path>")
     p.set_defaults(fn=cmd_lightd)
     return parser

@@ -9,14 +9,16 @@ host check. :class:`MultiBatchVerifier` splits a mixed validator set's
 commit by key type. :func:`get_shared_scheduler` is the process-wide
 accumulate-with-deadline scheduler (``crypto/scheduler.py``) in front of
 :func:`tiered_verify_ed25519`. Counterpart of
-``tendermint_tpu/crypto/batch.py`` with one verifyd remote and no
-federation.
+``tendermint_tpu/crypto/batch.py``.
 
-A verify service set with ``verifyd.client.set_remote_addr`` owns the
-card for this process (:func:`remote_verify_backend`): the ed25519 batch
-verifier sends batches at or above :data:`DEVICE_THRESHOLD` to it, and
-the shared scheduler every flush, so ``types/validation.verify_commit``
-rides the wire. sr25519 stays local, as in the reference.
+A verify service owns the card for this process
+(:func:`remote_verify_backend`): a shard federation set with
+``verifyd.federation.set_federation`` (two or more shards) outranks a
+single remote set with ``verifyd.client.set_remote_addr``, as in the
+reference. The ed25519 batch verifier sends batches at or above
+:data:`DEVICE_THRESHOLD` to it, and the shared scheduler every flush, so
+``types/validation.verify_commit`` rides the wire. sr25519 stays local,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import List, Optional, Tuple
 from tendermint_tpu_torch import resolve_device
 from tendermint_tpu_torch.crypto.keys import ED25519_KEY_TYPE, SR25519_KEY_TYPE, PubKey
 from tendermint_tpu_torch.verifyd import client as vclient
+from tendermint_tpu_torch.verifyd import federation as vfederation
 
 # Host/device crossover: below this many signatures a device launch
 # costs more than it saves, so batches stay on the host (the analog of
@@ -36,7 +39,11 @@ DEVICE_THRESHOLD = 16
 
 
 def remote_verify_backend():
-    """The verify function of the configured verifyd remote, or None."""
+    """The verify function of the configured shard federation, else of
+    the configured verifyd remote, else None."""
+    fed = vfederation.federation_backend()
+    if fed is not None:
+        return fed
     return vclient.remote_backend()
 
 
@@ -108,20 +115,25 @@ def tiered_verify_ed25519(pks, msgs, sigs, device=None) -> List[bool]:
 def note_validator_set(vals) -> None:
     """Make the set's ed25519 keys eligible for per-validator table
     caching in the port's precompute cache (ops/precompute.py); keys of
-    rotated-out sets are dropped. The reference also forwards the set's
-    digest to a verifyd federation as a routing key; with one remote
-    there is nothing to route, and the remote pins the set's keys from
-    its traffic (``ops/resident.note_hot_keys``).
+    rotated-out sets are dropped. When a verifyd federation is set, the
+    sorted committee goes to its router too: the set's digest becomes
+    the routing key of every member key, so the whole committee's
+    traffic pins its tables on one shard.
 
     Unlike the reference's (``tendermint_tpu/crypto/batch.py:69-97``),
-    which swallows every error of the warm-up, this raises an error of
-    the activation or of its observers (the resident store's drop or
-    upload): on the card that is a device error, and the port does not
-    hide one. Callers are ``verify_commit``, the blocksync pipeline, the
-    bisection round, the executor's ``validate_block`` and the syncer."""
+    which swallows every error of the warm-up and of the routing hook,
+    this raises an error of the activation or of its observers (the
+    resident store's drop or upload): on the card that is a device
+    error, and the port does not hide one. Callers are
+    ``verify_commit``, the blocksync pipeline, the bisection round, the
+    executor's ``validate_block`` and the syncer."""
     from tendermint_tpu_torch.ops import precompute
 
     precompute.activate_validator_set(vals)
+    if vfederation.federation_client() is not None:
+        keys = precompute._vset_ed25519_keys(vals)
+        if keys:
+            vfederation.note_validator_set(sorted(keys))
 
 
 class Ed25519BatchVerifier:

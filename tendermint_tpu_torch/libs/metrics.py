@@ -13,17 +13,38 @@ verify service and its event loop), ``LightMetrics``, ``StateMetrics``
 (the block executor), ``ConsensusMetrics`` (the consensus state
 machine), ``MempoolMetrics`` and ``P2PMetrics`` (the router). Family names, help texts
 and label sets are the reference's, so both expositions compare line by
-line. The other subsystems' structs and the flight-recorder sink are
-left out.
+line. Counter increments and gauge sets mirror into the flight
+recorder's sink (``set_flight_sink``) when one is installed. The other
+subsystems' structs are left out.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 NAMESPACE = "tendermint"
+
+# Flight-recorder sink (libs/flightrec.py installs itself here): counter
+# increments and gauge sets as (name, label key, value). Read without a
+# lock on the hot path: an event during an install lands in the old sink
+# or the new one.
+_flight_sink: Optional[Callable[[str, Tuple, float], None]] = None
+
+
+def set_flight_sink(fn: Optional[Callable[[str, Tuple, float], None]]) -> None:
+    global _flight_sink
+    _flight_sink = fn
+
+
+def _flight_note(name: str, key: Tuple, value: float) -> None:
+    sink = _flight_sink
+    if sink is not None:
+        try:
+            sink(name, key, value)
+        except Exception:
+            pass  # the post-mortem ring must never fail a metric write
 
 DEFAULT_BUCKETS = (
     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
@@ -106,6 +127,8 @@ class _BoundCounter:
             raise ValueError("counters only go up")
         with self._m._lock:
             self._m._values[self._k] = self._m._values.get(self._k, 0.0) + n
+        if _flight_sink is not None:
+            _flight_note(self._m.name, self._k, n)
 
 
 class Gauge(_Metric):
@@ -152,10 +175,15 @@ class _BoundGauge:
     def set(self, v: float) -> None:
         with self._m._lock:
             self._m._values[self._k] = float(v)
+        if _flight_sink is not None:
+            _flight_note(self._m.name, self._k, v)
 
     def inc(self, n: float = 1.0) -> None:
         with self._m._lock:
-            self._m._values[self._k] = self._m._values.get(self._k, 0.0) + n
+            v = self._m._values.get(self._k, 0.0) + n
+            self._m._values[self._k] = v
+        if _flight_sink is not None:
+            _flight_note(self._m.name, self._k, v)
 
     def dec(self, n: float = 1.0) -> None:
         self.inc(-n)
@@ -493,8 +521,7 @@ class VerifydMetrics(_NopMixin):
     scheduler serving metrics — queue depth and sheds by priority
     class, batch occupancy, flush reasons, wire latency. No reference
     analog; the shape follows inference-serving practice. The ``shm_*``
-    families have no feeder in the port (its shm ingress is not ported)
-    and read zero."""
+    families are fed by the shared-memory ingress (``verifyd/shm.py``)."""
 
     def __init__(self, reg: Optional[Registry]):
         reg = reg or Registry()

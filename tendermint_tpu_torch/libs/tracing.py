@@ -18,14 +18,16 @@ process-wide :class:`Tracer`. Completed spans and zero-duration
 - a file path: ``ring``, plus the Chrome trace written to the path at
   interpreter exit and on :meth:`Tracer.flush`.
 
-Two sink slots see every completed span, in any mode:
+Three sink slots see every completed span, in any mode:
 ``set_metrics_observer`` (:func:`metrics_observer` feeds spans tagged
 ``stage`` and ``engine`` into ``tendermint_ops_verify_stage_seconds``
 and the consensus state machine's spans tagged ``step`` into
 ``tendermint_consensus_step_duration_seconds``, so the histograms and
 the trace count the same spans on one clock) and
-``set_profile_sink`` (the kernel profiler of ``ops/introspect.py``). A
-sink that raises never fails the traced operation.
+``set_profile_sink`` (the kernel profiler of ``ops/introspect.py``) and
+``set_flight_sink`` (the flight recorder of ``libs/flightrec.py``, which
+sees instants too). A sink that raises never fails the traced
+operation.
 
 Every span carries a ``trace_id``, ``span_id`` and ``parent_span_id``;
 a :class:`TraceContext` (``to_header`` for a JSON-RPC request's
@@ -57,6 +59,7 @@ OFF = "off"
 RING = "ring"
 
 Sink = Callable[[str, Dict[str, Any], float], None]
+FlightSink = Callable[[str, str, Dict[str, Any], float, float], None]
 
 _CTX_STRUCT = struct.Struct("<8s8sB")  # trace_id, span_id, flags
 CTX_WIRE_LEN = _CTX_STRUCT.size  # 17 bytes
@@ -216,6 +219,9 @@ class Tracer:
         self._recording = False
         self._observer: Optional[Sink] = None
         self._profile: Optional[Sink] = None
+        # flight-recorder slot (libs/flightrec.py): (kind, name, args,
+        # ts_seconds, dur_seconds) for every completed span and instant
+        self._flight: Optional[FlightSink] = None
         self._epoch = time.perf_counter()
         self._pid = os.getpid()
         self._thread_names: Dict[int, str] = {}  # guarded-by: _lock
@@ -267,6 +273,18 @@ class Tracer:
         with self._lock:
             self._profile = sink
 
+    def set_flight_sink(self, sink: Optional[FlightSink]) -> None:
+        """One flight-recorder slot (``libs/flightrec.py`` installs
+        itself here): called with (kind, name, args, ts_seconds,
+        dur_seconds) for every completed span and instant, in any mode,
+        so the post-mortem ring stays warm when the trace ring is off."""
+        with self._lock:
+            self._flight = sink
+
+    @property
+    def flight_sink(self) -> Optional[FlightSink]:
+        return self._flight
+
     @property
     def metrics_observer(self) -> Optional[Sink]:
         return self._observer
@@ -287,7 +305,12 @@ class Tracer:
         """``with tracer.span("prep_chunk", lanes=n):``; nested spans
         take this one as parent (per thread), ``parent_ctx`` puts the
         span under a remote caller's context instead."""
-        if not self._recording and self._observer is None and self._profile is None:
+        if (
+            not self._recording
+            and self._observer is None
+            and self._profile is None
+            and self._flight is None
+        ):
             return NOP_SPAN
         return _Span(self, name, args, remote=parent_ctx)
 
@@ -322,6 +345,15 @@ class Tracer:
 
     def instant(self, name: str, **args: Any) -> None:
         """A zero-duration event (a health transition, a flush reason)."""
+        flight = self._flight
+        if flight is None and not self._recording:
+            return
+        now = time.perf_counter()
+        if flight is not None:
+            try:
+                flight("instant", name, args, now, 0.0)
+            except Exception:
+                pass  # the post-mortem ring must not fail the op
         if not self._recording:
             return
         ev = {
@@ -330,7 +362,7 @@ class Tracer:
             "s": "p",
             "pid": self._pid,
             "tid": threading.get_ident(),
-            "ts": round((time.perf_counter() - self._epoch) * 1e6, 3),
+            "ts": round((now - self._epoch) * 1e6, 3),
             "args": args,
         }
         stack = self._stack()
@@ -347,6 +379,12 @@ class Tracer:
                     sink(span.name, span.args, duration)
                 except Exception:
                     pass  # a broken metrics binding or profiler must not fail the traced op
+        flight = self._flight
+        if flight is not None:
+            try:
+                flight("span", span.name, span.args, span._t0, duration)
+            except Exception:
+                pass  # the post-mortem ring must not fail the traced op
         if not self._recording:
             return
         args = span.args

@@ -2,7 +2,9 @@
 
 Counterpart of ``tendermint_tpu/light/lightd.py``. One lightd fronts a
 LightClient with a verified-header cache (``light/cache.py``) and serves
-JSON-RPC over ``rpc/server.py``. The hot path is:
+JSON-RPC over ``rpc/server.py``, on its event loop unless
+``evloop=False`` (``workers`` sizes the loop's handler pool). The hot
+path is:
 
   light_header(height) -> cache hit  -> memoized result dict (no store,
                                         no encoding, no device work)
@@ -73,6 +75,9 @@ class LightServer:
         cache_capacity: int = 10_000,
         metrics: Optional[LightMetrics] = None,
         registry=None,
+        evloop: bool = True,
+        evloop_metrics=None,
+        workers: Optional[int] = None,
     ):
         self.client = client
         self.metrics = metrics or LightMetrics.nop()
@@ -83,7 +88,15 @@ class LightServer:
         # one verification at a time: the client and its store's
         # before/after delta
         self._verify_mtx = threading.Lock()
-        self.server = RPCServer(self.routes(), host=host, port=port, metrics_registry=registry)
+        self.server = RPCServer(
+            self.routes(),
+            host=host,
+            port=port,
+            metrics_registry=registry,
+            evloop=evloop,
+            evloop_metrics=evloop_metrics,
+            workers=workers,
+        )
 
     # --- lifecycle -----------------------------------------------------------
 

@@ -18,13 +18,16 @@ the same call, by the configured sinks (``indexer/sink.py``: ``kv``,
 ``null``, ``sql`` over stdlib ``sqlite3`` in memory). With
 ``rpc_laddr`` the node serves the reference's routes
 (``rpc/core.py``, the unsafe set with ``rpc_unsafe``) and websocket
-subscriptions over ``rpc/server.py``.
+subscriptions over ``rpc/server.py``, on its event loop as the
+reference's nodes do. ``verify_remote`` sends the device-worthy batches
+to a verifyd, over the shared-memory ingress when it shares the host
+(``verify_shm``).
 
 Cut from this node, each refused rather than ignored (ROADMAP §A): the
 statesync reactor and syncer, the remote signers and
 ``db_backend="filedb"`` (item 8f, so the stores are ``MemDB`` and a node
-always starts from its genesis); the shared-memory transport to verifyd
-(item 12); the verify mesh (item 10); the autotuner (item 9). The
+always starts from its genesis); the verify mesh (item 10); the
+autotuner (item 9). The
 config file and the operator CLI that would start a node are item 8g.
 
 One divergence, with the reactors' and the syncer's: the reference
@@ -99,9 +102,9 @@ class NodeConfig:
     The reference's fields, less those of the features the port has not
     yet, each with the ROADMAP §A item that brings it: ``statesync``,
     ``priv_validator_laddr``, ``signer_connect_timeout`` (the remote
-    signers): item 8f; ``verify_shm``: item 12; ``mesh_devices``: item
-    10. ``db_backend`` takes only ``"memdb"`` (``"filedb"`` is item 8f).
-    No field reads an environment variable."""
+    signers): item 8f; ``mesh_devices``: item 10. ``db_backend`` takes
+    only ``"memdb"`` (``"filedb"`` is item 8f). No field reads an
+    environment variable."""
 
     home: str = ""
     chain_id: str = ""
@@ -142,6 +145,10 @@ class NodeConfig:
     # The resident table store (ops/resident.py): "auto" | "on" | "off",
     # "" leaves it as it is.
     resident_tables: str = ""
+    # The shared-memory slab-ring transport to a co-located verifyd
+    # (verifyd/shm.py): "auto" | "on" | "off", set process-wide; ""
+    # leaves the mode as it is, which is "auto" unless set.
+    verify_shm: str = ""
 
 
 class Node:
@@ -273,6 +280,12 @@ class Node:
             _vclient.set_remote_addr(config.verify_remote)
             if config.verify_tenant:
                 _vclient.set_remote_tenant(config.verify_tenant)
+        # the remote's transport mode, process-wide, so the cached client
+        # attaches to the slab ring (or refuses it) accordingly
+        if config.verify_shm:
+            from tendermint_tpu_torch.verifyd import shm as _vshm
+
+            _vshm.set_shm_mode(config.verify_shm)
 
         # --- pools + executor (node.go:258-297) ------------------------------
         self.mempool = TxMempool(config.mempool, app_client, metrics=mempool_metrics)

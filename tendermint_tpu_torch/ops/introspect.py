@@ -44,7 +44,7 @@ import json
 import threading
 from collections import deque
 from contextlib import ExitStack, contextmanager
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 from tendermint_tpu_torch.libs import tracing
 
@@ -340,14 +340,85 @@ def _exec_cache_entries() -> Dict[str, int]:
     return dict(sorted(out.items()))
 
 
+# --- federation fleet roll-up ---------------------------------------------------
+# A federated process (``verifyd --shards``, or a caller routing to a fleet)
+# installs a provider returning per-shard ledger rows; memstats then carries a
+# "fleet" section: each shard's device bytes under the local ledger's owner
+# labels, and their owner-wise sum, so disjoint table placement shows as
+# resident_tables rows that add up.
+
+_fleet_mtx = threading.Lock()
+_fleet_provider: Optional[Callable[[], Dict[str, Dict[str, Any]]]] = None
+_shard_id = -1
+
+
+def set_shard_identity(shard_id: int) -> None:
+    """Stamp this process's shard id into memstats (-1 = standalone,
+    left out of the snapshot)."""
+    global _shard_id
+    with _fleet_mtx:
+        _shard_id = int(shard_id)
+
+
+def shard_identity() -> int:
+    with _fleet_mtx:
+        return _shard_id
+
+
+def set_fleet_provider(fn: Optional[Callable[[], Dict[str, Dict[str, Any]]]]) -> None:
+    """Install (or clear, with None) the fleet roll-up source: a callable
+    returning ``{shard_label: {"device_bytes": {owner: n}, ...}}``. It
+    must be cheap: ``/debug/memstats`` and the flight recorder poll it."""
+    global _fleet_provider
+    with _fleet_mtx:
+        _fleet_provider = fn
+
+
+def fleet_rollup() -> Optional[Dict[str, Any]]:
+    """The fleet section, or None when unfederated or unavailable: the
+    provider's rows and the owner-wise byte sum."""
+    with _fleet_mtx:
+        provider = _fleet_provider
+    if provider is None:
+        return None
+    try:
+        rows = provider() or {}
+    except Exception:
+        return None
+    if not isinstance(rows, dict) or not rows:
+        return None
+    agg: Dict[str, int] = {}
+    for row in rows.values():
+        owners = row.get("device_bytes") if isinstance(row, dict) else None
+        if not isinstance(owners, dict):
+            continue
+        for owner, n in owners.items():
+            try:
+                agg[owner] = agg.get(owner, 0) + int(n)
+            except (TypeError, ValueError):
+                continue
+    return {
+        "shards": rows,
+        "aggregate_bytes": dict(sorted(agg.items())),
+        "aggregate_total": sum(agg.values()),
+    }
+
+
 def memstats() -> Dict[str, Any]:
     """The device-tier snapshot served at ``GET /debug/memstats``: the
     ledger, the libraries loaded (``exec_cache_entries``) and their
     build events, the resident store's own counters (so the byte claim
-    can be checked against its uploads) and the profiler's digests."""
+    can be checked against its uploads) and the profiler's digests. A
+    federated process adds its ``shard_id`` and the ``fleet`` section."""
     from tendermint_tpu_torch.ops import _build, resident
 
     out = accountant.snapshot()
+    sid = shard_identity()
+    if sid >= 0:
+        out["shard_id"] = sid
+    fleet = fleet_rollup()
+    if fleet is not None:
+        out["fleet"] = fleet
     out["exec_cache_entries"] = _exec_cache_entries()
     out["builds"] = _build.build_events()
     out["resident"] = resident.stats()

@@ -41,7 +41,10 @@ key seen :data:`HOT_PIN_THRESHOLD` times is pinned in the host cache
 hold at most ``quota`` pins; past it a hot key is counted in
 ``pin_quota_denials`` instead. Each upload splits the store's bytes
 among the tenants in proportion to their pins, as the ledger rows
-``resident_tables/<tenant>`` (``introspect.set_tenant_bytes``).
+``resident_tables/<tenant>`` (``introspect.set_tenant_bytes``). The pinned
+slice itself is mirrored under the ledger owner ``resident_tables_host``
+(host-staged bytes, apart from the device tensor), so the per-shard rows
+of a federation show each shard's slice.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ Acquired = Tuple[np.ndarray, np.ndarray, np.ndarray, torch.Tensor]
 # cache; at most HOT_TRACK_CAP keys are counted at once.
 HOT_PIN_THRESHOLD = 2
 HOT_TRACK_CAP = 4096
+
+# One key's [1..8](-A) table: 8 points x 4 coordinates x 32 bytes.
+TABLE_BYTES_PER_KEY = 8 * 4 * 32
 
 
 class ResidentTableStore:
@@ -171,7 +177,11 @@ class ResidentTableStore:
         snapshot may hold them is not installed."""
         keys = [bytes(pk) for pk in pubkeys]
         with self._lock:
-            self._pinned.difference_update(keys)
+            # an evicted key leaves the pinned slice whether or not a
+            # device copy exists: the host column is gone
+            if any(pk in self._pinned for pk in keys):
+                self._pinned.difference_update(keys)
+                self._account_host_locked()
             self._version += 1
             if self._tab_dev is not None and any(pk in self._index for pk in keys):
                 self._drop_locked()
@@ -183,6 +193,12 @@ class ResidentTableStore:
             self._drop_locked()
             self._hot_counts.clear()
             self._pinned.clear()
+            self._account_host_locked()
+
+    def _account_host_locked(self) -> None:
+        """Mirror the pinned slice to the ledger as
+        ``resident_tables_host``."""
+        introspect.set_bytes("resident_tables_host", len(self._pinned) * TABLE_BYTES_PER_KEY)
 
     def _drop_locked(self) -> None:
         if self._tab_dev is not None:
@@ -281,7 +297,9 @@ class ResidentTableStore:
                     to_pin.append(pk)
                 elif len(self._hot_counts) < HOT_TRACK_CAP:
                     self._hot_counts[pk] = c
-            self._pinned.update(to_pin)
+            if to_pin:
+                self._pinned.update(to_pin)
+                self._account_host_locked()
         if to_pin:
             precompute.pin_pubkeys(to_pin)
 
@@ -322,6 +340,7 @@ class ResidentTableStore:
                 "invalidations": self.invalidations,
                 "pin_quota_denials": self.pin_quota_denials,
                 "pinned_keys": len(self._pinned),
+                "host_staged_bytes": len(self._pinned) * TABLE_BYTES_PER_KEY,
                 **{f"declined_{k}": v for k, v in self.declined.items()},
             }
 
@@ -331,6 +350,7 @@ class ResidentTableStore:
             self._hot_counts.clear()
             self._tenant_pins.clear()
             self._pinned.clear()
+            self._account_host_locked()
             self._zero_counts()
 
 

@@ -1,9 +1,18 @@
 """verifyd client: pooled, retrying, deadline-propagating.
 
 Counterpart of ``tendermint_tpu/verifyd/client.py`` without the
-shared-memory transport and the environment knob
-(``TENDERMINT_TPU_VERIFY_REMOTE``): :func:`set_remote_addr` chooses the
-remote.
+environment knobs (``TENDERMINT_TPU_VERIFY_REMOTE``, ``_SHM``):
+:func:`set_remote_addr` chooses the remote, and ``VerifydClient(shm=)``
+(else ``shm.shm_mode()``, ``"auto"`` by default) the transport.
+
+Transport: a client that shares a host with its server attaches to the
+server's zero-copy shared-memory ingress (``verifyd/shm.py``) when the
+mode is ``auto`` or ``on`` and the server advertises one; ``transport``
+then says ``"shm"``. A request rides the slab ring, cut into slab-sized
+requests where it is larger than one slab or one TCP request holds
+(the reference sends such a request over TCP instead). A full ring or a lost session sends
+the request over TCP: a transport retry, counted in ``shm_fallbacks``,
+never a verdict answered on the host.
 
 ``VerifydClient.verify`` is the wire analog of
 ``ops.verify_batch(pks, msgs, sigs) -> List[bool]``, so it drops into
@@ -39,12 +48,13 @@ import random
 import threading
 import time
 from contextlib import contextmanager
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from tendermint_tpu_torch.libs import tracing
 from tendermint_tpu_torch.libs.grpc import GrpcChannel, GrpcError, H2ProtocolError
 from tendermint_tpu_torch.libs.metrics import VerifydMetrics
 from tendermint_tpu_torch.verifyd import protocol
+from tendermint_tpu_torch.verifyd import shm as shm_transport
 from tendermint_tpu_torch.verifyd.protocol import (
     ALGO_ED25519,
     ALGO_SR25519,
@@ -140,6 +150,7 @@ class VerifydClient:
         tenant: str = DEFAULT_TENANT,
         shed_retries: int = 2,
         shed_backoff: float = 0.02,
+        shm: Optional[str] = None,
         metrics: Optional[VerifydMetrics] = None,
         slo_ms: int = 0,
         shard_id: int = -1,
@@ -179,10 +190,34 @@ class VerifydClient:
         # cumulative per-stage seconds from the server's stage vectors
         self.stage_totals: dict = {}  # guarded-by: _stats_mtx
         self.stage_calls = 0  # guarded-by: _stats_mtx
+        # zero-copy ingress, attached at the first call when the server
+        # shares this host and advertises an endpoint
+        if shm is not None and shm not in ("auto", "on", "off"):
+            raise ValueError(f"bad shm mode {shm!r}")
+        self._shm_param = shm
+        self._shm_local = shm_transport.is_local(host)
+        self._shm_mtx = threading.Lock()
+        self._shm: Optional[shm_transport.ShmClientTransport] = None  # guarded-by: _shm_mtx
+        self._shm_next_retry = 0.0  # guarded-by: _shm_mtx
+        self.shm_calls = 0  # guarded-by: _shm_mtx
+        self.shm_fallbacks = 0  # guarded-by: _shm_mtx
+        self.shm_lanes = 0  # guarded-by: _shm_mtx
+        self.shm_bytes_avoided = 0  # guarded-by: _shm_mtx
+
+    def shm_mode(self) -> str:
+        """The constructor's mode, else the process-wide one (read at
+        each call, so ``set_shm_mode`` reaches cached clients too)."""
+        return self._shm_param or shm_transport.shm_mode()
 
     @property
     def transport(self) -> str:
-        return "tcp"
+        """``"shm"`` while a slab-ring session is live and the mode is not
+        ``"off"``, else ``"tcp"``: what the next call rides."""
+        if self.shm_mode() == "off":
+            return "tcp"
+        with self._shm_mtx:
+            t = self._shm
+        return "shm" if (t is not None and t.alive) else "tcp"
 
     def _count(self, field: str, n: int = 1) -> None:
         with self._stats_mtx:
@@ -190,9 +225,18 @@ class VerifydClient:
 
     def stats(self) -> dict:
         """Counter snapshot."""
+        with self._shm_mtx:
+            shm_stats = {
+                "shm_calls": self.shm_calls,
+                "shm_fallbacks": self.shm_fallbacks,
+                "shm_lanes": self.shm_lanes,
+                "shm_bytes_avoided": self.shm_bytes_avoided,
+            }
+        transport = self.transport
         with self._stats_mtx:
             return {
-                "transport": self.transport,
+                **shm_stats,
+                "transport": transport,
                 "calls": self.calls,
                 "transport_retries": self.transport_retries,
                 "fallback_calls": self.fallback_calls,
@@ -227,6 +271,10 @@ class VerifydClient:
             self._available.notify()
 
     def close(self) -> None:
+        with self._shm_mtx:
+            shm, self._shm = self._shm, None
+        if shm is not None:
+            shm.close()
         with self._available:
             for ch in self._pool:
                 try:
@@ -237,41 +285,81 @@ class VerifydClient:
             self._free.clear()
             self._available.notify_all()
 
+    # --- shm negotiation -----------------------------------------------------
+
+    def _maybe_shm(self) -> Optional[shm_transport.ShmClientTransport]:
+        mode = self.shm_mode()
+        if mode == "off" or not self._shm_local:
+            return None
+        with self._shm_mtx:
+            t = self._shm
+            if t is not None:
+                if t.alive:
+                    return t
+                self._shm = None  # dead session (server restart): renegotiate
+            now = time.monotonic()
+            if now < self._shm_next_retry:
+                return None
+            self._shm_next_retry = now + 1.0
+            ep = shm_transport.read_endpoint(self._port)
+            if ep is None:
+                # no advert: the server serves TCP only (or is not up);
+                # that is negotiation working, not a fallback, unless
+                # the caller asked for shm outright
+                if mode == "on":
+                    self.shm_fallbacks += 1
+                return None
+            try:
+                new = shm_transport.ShmClientTransport(ep["socket"], ep["token"])
+            except shm_transport.ShmError:
+                self.shm_fallbacks += 1
+                return None
+            self._shm = new
+            return new
+
+    def _call_shm(self, t: shm_transport.ShmClientTransport, req: VerifyRequest,
+                  timeout: float) -> Optional[protocol.VerifyResponse]:
+        """The request over the slab ring, or None when it must ride TCP
+        (a full ring, a lost session, a lane larger than a slab): each
+        such fall back is counted in ``shm_fallbacks``."""
+        parts = _slab_parts(req, t.slab_bytes)
+        if parts is None:
+            with self._shm_mtx:
+                self.shm_fallbacks += 1
+            return None
+        try:
+            resp = _merge_parts(req, parts, lambda sub: t.call(sub, timeout=timeout))
+        except shm_transport.ShmBusy:
+            with self._shm_mtx:
+                self.shm_fallbacks += 1
+            return None
+        except shm_transport.ShmError:
+            with self._shm_mtx:
+                self.shm_fallbacks += 1
+                if self._shm is t:
+                    self._shm = None
+            t.close()
+            return None
+        with self._shm_mtx:
+            self.shm_calls += 1
+            self.shm_lanes += len(req)
+            self.shm_bytes_avoided += protocol.encoded_request_size(req)
+        self._count("calls")
+        return resp
+
     def _call_transport(self, req: VerifyRequest, timeout: float) -> protocol.VerifyResponse:
-        """One request, or, past MAX_LANES, requests of at most that
-        many lanes one after another with their verdicts merged."""
-        if len(req) <= protocol.MAX_LANES:
-            return self.call(req, timeout=timeout)
-        verdicts: List[bool] = []
-        depth = 0
-        stage_acc: dict = {}
-        for start in range(0, len(req), protocol.MAX_LANES):
-            end = start + protocol.MAX_LANES
-            sub = VerifyRequest(
-                kind=req.kind,
-                klass=req.klass,
-                deadline_ms=req.deadline_ms,
-                algo=req.algo,
-                pks=list(req.pks[start:end]),
-                msgs=list(req.msgs[start:end]),
-                sigs=list(req.sigs[start:end]),
-                tenant=req.tenant,
-                trace=req.trace,  # every split rides the same trace
-                slo_ms=req.slo_ms,
-                shard_id=req.shard_id,
-                route_epoch=req.route_epoch,
-            )
-            resp = self.call(sub, timeout=timeout)
-            if resp.status != STATUS_OK:
+        """One exchange over the best transport: the slab ring while a
+        session is live, else TCP, as one request or, past MAX_LANES,
+        requests of at most that many lanes one after another with
+        their verdicts merged."""
+        t = self._maybe_shm()
+        if t is not None:
+            resp = self._call_shm(t, req, timeout)
+            if resp is not None:
                 return resp
-            verdicts.extend(resp.verdicts)
-            depth = max(depth, resp.queue_depth)
-            for stage, v in protocol.unpack_stages(resp.stages).items():
-                stage_acc[stage] = stage_acc.get(stage, 0.0) + v
-        return protocol.VerifyResponse(
-            status=STATUS_OK, verdicts=verdicts, queue_depth=depth,
-            stages=protocol.pack_stages(stage_acc) if stage_acc else b"",
-        )
+        parts = [(s, min(s + protocol.MAX_LANES, len(req)))
+                 for s in range(0, len(req), protocol.MAX_LANES)]
+        return _merge_parts(req, parts, lambda sub: self.call(sub, timeout=timeout))
 
     # --- calls --------------------------------------------------------------
 
@@ -443,6 +531,67 @@ class VerifydClient:
         return self.verify
 
 
+def _slab_parts(req: VerifyRequest, slab_bytes: int) -> Optional[List[Tuple[int, int]]]:
+    """Cut ``req``'s lanes into runs that each fit one slab and one TCP
+    request (at most ``protocol.MAX_LANES`` lanes, which a server's
+    default ``max_pending`` admits whole, and ``slab_bytes`` bytes);
+    None when one lane alone is larger than a slab."""
+    fixed = protocol.PUBKEY_SIZE + protocol.SIG_SIZE + 4
+    room = slab_bytes - shm_transport.SLAB_HEADER_BYTES
+    cap = min(shm_transport.SHM_MAX_LANES, protocol.MAX_LANES)
+    parts: List[Tuple[int, int]] = []
+    start, used = 0, 0
+    for i, m in enumerate(req.msgs):
+        need = fixed + len(m)
+        if need > room:
+            return None
+        if i - start >= cap or used + need > room:
+            parts.append((start, i))
+            start, used = i, 0
+        used += need
+    parts.append((start, len(req)))
+    return parts
+
+
+def _merge_parts(req: VerifyRequest, parts: List[Tuple[int, int]],
+                 send: Callable[[VerifyRequest], protocol.VerifyResponse]
+                 ) -> protocol.VerifyResponse:
+    """Send ``req`` as one request per ``(start, end)`` lane run, one
+    after another, and merge the verdicts; the first non-OK answer is
+    returned as it is."""
+    if len(parts) == 1:
+        return send(req)
+    verdicts: List[bool] = []
+    depth = 0
+    stage_acc: dict = {}
+    for start, end in parts:
+        sub = VerifyRequest(
+            kind=req.kind,
+            klass=req.klass,
+            deadline_ms=req.deadline_ms,
+            algo=req.algo,
+            pks=list(req.pks[start:end]),
+            msgs=list(req.msgs[start:end]),
+            sigs=list(req.sigs[start:end]),
+            tenant=req.tenant,
+            trace=req.trace,  # every split rides the same trace
+            slo_ms=req.slo_ms,
+            shard_id=req.shard_id,
+            route_epoch=req.route_epoch,
+        )
+        resp = send(sub)
+        if resp.status != STATUS_OK:
+            return resp
+        verdicts.extend(resp.verdicts)
+        depth = max(depth, resp.queue_depth)
+        for stage, v in protocol.unpack_stages(resp.stages).items():
+            stage_acc[stage] = stage_acc.get(stage, 0.0) + v
+    return protocol.VerifyResponse(
+        status=STATUS_OK, verdicts=verdicts, queue_depth=depth,
+        stages=protocol.pack_stages(stage_acc) if stage_acc else b"",
+    )
+
+
 # --- process-wide remote backend -------------------------------------------
 
 _remote_mtx = threading.Lock()
@@ -502,7 +651,12 @@ def remote_backend() -> Optional[Callable[..., List[bool]]]:
 
 
 def remote_transport() -> Optional[str]:
-    """The process-wide remote client's transport (``"tcp"``; the shm
-    transport is not ported), or None when no remote is configured."""
+    """The process-wide remote client's transport (``"shm"`` or
+    ``"tcp"``), or None when no remote is configured. It attaches to
+    shm first, so a start-up banner says what the first verify call
+    rides."""
     client = remote_client()
-    return None if client is None else client.transport
+    if client is None:
+        return None
+    client._maybe_shm()
+    return client.transport

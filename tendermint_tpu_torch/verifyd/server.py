@@ -1,11 +1,19 @@
 """verifyd server: one shared scheduler, many tenants, many connections.
 
 Counterpart of ``tendermint_tpu/verifyd/server.py`` on the port's
-engines, without the shared-memory ingress (``shm`` takes only
-``"off"``) and its environment knobs: ``dyn_batch`` defaults to on, as
-the reference's does with ``TENDERMINT_TPU_DYN_BATCH`` unset, and
-``continuous`` to the scheduler's pipeline. The server takes
-``device=`` (default: the package's, which is CUDA).
+engines, without its environment knobs: ``dyn_batch`` defaults to on, as
+the reference's does with ``TENDERMINT_TPU_DYN_BATCH`` unset,
+``continuous`` to the scheduler's pipeline, and ``shm`` (``"auto"``,
+``"on"`` or ``"off"``; None means ``shm.shm_mode()``) to ``"auto"``,
+the reference's default with ``TENDERMINT_TPU_SHM`` unset. The server
+takes ``device=`` (default: the package's, which is CUDA).
+
+Besides the gRPC transport, ``start()`` publishes the zero-copy
+shared-memory ingress (``verifyd/shm.py``) for co-located clients unless
+``shm="off"``; ``stop()`` retires it. A slab request enters ``_serve``
+past both halves of the protocol codec, and the lanes committed to slab
+rings but not yet drained count in the depth that drives admission and
+the brownout ladder, as TCP pressure does.
 
 The daemon owns the card and serves batched verification over the
 gRPC transport (``libs/grpc.py``). Every connection's lanes funnel
@@ -91,6 +99,7 @@ from tendermint_tpu_torch.libs.grpc import GrpcServer, current_conn_tag
 from tendermint_tpu_torch.libs.metrics import VerifydMetrics
 from tendermint_tpu_torch.ops import cuda_hash, cuda_verify, device_policy, introspect, resident
 from tendermint_tpu_torch.verifyd import protocol
+from tendermint_tpu_torch.verifyd import shm as shm_transport
 from tendermint_tpu_torch.verifyd.protocol import (
     ALGO_ED25519,
     ALGO_NAMES,
@@ -396,7 +405,7 @@ class VerifydServer:
         tenant_pin_quota: int = DEFAULT_PIN_QUOTA,
         max_tenants: int = DEFAULT_MAX_TENANTS,
         brownout: Optional[BrownoutController] = None,
-        shm: str = "off",
+        shm: Optional[str] = None,
         dyn_batch: bool = True,
         tenant_slos: Optional[Dict[str, int]] = None,
         slo_breach_after: float = SLO_BREACH_AFTER,
@@ -404,11 +413,9 @@ class VerifydServer:
         shard_id: int = -1,
         device=None,
     ):
-        if shm != "off":
-            raise ValueError(
-                f"shm={shm!r}: the shared-memory ingress is not ported (ROADMAP §A item 12); "
-                "only 'off' is accepted"
-            )
+        self._shm_mode = shm if shm is not None else shm_transport.shm_mode()
+        if self._shm_mode not in ("auto", "on", "off"):
+            raise ValueError(f"bad shm mode {self._shm_mode!r}")
         self.device = resolve_device(device)
         self.metrics = metrics or VerifydMetrics.nop()
         # federation identity: -1 = standalone (response field 6 omitted)
@@ -461,6 +468,14 @@ class VerifydServer:
         # requests stamped for a different shard: served, counted
         self.misroutes = 0  # guarded-by: _stats_mtx
         self.route_epoch_seen = 0  # guarded-by: _stats_mtx
+        self.shm_lanes = 0  # guarded-by: _stats_mtx
+        self.shm_torn_slabs = 0  # guarded-by: _stats_mtx
+        self.shm_fallbacks = 0  # guarded-by: _stats_mtx
+        # published by start() and retired by stop() while handler
+        # threads read it per request
+        self._shm_mtx = threading.Lock()
+        self._shm_endpoint: Optional[shm_transport.ShmEndpoint] = None  # guarded-by: _shm_mtx
+        self._evloop_metrics = evloop_metrics
         self._grpc = GrpcServer(
             {VERIFY_PATH: self._handle, STATS_PATH: self._handle_stats},
             host, port,
@@ -501,13 +516,57 @@ class VerifydServer:
     def start(self) -> None:
         self._scheduler_for(ALGO_ED25519)  # eager: first request is hot
         self._grpc.start()
+        with self._shm_mtx:
+            want_shm = self._shm_mode != "off" and self._shm_endpoint is None
+        if want_shm:
+            ep = shm_transport.ShmEndpoint(
+                self._serve,
+                metrics=self.metrics,
+                evloop_metrics=self._evloop_metrics,
+                on_stat=self._shm_stat,
+            )
+            try:
+                ep.start(self.address[1])
+            except OSError:
+                # no AF_UNIX or an untrusted runtime dir: TCP-only serving
+                # is correct, so the start degrades and counts it
+                self._shm_stat("shm_fallbacks", 1)
+                ep = None
+            with self._shm_mtx:
+                self._shm_endpoint = ep
 
     def stop(self) -> None:
         self._grpc.stop()
+        # doorbells close before the schedulers, so no new slab drain
+        # races their teardown; drains in flight resolve against the
+        # shutdown flush below
+        with self._shm_mtx:
+            ep, self._shm_endpoint = self._shm_endpoint, None
+        if ep is not None:
+            ep.stop()
         with self._sched_mtx:
             scheds, self._schedulers = dict(self._schedulers), {}
         for sched in scheds.values():
             sched.stop()
+
+    @property
+    def shm_socket_path(self) -> str:
+        """The doorbell socket's path while the shm endpoint is live (''
+        when shm is off or its endpoint did not start)."""
+        with self._shm_mtx:
+            ep = self._shm_endpoint
+        return ep.socket_path if ep is not None else ""
+
+    def shm_backlog(self) -> int:
+        """Lanes committed to slab rings but not yet in the scheduler,
+        added to ``load_depth`` for admission and the brownout ladder."""
+        with self._shm_mtx:
+            ep = self._shm_endpoint
+        return ep.backlog_lanes() if ep is not None else 0
+
+    def _shm_stat(self, field: str, n: int) -> None:
+        with self._stats_mtx:
+            setattr(self, field, getattr(self, field) + n)
 
     def _scheduler_for(self, algo: int) -> VerifyScheduler:
         with self._sched_mtx:
@@ -558,6 +617,9 @@ class VerifydServer:
             sched = self._schedulers.get(ALGO_ED25519)
         knobs = sched.resolved_knobs() if sched is not None else None
         ledger = introspect.accountant.snapshot()
+        with self._shm_mtx:
+            ep = self._shm_endpoint
+        shm_sessions = ep.session_count() if ep is not None else 0
         with self._stats_mtx:
             return {
                 "shard_id": self.shard_id,
@@ -574,6 +636,10 @@ class VerifydServer:
                 "scheduler": knobs,
                 "device_bytes": ledger["device_bytes"],
                 "compile_events": ledger["compile_events"],
+                "shm_lanes": self.shm_lanes,
+                "shm_torn_slabs": self.shm_torn_slabs,
+                "shm_fallbacks": self.shm_fallbacks,
+                "shm_sessions": shm_sessions,
             }
 
     def scheduler_stats(self) -> Dict[str, dict]:
@@ -795,9 +861,13 @@ class VerifydServer:
         else:
             device_policy.shared.count_fallback(engine, n)
         _verify_fn, host_fn = self._verify_fns[req.algo]
+        # shm requests hand their msgs over as slab memoryviews; the host
+        # oracle bypasses the scheduler's flush assembly (where they
+        # become bytes), so they are copied out here
+        msgs = [m.tobytes() if type(m) is memoryview else m for m in req.msgs]
         t_dev0 = time.monotonic()
         with tracing.span("verifyd_host_direct", lanes=n, tenant=ts.label, level=level):
-            verdicts = list(host_fn(req.pks, req.msgs, req.sigs))
+            verdicts = list(host_fn(req.pks, msgs, req.sigs))
         t_dev1 = time.monotonic()
         with self._stats_mtx:
             self.host_direct_lanes += n
@@ -851,16 +921,22 @@ class VerifydServer:
         return protocol.encode_response(self._serve(req, t0, tag=tag))
 
     def _serve(self, req: protocol.VerifyRequest, t0: float,
-               tag: Optional[object] = None) -> protocol.VerifyResponse:
+               tag: Optional[object] = None,
+               on_entries: Optional[Callable[[List[object]], None]] = None,
+               ) -> protocol.VerifyResponse:
         """The serving path under the client's trace context, when the
-        request carries one (protocol field 7)."""
+        request carries one (protocol field 7). The shm drain enters
+        here past both codec halves; ``on_entries`` hands it the
+        scheduler entries, which may still hold memoryviews into its
+        slab after a deadline answer."""
         ctx = tracing.TraceContext.from_bytes(req.trace) if req.trace else None
         if ctx is None:
-            return self._serve_inner(req, t0, tag, None)
+            return self._serve_inner(req, t0, tag, on_entries, None)
         with tracing.attach(ctx):
-            return self._serve_inner(req, t0, tag, ctx)
+            return self._serve_inner(req, t0, tag, on_entries, ctx)
 
     def _serve_inner(self, req: protocol.VerifyRequest, t0: float, tag: Optional[object],
+                     on_entries: Optional[Callable[[List[object]], None]],
                      ctx: Optional[tracing.TraceContext]) -> protocol.VerifyResponse:
         kind_name = "raw"
         t_entry = time.monotonic()
@@ -890,8 +966,9 @@ class VerifydServer:
 
             # load_depth counts in-flight lanes too: on the continuous
             # path lanes leave the accumulator while their dispatch
-            # still occupies the card
-            depth = sched.load_depth()
+            # still occupies the card; shm backlog moves the ladder as
+            # TCP pressure does
+            depth = sched.load_depth() + self.shm_backlog()
             level, moved = self.brownout.observe(self.admission.pressure(depth))
             self.metrics.brownout_level.set(level)
             if moved:
@@ -972,6 +1049,8 @@ class VerifydServer:
             self._track_depth(req.klass, n)
             self._tenant_admit(ts, n)
             self.metrics.lanes.labels(klass=klass_name).inc(n)
+            if on_entries is not None:
+                on_entries(entries)
 
             try:
                 wait_s = deadline_s or DEFAULT_WAIT

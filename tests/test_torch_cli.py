@@ -26,7 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNER = re.compile(
     r"^verifyd serving on (\S+):(\d+) \(max_batch=256, max_delay=0\.002s, admission_cap=1024, "
     r"continuous=True, pipeline_depth=2, dyn_batch=on, tenant_slos=none, tenant_cap=512, "
-    r"shm=off, shard=standalone\)$"
+    r"shm=(\S+\.sock), shard=standalone\)$"
 )
 
 
@@ -44,7 +44,10 @@ def test_parser_defaults_match_the_reference():
             args.max_pending, args.pipeline_depth, args.tenant_cap, args.tenant_pin_quota,
             args.max_tenants, args.dyn_batch, args.continuous) == (
         "127.0.0.1:26670", None, 0.002, 1024, 4096, 2, 512, 256, 16, "on", "on")
-    for flag in (["--shm", "on"], ["--port", "0"]):  # the reference has neither
+    assert (args.action, args.shm, args.shard_id, args.shards) == ("serve", "auto", -1, "")
+    # the reference has --shm (auto, on, off) and no --port
+    assert build_parser().parse_args(["verifyd", "--shm", "on"]).shm == "on"
+    for flag in (["--shm", "sometimes"], ["--port", "0"]):
         with pytest.raises(SystemExit):
             build_parser().parse_args(["verifyd"] + flag)
 

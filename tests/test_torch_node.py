@@ -62,7 +62,6 @@ CUT_FIELDS = {
     "statesync": "8f",
     "priv_validator_laddr": "8f",
     "signer_connect_timeout": "8f",
-    "verify_shm": "12",
     "mesh_devices": "10",
 }
 

@@ -14,9 +14,9 @@ caches, the health machine and the fallback lanes.
 
 Left out of the series comparison, with the reason: the JAX package's
 ``compile_events_total`` counts its first graph compile in a process
-(the port compiles nothing on the CPU) and its ledger's
-``resident_tables_host`` owner (pinned keys, which wait for the port's
-verifyd). Every binding and both tracers are put back as found.
+(the port compiles nothing on the CPU). The ledger's
+``resident_tables_host`` owner (the pinned slice) is compared with the
+rest. Every binding and both tracers are put back as found.
 """
 
 import re
@@ -44,7 +44,6 @@ from tests import helpers
 N_SET = 16
 LANES = 20
 SKIP_SERIES = {"tendermint_ops_compile_events_total"}
-SKIP_OWNERS = {"resident_tables_host"}
 COMPARED = (
     "precompute_hits_total", "precompute_misses_total", "precompute_builds_total",
     "precompute_evictions_total", "precompute_invalidations_total",
@@ -169,7 +168,7 @@ def _families(text):
         if name not in fams:
             name = re.match(r"tendermint_ops_\w+", series).group(0)
         labels = dict(re.findall(r'(\w+)="([^"]*)"', series))
-        if name in SKIP_SERIES or labels.get("owner") in SKIP_OWNERS:
+        if name in SKIP_SERIES:
             continue
         labels.pop("le", None)
         fams[name][2].add((series.split("{")[0], tuple(sorted(labels))))

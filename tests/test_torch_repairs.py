@@ -1,7 +1,7 @@
 """Faults found in the port against the reference, and divergences the
 port holds, each beside the JAX package's behaviour: observer delivery
 of the table cache's events, ``note_validator_set``'s raise, and the
-verifyd error that points at the shm item."""
+verifyd shm modes, which the port serves as the reference does."""
 
 import numpy as np
 import pytest
@@ -91,7 +91,19 @@ def test_note_validator_set_raises_in_the_port_and_never_in_the_reference(monkey
 
 
 def test_the_verifyd_shm_refusal_points_at_item_12():
+    """Item 12 ported the shm ingress: ``shm="on"`` serves and publishes
+    its doorbell, and only a mode outside auto/on/off is refused, as in
+    the reference."""
+    from tendermint_tpu.verifyd.server import VerifydServer as JServer
     from tendermint_tpu_torch.verifyd.server import VerifydServer
 
-    with pytest.raises(ValueError, match=r"ROADMAP §A item 12"):
-        VerifydServer(shm="on", device="cpu")
+    srv = VerifydServer(shm="on", device="cpu")
+    srv.start()
+    try:
+        assert srv.shm_socket_path and srv.stats()["shm_sessions"] == 0
+    finally:
+        srv.stop()
+    assert srv.shm_socket_path == ""
+    for cls in (JServer, VerifydServer):
+        with pytest.raises(ValueError, match="bad shm mode"):
+            cls(shm="sometimes")

@@ -143,7 +143,7 @@ def test_verify_commit_remote_parity_24_validators(_cpu_and_clean_state):
 
     srv, addr = _serve(_cpu_and_clean_state, max_batch=64, max_delay=0.01)
     vclient.set_remote_addr(addr)
-    assert vclient.remote_transport() == "tcp"
+    assert vclient.remote_transport() == "shm"  # co-located: the slab ring, by default
     tval.verify_commit(chain, vset, bid, 5, good)
     assert srv.stats()["requests_served"] == 1  # the wire served it
     with pytest.raises(tval.InvalidCommitError) as remote:
@@ -606,15 +606,29 @@ def test_host_direct_rungs_are_counted(_cpu_and_clean_state):
     c.close()
 
 
-def test_shm_other_than_off_is_refused():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        VerifydServer(shm="auto", device="cpu")
+def test_shm_other_than_off_is_refused(_cpu_and_clean_state):
+    """Since item 12 the server serves ``"auto"`` and ``"on"`` beside
+    ``"off"``; another mode is refused, by the server and the client."""
+    with pytest.raises(ValueError, match="bad shm mode"):
+        VerifydServer(shm="sometimes", device="cpu")
+    with pytest.raises(ValueError, match="bad shm mode"):
+        VerifydClient("127.0.0.1:1", shm="sometimes")
+    for mode, want in (("auto", "shm"), ("on", "shm"), ("off", "tcp")):
+        srv, addr = _serve(_cpu_and_clean_state, shm=mode, verify_fn=host_verify, max_delay=0.005)
+        c = VerifydClient(addr)
+        try:
+            assert c.verify(*make_lanes(3, seed=21, bad={1}), klass=protocol.CLASS_CONSENSUS) == [
+                True, False, True]
+            assert c.transport == want, mode
+            assert srv.stats()["shm_lanes"] == (3 if want == "shm" else 0)
+        finally:
+            c.close()
 
 
 def test_large_requests_split_at_max_lanes(_cpu_and_clean_state, monkeypatch):
     monkeypatch.setattr(protocol, "MAX_LANES", 4)
     srv, addr = _serve(_cpu_and_clean_state, verify_fn=host_verify, max_batch=8, max_delay=0.01)
-    c = VerifydClient(addr)
+    c = VerifydClient(addr, shm="off")  # the TCP codec's cap; the slab ring cuts by slab size
     pks, msgs, sigs = make_lanes(10, seed=18, bad={5, 9})
     assert c.verify(pks, msgs, sigs) == [i not in (5, 9) for i in range(10)]
     assert srv.stats()["requests_served"] == 3
