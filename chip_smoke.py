@@ -101,9 +101,9 @@ and, in order:
    lanes, table builds, store decodes, launches and a host profile; 11b,
    a bad signature on 16 must give one error in all three modes; 11c,
    a ``LightServer`` on 127.0.0.1 answers ``light_header`` over HTTP: a
-   cold miss (3 rounds), a hit with the same bytes, 2,000 hits from 8
+   cold miss (3 rounds), a hit with the same bytes, 1,024 hits from 8
    threads (latency p50/p99, hits/s) on its event loop (the default
-   transport) and 2,000 on a ``ThreadingHTTPServer`` over the same client
+   transport) and 1,024 on a ``ThreadingHTTPServer`` over the same client
    and cache (``evloop=False``), in two turns each, 8 threads on a fresh
    server's cold
    16 (one verification), bad heights (``INVALID_PARAMS``),
@@ -255,7 +255,7 @@ and, in order:
    block-syncs in, each a ``Node`` with a ``LocalClient`` kvstore on one
    ``MemoryNetwork``, found through one persistent peer and PEX; kvstore
    txs through ``Node.submit_tx`` at 3 a second on the connected nodes
-   in turn until height 20; checked: the five stores agree on every block
+   in turn until height 14; checked: the five stores agree on every block
    and app hash, every tx committed once, the full node synced through
    its ``BlockSyncReactor`` and switched to consensus, no ``Node.failed``;
    it prints the block interval (mean, σ, min, max), the
@@ -314,6 +314,34 @@ and, in order:
    phase 6 does); then ``python -m tendermint_tpu_torch light`` and
    ``lightd`` in processes of their own on the card, each answering
    height 64 with the primary's header;
+19. the node's files, state sync, remote signers and app processes:
+   19a, statesync-join-64x500: two port nodes in processes of their own
+   (started while the kernels build and ready before phase 2, so that
+   their start overlaps no measured phase; idle until phase 19), each
+   reopening a home of ``filedb-c`` stores written from phase 14's
+   source chain (its handshake replays the 65 blocks into a kvstore app
+   that takes a snapshot every 40 heights), serve over encrypted TCP on
+   the CPU (serving verifies nothing); a fresh node on
+   ``filedb-c`` with state sync on (trust anchor: height 1 and its header
+   hash, backfill on) restores the snapshot at 40 after its light walk
+   1 -> 40 -> 41 -> 42 across the change at 33 (verified on the card:
+   K1 for a set not yet activated, K3 after, K4; no lane on the host
+   tier), then block-syncs 41-64 and converges with the source; its
+   seconds to caught up beside phase 14's block-sync time, the walk's
+   lanes and launches, the snapshot's bytes and chunks, blocks/s after
+   the join; 19b, restart-rollback-64x500: a node on ``filedb-c``
+   block-syncs to 32 from a peer process serving 33 blocks and stops;
+   ``rollback_state`` takes its stores back to 31; a new ``Node`` on the
+   home and a fresh app replays 1-31 and re-applies 32 through
+   ``apply_block`` (its LastCommit verified on the card), then syncs
+   33-64 from 19a's servers and converges; 19c, remote-cluster-4:
+   ``ci.toml``'s four validators without its perturbations, validator1
+   signing through the socket signer in a process of its own, validator2
+   through the gRPC signer in another with its app behind the gRPC ABCI
+   transport in a third, validator3 on ``filedb`` with its app behind the
+   socket transport in a fourth; at least 8 heights committed, the block
+   interval beside 17a's (their 4-lane commits go to the host tier by
+   policy);
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -339,8 +367,9 @@ ed25519 kernels of the mixed commit), 5c, 7, 8, 9, 10, 11, 12, 13 (whose
 count is that of the served requests only: each sub-phase's deltas around
 what a server answered, without the in-process references, plus the
 shard daemons' own of 13e and 13f), 14 and 15, around 16a-c together, around 17a-b
-together (less 18b's, which runs inside 17a) and around 18 (18a's from
-its walk on, after its nodes' sync, and 18b's). After each
+together (less 18b's, which runs inside 17a), around 18 (18a's from
+its walk on, after its nodes' sync, and 18b's) and around each of 19a
+and 19b. After each
 of these the health machine
 must show no host fallback, no transition and the healthy state (in
 phase 13 after 13b, and after 13c has reset it). Each phase prints one JSON line; then the kernel table,
@@ -440,7 +469,10 @@ LIGHTD_REPS = 5
 LIGHTD_BAD_INDEX = 300  # inside the +2/3 pass of every mode
 LIGHTD_HERD = 8  # threads asking for one cold height at once
 LIGHTD_HIT_THREADS = 8
-LIGHTD_HIT_REQUESTS = 2000  # a transport's hits: the event loop's, then the threaded server's
+# A transport's hits: the event loop's, then the threaded server's; a
+# multiple of LIGHTD_HIT_TURNS x LIGHTD_HIT_THREADS, and few enough that,
+# with phase 19, the whole script stays well inside its time limit.
+LIGHTD_HIT_REQUESTS = 1024
 LIGHTD_HIT_TURNS = 2  # 11c's hits alternate between the transports in this many turns each
 
 # Phase 5c: BASELINE config 5 with its third key type, a commit of
@@ -524,12 +556,13 @@ MEMPOOL_REAP_BYTES = 22_020_096
 # Phase 17a, cluster-4: the e2e CI manifest (tendermint_tpu/e2e/networks/
 # ci.toml) cut to what the port has: four validators and a full node that
 # starts at height 4, kvstore txs at the manifest's load_tx_per_sec, on
-# the port's MemoryNetwork, until height 20. Default consensus params.
+# the port's MemoryNetwork, until height 14 (so that, with phase 19, the
+# whole script stays well inside its time limit). Default consensus params.
 CLUSTER_CHAIN_ID = "ci-e2e"
 CLUSTER_VALIDATORS = 4
 CLUSTER_POWER = 10
 CLUSTER_START_AT = 4
-CLUSTER_HEIGHTS = 20
+CLUSTER_HEIGHTS = 14
 CLUSTER_TX_PER_S = 3.0
 CLUSTER_WAIT_S = 120.0  # the longest a wait of the phase may take
 # Phase 17b, node-p2p-sync-64x500: phase 14's source chain served over
@@ -546,6 +579,18 @@ RPC_CLI_WAIT_S = 300.0  # a command's start on the card: torch, CUDA, its first 
 RPC_SEQUENTIAL_TO = 17  # the sequential walk's last height (the default walk's runs to NODE_SYNC_TO)
 RPC_CLUSTER_THREADS = 4
 RPC_CLUSTER_HEIGHTS = 10
+# Phase 19a, statesync-join-64x500: phase 14's chain (BASELINE config 4)
+# served by nodes whose apps snapshot every 40 heights; 19b,
+# restart-rollback-64x500: a node synced to 32, rolled back to 31 and
+# restarted from its files; 19c, remote-cluster-4: ci.toml's validators
+# with their remote signers and app processes.
+STATESYNC_SERVERS = 2
+STATESYNC_SNAPSHOT_INTERVAL = 40
+STATESYNC_BACKFILL = 10  # headers below the snapshot, verified backwards (the change at 33 among them)
+ROLLBACK_SYNC_TO = 32
+REMOTE_HEIGHTS = 8
+PHASE19_WAIT_S = 120.0  # the longest a wait of the phase may take
+PHASE19_BUDGET_S = 60.0  # the seconds the phase may add to the script
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -4716,12 +4761,12 @@ def node_follow(source, dev, clock=None, faults=None):
     return syncer, executor, wall, log
 
 
-def check_converged(source, executor, state, where):
-    """The follower's block IDs at 1..NODE_SYNC_TO, its app hash at
+def check_converged(source, executor, state, where, first=1):
+    """The follower's block IDs at ``first``..NODE_SYNC_TO, its app hash at
     NODE_SYNC_TO, and its validator sets (hash and proposer) from
     NODE_CHANGE_HEIGHT to NODE_HEIGHTS equal the source's."""
     _, src_exec, src_state = source[:3]
-    for h in range(1, NODE_SYNC_TO + 1):
+    for h in range(first, NODE_SYNC_TO + 1):
         check(executor.block_store.load_block_meta(h).block_id
               == src_exec.block_store.load_block_meta(h).block_id, f"{where}: block ID at {h} differs")
     check(state.app_hash == src_state.app_hash, f"{where}: app hash at {NODE_SYNC_TO} differs")
@@ -5942,6 +5987,9 @@ def wait_until(fn, timeout, what, interval=0.01):
         time.sleep(interval)
 
 
+CLUSTER_FACTS = {}  # 17a's block interval, which 19c prints beside its own
+
+
 def phase_cluster(dev):
     """17a, cluster-4: the e2e CI manifest (``ci.toml``) cut to what the
     port has. Four validators of power CLUSTER_POWER with the default
@@ -6081,6 +6129,7 @@ def phase_cluster(dev):
           f"phase 17a: the full node did not block-sync in (synced to {synced_to}, started at {full_started_at})")
     times = [v0.block_store.load_block(h).header.time.to_unix_ns() / 1e9 for h in range(1, CLUSTER_HEIGHTS + 1)]
     intervals = [b - a for a, b in zip(times, times[1:])]
+    CLUSTER_FACTS["block_interval_mean_s"] = statistics.mean(intervals)
     out = {
         "phase": "cluster", "rpc_transport": sorted({n.rpc_server.transport for n in nodes}),
         "validators": CLUSTER_VALIDATORS, "full_nodes": 1, "heights": CLUSTER_HEIGHTS,
@@ -6185,10 +6234,11 @@ def timed_aead(acc, lock):
     return undo
 
 
-def serving_peer_process(conn, items, name, corrupt):
+def serving_peer_process(conn, items, name, corrupt, top=None):
     """A :class:`ServingPeer` in a process of its own, as a joining node's
     peers are: ``items`` is the ``(data, keys)`` of its store's ``MemDB``,
-    and ``corrupt`` wraps the store in a :class:`CorruptingStore`. Sends
+    ``corrupt`` wraps the store in a :class:`CorruptingStore`, and ``top``
+    in a :class:`TruncatedStore` (a peer that holds that many blocks). Sends
     its address and node ID; then answers ``"stats"`` with the seconds and
     frames its AEAD sealed and opened since the last answer, and
     ``"stop"`` with those and the height it corrupted, and stops."""
@@ -6200,6 +6250,8 @@ def serving_peer_process(conn, items, name, corrupt):
     db = MemDB()
     db._data, db._keys = items
     store = BlockStore(db)
+    if top is not None:
+        store = TruncatedStore(store, top)
     if corrupt:
         store = CorruptingStore(store)
     peer = ServingPeer(store, name)
@@ -6225,13 +6277,13 @@ class PeerProcess:
     address, ``stats()`` asks for its AEAD's seconds and frames, and
     ``stop()`` ends the process (its last answer, or None)."""
 
-    def __init__(self, store, name, corrupt=False):
+    def __init__(self, store, name, corrupt=False, top=None):
         ctx = multiprocessing.get_context("spawn")
         self.name = name
         self.conn, child = ctx.Pipe()
         with store._db._lock:
             items = (dict(store._db._data), list(store._db._keys))
-        self.proc = ctx.Process(target=serving_peer_process, args=(child, items, name, corrupt), name=name,
+        self.proc = ctx.Process(target=serving_peer_process, args=(child, items, name, corrupt, top), name=name,
                                 daemon=True)
         self.proc.start()
         child.close()
@@ -7134,6 +7186,561 @@ def phase_rpc_light(source, nodes, dev):
     return counts
 
 
+# --- phase 19 ------------------------------------------------------------------
+
+
+def write_home(src_exec, home, backend="filedb-c"):
+    """Phase 14's source stores (blocks 1-65, the state after 65) written
+    into file stores under ``home/data``, as a node that holds the chain
+    keeps them. Returns the seconds it took."""
+    from tendermint_tpu_torch.storage import open_db
+
+    t = time.perf_counter()
+    for name, store in (("state", src_exec.state_store), ("blockstore", src_exec.block_store)):
+        with store._db._lock:
+            items = list(store._db._data.items())
+        db = open_db(backend, os.path.join(home, "data"), name)
+        db.apply_batch([("set", k, v) for k, v in items])
+        db.close()
+    return time.perf_counter() - t
+
+
+def store_sizes(home):
+    data = os.path.join(home, "data")
+    return {f: os.path.getsize(os.path.join(data, f)) for f in sorted(os.listdir(data)) if f.endswith(".fdb")}
+
+
+class TruncatedStore:
+    """A block store seen up to ``top``: a peer that holds that much."""
+
+    def __init__(self, store, top):
+        self.store, self.top = store, top
+
+    def base(self):
+        return self.store.base()
+
+    def height(self):
+        return min(self.top, self.store.height())
+
+    def load_block(self, height):
+        return self.store.load_block(height) if height <= self.top else None
+
+
+def statesync_server_process(conn, home, genesis_json, name, interval):
+    """A port node serving phase 14's chain in a process of its own, as a
+    joining node's peers are: it reopens ``home`` (``filedb-c`` stores),
+    its handshake replaying the blocks into a kvstore app that snapshots
+    every ``interval`` heights, and serves over TCP on the CPU (serving
+    verifies nothing). Sends its address and what it holds; on
+    ``"stop"`` stops and sends what ``Node.stop()`` raised (or None)."""
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    app = KVStoreApplication(snapshot_interval=interval)
+    t = time.perf_counter()
+    node = Node(NodeConfig(chain_id=CHAIN_ID, home=home, db_backend="filedb-c", wal_enabled=False, blocksync=False,
+                           listen_addr="127.0.0.1:0", moniker=name),
+                GenesisDoc.from_json(genesis_json), LocalClient(app), device="cpu")
+    open_s = time.perf_counter() - t
+    node.start()
+    conn.send({"addr": f"{node.node_key.node_id}@{node.transport.listen_addr}", "open_s": open_s,
+               "replayed": node.handshaker.n_blocks_replayed, "app_height": app._height,
+               "engine": node._dbs[0].engine,
+               "snapshots": {h: (len(c), sum(len(x) for x in c)) for h, (_, c) in app._snapshots.items()}})
+    err = None
+    try:
+        conn.recv()
+    finally:
+        try:
+            node.stop()
+        except Exception as exc:  # sent to the phase, which checks it
+            err = repr(exc)
+    conn.send(err)
+
+
+class ServerProcess:
+    """The phase's handle on a :func:`statesync_server_process`: started
+    at construction, ``ready()`` waits for its facts, ``stop()`` ends it
+    (what its node's ``stop()`` raised, or None)."""
+
+    def __init__(self, home, genesis_json, name, interval):
+        ctx = multiprocessing.get_context("spawn")
+        self.name = name
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=statesync_server_process, args=(child, home, genesis_json, name, interval),
+                                name=name, daemon=True)
+        self.proc.start()
+        child.close()
+        self.facts = None
+
+    def ready(self, timeout=PHASE19_WAIT_S):
+        check(self.conn.poll(timeout), f"phase 19: server {self.name} did not answer")
+        self.facts = self.conn.recv()
+        self.addr = self.facts["addr"]
+
+    def stop(self):
+        err = "no answer"
+        try:
+            if self.proc.is_alive():
+                self.conn.send("stop")
+                if self.conn.poll(30):
+                    err = self.conn.recv()
+        except (OSError, EOFError):
+            pass
+        self.proc.join(30)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(5)
+        return err
+
+
+def statesync_servers(source, home):
+    """STATESYNC_SERVERS :class:`ServerProcess`es, each on a copy of one
+    ``filedb-c`` home written from phase 14's source chain, started
+    together. Returns them and the seconds it took to write the home."""
+    template = os.path.join(home, "template")
+    write_s = write_home(source[1], template)
+    servers = []
+    for i in range(STATESYNC_SERVERS):
+        node_home = os.path.join(home, f"server{i}")
+        shutil.copytree(template, node_home)
+        servers.append(ServerProcess(node_home, source[0], f"server{i}", STATESYNC_SNAPSHOT_INTERVAL))
+    return servers, write_s
+
+
+def phase_statesync_join(source, servers, home, dev, blocksync_s):
+    """19a: a fresh node joins phase 14's chain from a snapshot (module
+    note). ``blocksync_s`` is phase 14's median time for the same 64
+    heights. Returns the launch counts of the run."""
+    from tendermint_tpu_torch import ops as tops
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.crypto import batch as crypto_batch
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.ops import cuda_hash, cuda_verify, precompute
+    from tendermint_tpu_torch.statesync import StateSyncConfig
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    _, src_exec, src_state = source[:3]
+    snap_h = STATESYNC_SNAPSHOT_INTERVAL
+    snaps = servers[0].facts["snapshots"]
+    check(list(snaps) == [snap_h], f"phase 19a: the servers' snapshots {list(snaps)}")
+    n_chunks, snap_bytes = snaps[snap_h]
+    anchor = src_exec.block_store.load_block_meta(1).header.hash()
+    cfg = StateSyncConfig(enabled=True, trust_height=1, trust_hash=anchor, trust_period=RPC_TRUSTING_PERIOD_S,
+                          discovery_time=0.5, backfill_blocks=STATESYNC_BACKFILL, light_block_timeout=30.0,
+                          chunk_timeout=30.0)
+    app = KVStoreApplication()
+    precompute.results.clear()  # a fresh node's process starts with no verdicts
+    before = ingest_counters()
+    t0 = time.perf_counter()
+    node = Node(NodeConfig(chain_id=CHAIN_ID, home=os.path.join(home, "joiner"), db_backend="filedb-c",
+                           wal_enabled=False, listen_addr="127.0.0.1:0", moniker="joiner", statesync=cfg,
+                           persistent_peers=[srv.addr for srv in servers]),
+                GenesisDoc.from_json(source[0]), LocalClient(app), device=dev)
+    syncer = node.statesyncer
+    walk, marks = {}, {}
+    real_build, real_sync = syncer._build_state, syncer.sync
+    # The walk's own verifications and launches, by the thread that runs
+    # it: a batch of 16 lanes or more goes to verify_batch (the card), a
+    # smaller one to the host, and verify_batch launches on its caller's
+    # thread. The process-wide counts also hold what other threads do
+    # meanwhile (the consensus reactor ingesting the servers' gossip).
+    walk_lanes = {"device": 0, "host": 0}
+    walk_launches = {}
+    real_vb, real_host = tops.verify_batch, crypto_batch.host_verify_ed25519
+    real_launch, real_run = cuda_verify._launch, cuda_hash._run
+
+    def on_walk():
+        return threading.get_ident() == walk.get("thread")
+
+    def counted(kind, fn):
+        def run(pks, *args, **kwargs):
+            if on_walk():
+                walk_lanes[kind] += len(pks)
+            return fn(pks, *args, **kwargs)
+
+        return run
+
+    def launch(name, key, args, n, *rest):
+        out = real_launch(name, key, args, n, *rest)
+        if n and on_walk():  # where the wrapper counted a launch
+            walk_launches[key] = walk_launches.get(key, 0) + 1
+        return out
+
+    def run_hash(name, key, args, device):
+        real_run(name, key, args, device)
+        if on_walk():
+            walk_launches[key] = walk_launches.get(key, 0) + 1
+
+    def build_state(snapshot):
+        walk["thread"] = threading.get_ident()
+        t = time.perf_counter()
+        try:
+            out = real_build(snapshot)
+        finally:
+            walk["s"] = time.perf_counter() - t
+            walk["thread"] = None
+        walk["state"] = out[0]
+        return out
+
+    def sync(*args, **kwargs):
+        out = real_sync(*args, **kwargs)
+        marks["restored"] = time.perf_counter()
+        marks["app_height"], marks["app_hash"] = app._height, app._app_hash
+        return out
+
+    syncer._build_state, syncer.sync = build_state, sync
+    tops.verify_batch, crypto_batch.host_verify_ed25519 = counted("device", real_vb), counted("host", real_host)
+    cuda_verify._launch, cuda_hash._run = launch, run_hash
+    try:
+        node.start()
+        wait_until(lambda: node.failed is not None or node.statesync_error is not None
+                   or (node.caught_up and node.syncer.state.last_block_height >= NODE_SYNC_TO), PHASE19_WAIT_S,
+                   lambda: f"phase 19a: the joiner at {node.height} (caught up {node.caught_up})")
+        caught_up = time.perf_counter()
+        check(node.failed is None and node.statesync_error is None,
+              f"phase 19a: failed {node.failed!r}, state sync {node.statesync_error!r}")
+        state = node.syncer.state
+        check(node.block_store.load_block(1) is None and node.block_store.load_block(snap_h) is None
+              and node.block_store.base() == snap_h + 1, "phase 19a: the joiner fetched blocks below the snapshot")
+        check_converged(source, node, state, "phase 19a", first=snap_h + 1)
+        src_hash_at = src_exec.block_store.load_block_meta(snap_h + 1).header.app_hash  # the app after snap_h
+        check(marks["app_height"] == snap_h and marks["app_hash"] == src_hash_at == walk["state"].app_hash,
+              "phase 19a: the restored app hash is not the source's at the snapshot height")
+        check(sorted(syncer.backfilled) == list(range(snap_h - STATESYNC_BACKFILL, snap_h)),
+              f"phase 19a: backfilled {sorted(syncer.backfilled)}")
+        total = ingest_delta(before)
+        check(walk_launches.get("challenge", 0) > 0
+              and walk_launches.get("verify_resident", 0) + walk_launches.get("verify", 0) > 0,
+              f"phase 19a: the light walk's launches {walk_launches}")
+        check(walk_lanes["host"] == 0 and walk_lanes["device"] > 0, f"phase 19a: the light walk's lanes {walk_lanes}")
+    finally:
+        try:
+            node.stop()
+        finally:
+            syncer._build_state, syncer.sync = real_build, real_sync
+            tops.verify_batch, crypto_batch.host_verify_ed25519 = real_vb, real_host
+            cuda_verify._launch, cuda_hash._run = real_launch, real_run
+    join_s = caught_up - t0
+    after_s = caught_up - marks["restored"]
+    emit({"phase": "statesync_join", "validators": NODE_VALIDATORS, "heights": NODE_SYNC_TO,
+          "servers": len(servers), "transport": "tcp", "db_backend": "filedb-c", "engine": "c",
+          "snapshot": {"height": snap_h, "chunks": n_chunks, "bytes": snap_bytes},
+          "start_to_caught_up_s": join_s, "phase_14_blocksync_64_s": blocksync_s,
+          "start_to_restored_s": marks["restored"] - t0, "light_walk_s": walk["s"],
+          "light_walk": {"device_lanes": walk_lanes["device"], "host_lanes": walk_lanes["host"],
+                         "launches": walk_launches},
+          "blocks_after_join": NODE_SYNC_TO - snap_h, "blocks_per_s_after_join": (NODE_SYNC_TO - snap_h) / after_s,
+          "backfilled": len(syncer.backfilled), "launches": total["launches"],
+          "scheduler_tiers_of_the_join": total["tiers"]})
+    return launches()
+
+
+def phase_restart_rollback(source, servers, peer, home, dev):
+    """19b: sync to ROLLBACK_SYNC_TO from ``peer`` (a :class:`PeerProcess`
+    holding one block more), stop, roll back one height, restart from the
+    files and sync on from ``servers`` (module note). Returns the launch
+    counts of the run, those of the restart's construction among them."""
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.ops import precompute
+    from tendermint_tpu_torch.state.rollback import rollback_state
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.storage import open_db
+    from tendermint_tpu_torch.storage.blockstore import BlockStore
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    _, src_exec, _ = source[:3]
+    genesis = GenesisDoc.from_json(source[0])
+    node_home = os.path.join(home, "restart")
+
+    def make(peers):
+        return Node(NodeConfig(chain_id=CHAIN_ID, home=node_home, db_backend="filedb-c", wal_enabled=False,
+                               listen_addr="127.0.0.1:0", moniker="restart", persistent_peers=peers),
+                    genesis, LocalClient(KVStoreApplication()), device=dev)
+
+    t0 = time.perf_counter()
+    node = make([peer.addr])
+    try:
+        node.start()
+        wait_until(lambda: node.failed is not None or node.syncer.state.last_block_height >= ROLLBACK_SYNC_TO,
+                   PHASE19_WAIT_S, lambda: f"phase 19b: the first run at {node.height}")
+    finally:
+        node.stop()
+    first_s = time.perf_counter() - t0
+    check(node.height == ROLLBACK_SYNC_TO and node.syncer.state.last_block_height == ROLLBACK_SYNC_TO,
+          f"phase 19b: the first run stopped at {node.height}")
+    data = os.path.join(node_home, "data")
+    state_store, block_store = StateStore(open_db("filedb-c", data, "state")), \
+        BlockStore(open_db("filedb-c", data, "blockstore"))
+    engine = state_store._db.engine
+    rolled = rollback_state(state_store, block_store)
+    state_store._db.close()
+    block_store._db.close()
+    check(rolled == (ROLLBACK_SYNC_TO - 1, src_exec.block_store.load_block_meta(ROLLBACK_SYNC_TO).header.app_hash)
+          and engine == "c", f"phase 19b: rollback to {rolled}, engine {engine}")
+    sizes = store_sizes(node_home)
+    precompute.results.clear()  # a restarted process starts with no verdicts
+    before = launches()
+    t1 = time.perf_counter()
+    node = make([srv.addr for srv in servers])
+    replay_s = time.perf_counter() - t1
+    restart_launches = delta(before)
+    try:
+        replayed = node.handshaker.n_blocks_replayed
+        check(replayed == ROLLBACK_SYNC_TO and node.sm_state.last_block_height == ROLLBACK_SYNC_TO,
+              f"phase 19b: replayed {replayed} blocks to {node.sm_state.last_block_height}")
+        check(restart_launches.get("verify_resident", 0) + restart_launches.get("verify", 0) > 0,
+              f"phase 19b: the re-applied tip launched {restart_launches}")
+        node.start()
+        wait_until(lambda: node.failed is not None or (node.caught_up and
+                                                       node.syncer.state.last_block_height >= NODE_SYNC_TO),
+                   PHASE19_WAIT_S, lambda: f"phase 19b: the restarted node at {node.height}")
+        caught_up_s = time.perf_counter() - t1
+        check(node.failed is None, f"phase 19b: failed {node.failed!r}")
+        check_converged(source, node, node.syncer.state, "phase 19b")
+    finally:
+        node.stop()
+    emit({"phase": "restart_rollback", "validators": NODE_VALIDATORS, "db_backend": "filedb-c", "engine": engine,
+          "first_run_to": ROLLBACK_SYNC_TO, "first_run_s": first_s, "rolled_back_to": rolled[0],
+          "store_bytes": sizes, "replayed_blocks": replayed, "replay_s": replay_s,
+          "replay_blocks_per_s": replayed / replay_s, "restart_launches": restart_launches,
+          "restart_to_caught_up_s": caught_up_s, "synced_to": NODE_SYNC_TO, "final_store_bytes": store_sizes(node_home)})
+    return launches()
+
+
+def spawn_module(module, *args, listen_line=None):
+    """A port module in a process of its own (``python -m``), from this
+    checkout; with ``listen_line``, waits for the line that names its
+    address and returns (host, port) beside the process."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], env=env, text=True,
+                            stdout=subprocess.PIPE if listen_line else subprocess.DEVNULL)
+    if listen_line is None:
+        return proc, None
+    line = proc.stdout.readline()
+    check(listen_line in line, f"phase 19c: {module} printed {line!r}")
+    host, _, port = line.strip().rpartition(" ")[2].rpartition(":")
+    return proc, (host, int(port))
+
+
+def phase_remote_cluster(dev):
+    """19c: ci.toml's four validators (module note) on one MemoryNetwork,
+    kvstore txs at CLUSTER_TX_PER_S, until REMOTE_HEIGHTS."""
+    import tempfile
+
+    from tendermint_tpu_torch.abci.client import LocalClient
+    from tendermint_tpu_torch.abci.grpc_client import GrpcClient
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.abci.socket_client import SocketClient
+    from tendermint_tpu_torch.crypto.batch import DEVICE_THRESHOLD
+    from tendermint_tpu_torch.encoding.canonical import Timestamp
+    from tendermint_tpu_torch.node import Node, NodeConfig
+    from tendermint_tpu_torch.p2p.transport import MemoryNetwork
+    from tendermint_tpu_torch.privval import FilePV
+    from tendermint_tpu_torch.privval.grpc import GrpcSignerClient
+    from tendermint_tpu_torch.privval.remote import SignerClient
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    home = tempfile.mkdtemp(prefix="chip-smoke-remote-")
+    keys = [(os.path.join(home, f"k{i}.json"), os.path.join(home, f"s{i}.json")) for i in range(CLUSTER_VALIDATORS)]
+    pvs = [FilePV.generate(k, s) for k, s in keys]
+    genesis = GenesisDoc(chain_id=CLUSTER_CHAIN_ID, genesis_time=Timestamp.from_unix_ns(time.time_ns()),
+                         validators=[GenesisValidator(pv.get_pub_key(), CLUSTER_POWER) for pv in pvs])
+    laddr = "tcp://127.0.0.1:%d" % free_ports(1)[0]
+    procs, nodes = {}, []
+    before = ingest_counters()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 19)
+    try:
+        procs["socket_signer"], _ = spawn_module(
+            "tendermint_tpu_torch.privval.remote", "--addr", laddr, "--chain-id", CLUSTER_CHAIN_ID,
+            "--key-file", keys[1][0], "--state-file", os.path.join(home, "s1-remote.json"))
+        procs["grpc_signer"], grpc_signer = spawn_module(
+            "tendermint_tpu_torch.privval.grpc", "--addr", "127.0.0.1:0", "--chain-id", CLUSTER_CHAIN_ID,
+            "--key-file", keys[2][0], "--state-file", os.path.join(home, "s2-remote.json"),
+            listen_line="grpc signer serving on")
+        procs["grpc_app"], grpc_app = spawn_module(
+            "tendermint_tpu_torch.abci.socket_server", "--transport", "grpc", "--addr", "127.0.0.1:0",
+            listen_line="abci server listening on")
+        procs["socket_app"], socket_app = spawn_module(
+            "tendermint_tpu_torch.abci.socket_server", "--transport", "socket", "--addr", "127.0.0.1:0",
+            listen_line="abci server listening on")
+        spawned_s = time.perf_counter() - t0
+        net = MemoryNetwork()
+        layout = [  # (app client, signer: a FilePV or the NodeConfig field, extra config), as ci.toml lays them out
+            (LocalClient(KVStoreApplication()), pvs[0], {}),
+            (LocalClient(KVStoreApplication()), None, {"priv_validator_laddr": laddr}),
+            (GrpcClient(*grpc_app), None, {"priv_validator_laddr": "grpc://%s:%d" % grpc_signer}),
+            (SocketClient(*socket_app), pvs[3], {"db_backend": "filedb", "home": os.path.join(home, "v3")}),
+        ]
+        for i, (client, pv, extra) in enumerate(layout):
+            peers = [] if i == 0 else [f"{nodes[0].node_key.node_id}@v0"]
+            nodes.append(Node(NodeConfig(chain_id=CLUSTER_CHAIN_ID, listen_addr=f"v{i}", moniker=f"v{i}",
+                                         persistent_peers=peers, wal_enabled=False, **extra),
+                              genesis, client, priv_validator=pv, memory_network=net, device=dev))
+        v3_engine = nodes[3]._dbs[0].engine
+        check(isinstance(nodes[1].priv_validator, SignerClient)
+              and isinstance(nodes[2].priv_validator, GrpcSignerClient) and v3_engine == "c", "phase 19c: the layout")
+        t_start = time.perf_counter()
+        for node in nodes:
+            node.start()
+        i = 0
+        while nodes[0].height < REMOTE_HEIGHTS and time.perf_counter() - t_start < PHASE19_WAIT_S:
+            nodes[i % len(nodes)].submit_tx(b"remote-%05d=%s" % (i, rng.bytes(8).hex().encode()))
+            i += 1
+            time.sleep(1.0 / CLUSTER_TX_PER_S)
+            check(all(n.failed is None for n in nodes), f"phase 19c: failed {[n.failed for n in nodes]}")
+        wait_until(lambda: min(n.height for n in nodes) >= REMOTE_HEIGHTS, PHASE19_WAIT_S,
+                   lambda: f"phase 19c: heights {[n.height for n in nodes]}")
+        run_s = time.perf_counter() - t_start
+        for h in range(1, REMOTE_HEIGHTS + 1):
+            metas = {n.block_store.load_block_meta(h).block_id.hash for n in nodes}
+            app_hashes = {n.block_store.load_block(h).header.app_hash for n in nodes}
+            check(len(metas) == 1 and len(app_hashes) == 1, f"phase 19c: the nodes disagree at height {h}")
+        blocks = [nodes[0].block_store.load_block(h) for h in range(1, REMOTE_HEIGHTS + 1)]
+    finally:
+        stopped = []
+        for node in nodes:
+            try:
+                node.stop()
+                stopped.append(None)
+            except Exception as exc:  # the phase checks what escaped
+                stopped.append(repr(exc))
+        for proc in procs.values():
+            proc.terminate()
+        for proc in procs.values():
+            try:
+                proc.wait(10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(5)
+    check(stopped == [None] * len(nodes), f"phase 19c: stop {stopped}")
+    signed = {bytes(cs.validator_address) for b in blocks[1:] for cs in b.last_commit.signatures if cs.signature}
+    check({pv.get_pub_key().address() for pv in pvs} <= signed, "phase 19c: a validator never signed a commit")
+    times = [b.header.time.to_unix_ns() / 1e9 for b in blocks]
+    intervals = [b - a for a, b in zip(times, times[1:])]
+    d = ingest_delta(before)
+    emit({"phase": "remote_cluster", "validators": CLUSTER_VALIDATORS, "heights": REMOTE_HEIGHTS,
+          "layout": {"v0": "local signer, local app", "v1": "socket signer process", "v2":
+                     "gRPC signer process, app behind gRPC ABCI in a process", "v3":
+                     f"filedb ({v3_engine} engine), app behind socket ABCI in a process"},
+          "block_interval_s": {"mean": statistics.mean(intervals), "min": min(intervals), "max": max(intervals),
+                               "n": len(intervals)},
+          "phase_17a_block_interval_mean_s": CLUSTER_FACTS.get("block_interval_mean_s"),
+          "processes_started_s": spawned_s, "run_s": run_s, "txs_submitted": i,
+          "host_tier_by_policy": f"a commit of {CLUSTER_VALIDATORS} lanes is under DEVICE_THRESHOLD "
+                                 f"({DEVICE_THRESHOLD}), so its lanes go to the host tier",
+          "host_tier_lanes": d["tiers"].get("host", 0), "device_tier_lanes": d["tiers"].get("device", 0),
+          "launches": d["launches"]})
+    shutil.rmtree(home, ignore_errors=True)
+
+
+def start_phase19_servers(source):
+    """Phase 19's server processes (19a's two servers and 19b's first
+    peer), started together and early: the script starts them before the
+    kernels' build, so that their start (a spawned interpreter each, and
+    the servers' handshakes) overlaps the build and no measured phase,
+    and waits for them (:func:`wait_phase19_servers`) before phase 2.
+    Returns what :func:`phase_files_and_joins` takes."""
+    import tempfile
+
+    t = time.perf_counter()
+    home = tempfile.mkdtemp(prefix="chip-smoke-files-")
+    started = {"home": home, "servers": [], "peer": None, "t": t}
+    try:
+        started["servers"], started["write_home_s"] = statesync_servers(source, home)
+        started["peer"] = PeerProcess(source[1].block_store, "rollback-peer", top=ROLLBACK_SYNC_TO + 1)
+    except BaseException:
+        stop_phase19_servers(started)
+        raise
+    started["spawn_s"] = time.perf_counter() - t
+    return started
+
+
+def wait_phase19_servers(started):
+    """Wait until what :func:`start_phase19_servers` started is ready;
+    the seconds waited here."""
+    t = time.perf_counter()
+    for srv in started["servers"]:
+        srv.ready()
+    started["peer"].ready()
+    started["ready_s"] = time.perf_counter() - started["t"]
+    started["waited_s"] = time.perf_counter() - t
+    return started["waited_s"]
+
+
+def stop_phase19_servers(started):
+    """Stop what :func:`start_phase19_servers` started (a second call
+    stops nothing); what each server's ``Node.stop()`` raised (None where
+    nothing)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    procs = started["servers"] + ([started["peer"]] if started["peer"] is not None else [])
+    with ThreadPoolExecutor(max(1, len(procs))) as pool:  # each waits for its child's node to stop
+        answers = list(pool.map(lambda proc: proc.stop(), procs))
+    stopped = answers[:len(started["servers"])]
+    started["servers"], started["peer"] = [], None
+    shutil.rmtree(started["home"], ignore_errors=True)
+    return stopped
+
+
+def phase_files_and_joins(source, dev, blocksync_s, started=None):
+    """Phase 19: 19a, 19b and 19c in turn (module note), on the servers
+    :func:`start_phase19_servers` started and :func:`wait_phase19_servers`
+    waited for (both here, unless given), the nodes' process-wide sinks
+    restored after. Returns 19a's and 19b's launch counts and the
+    phase's seconds."""
+    from tendermint_tpu_torch.ops import cuda_hash, cuda_verify
+
+    t0 = time.perf_counter()
+    sinks = node_sinks()
+    stopped = []
+    try:
+        if started is None:
+            started = start_phase19_servers(source)
+            wait_phase19_servers(started)
+        servers, peer, home = started["servers"], started["peer"], started["home"]
+        facts = [srv.facts for srv in servers]
+        check(all(f["replayed"] == NODE_HEIGHTS == f["app_height"] and f["engine"] == "c" for f in facts),
+              f"phase 19a: the servers {facts}")
+        emit({"phase": "statesync_servers", "write_home_s": started["write_home_s"], "servers": len(servers),
+              "spawn_s": started["spawn_s"], "ready_s_after_start": started["ready_s"],
+              "waited_s_after_the_build": started["waited_s"], "open_s": [f["open_s"] for f in facts],
+              "replayed_blocks": NODE_HEIGHTS, "engine": "c",
+              "store_bytes": store_sizes(os.path.join(home, "template"))})
+        parts = {"servers_s": time.perf_counter() - t0}
+        cuda_verify.reset_launches()  # the state-sync join starts here
+        cuda_hash.reset_launches()
+        statesync_counts = phase_statesync_join(source, servers, home, dev, blocksync_s)
+        check_healthy("phase 19a")
+        parts["19a_s"] = time.perf_counter() - t0 - sum(parts.values())
+        cuda_verify.reset_launches()  # the restart from files starts here
+        cuda_hash.reset_launches()
+        restart_counts = phase_restart_rollback(source, servers, peer, home, dev)
+        check_healthy("phase 19b")
+        parts["19b_s"] = time.perf_counter() - t0 - sum(parts.values())
+    finally:
+        if started is not None:
+            stopped = stop_phase19_servers(started)
+        restore_node_sinks(sinks)
+    check(all(x is None for x in stopped), f"phase 19a-b: the servers' stop {stopped}")
+    parts["servers_stop_s"] = time.perf_counter() - t0 - sum(parts.values())
+    sinks = node_sinks()
+    try:
+        phase_remote_cluster(dev)
+    finally:
+        restore_node_sinks(sinks)
+    parts["19c_s"] = time.perf_counter() - t0 - sum(parts.values())
+    seconds = time.perf_counter() - t0
+    emit({"phase": "files_and_joins", "seconds": seconds, "parts": parts, "budget_s": PHASE19_BUDGET_S})
+    return statesync_counts, restart_counts, seconds
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7180,101 +7787,109 @@ def main(argv=None) -> int:
           + 2 * (len(equivocation[1]) + 1),
           "node_source_chain_s": node_setup_s})
 
-    dev = torch.device("cuda", 0)
-    smi = nvidia_smi("name,power.limit")
-    t0 = time.perf_counter()
-    _build.build_all()
-    build_s = time.perf_counter() - t0
-    for src, log in _build.build_log.items():
-        print(f"--- nvcc {src}\n{log}", file=sys.stderr)
-    emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s})
-
-    rows = phase_kernels(kernel_lanes, dev, sr_lanes=sr_lanes)
-    device_policy.shared.reset()
-    cuda_verify.reset_launches()  # the main path starts here
-    cuda_hash.reset_launches()
-    phase_verify_batch(batch, dev)
-    phase_commit(commit, dev)
-    counts = launches()
-    health = {"phases_3_to_4b": check_healthy("phases 3-4b")}
-    cuda_verify.reset_launches()  # the mixed commit's path starts here
-    cuda_hash.reset_launches()
-    mixed_counts = phase_mixed_commit(mixed, dev)
-    health["phase_5"] = check_healthy("phase 5")
-    cuda_verify.reset_launches()  # the three-type commit's path starts here
-    cuda_hash.reset_launches()
-    three_type_counts = phase_three_type(three_type, dev)
-    health["phase_5c"] = check_healthy("phase 5c")
-    cuda_verify.reset_launches()  # the blocksync path starts here
-    cuda_hash.reset_launches()
-    sync_counts = phase_blocksync(sync, mixed_sync, dev)
-    health["phase_7"] = check_healthy("phase 7")
-    cuda_verify.reset_launches()  # the light client's path starts here
-    cuda_hash.reset_launches()
-    light_counts = phase_light(light, dev)
-    health["phase_8"] = check_healthy("phase 8")
-    vote_counts = phase_votes(commit, round_wl, dev)  # resets the counts after its set-up
-    health["phase_9"] = check_healthy("phase 9")
-    cuda_verify.reset_launches()  # the light client's bisection round starts here
-    cuda_hash.reset_launches()
-    light_round_counts = phase_light_round(light, dev)
-    health["phase_10"] = check_healthy("phase 10")
-    cuda_verify.reset_launches()  # the light client and lightd start here
-    cuda_hash.reset_launches()
-    lightd_counts, attack = phase_lightd(lightd_wl, dev)
-    health["phase_11"] = check_healthy("phase 11")
-    cuda_verify.reset_launches()  # the observed path starts here
-    cuda_hash.reset_launches()
-    observed_counts = phase_observed(commit, commit_tables, mixed, kernel_lanes, batch, lightd_wl, dev,
-                                     args.trace_dir)
-    health["phase_12"] = check_healthy("phase 12")
-    cuda_verify.reset_launches()  # verifyd starts here
-    cuda_hash.reset_launches()
-    verifyd_counts = phase_verifyd(commit, commit_tables, batch, sync, mixed_sync, light, dev)
-    for name in ("verify", "verify_resident", "verify_sr"):
-        check(verifyd_counts[name] > 0, f"kernel {name} never launched through verifyd")
-    health["phase_13"] = check_healthy("phase 13")
-    cuda_verify.reset_launches()  # the node's block sync starts here
-    cuda_hash.reset_launches()
-    node_counts, node_blocks_per_s = phase_node_blocksync(node_source, dev)
-    health["phase_14"] = check_healthy("phase 14")
-    cuda_verify.reset_launches()  # the consensus node starts here
-    cuda_hash.reset_launches()
-    consensus_counts, _ = phase_consensus(consensus_keys, dev)
-    health["phase_15"] = check_healthy("phase 15")
-    cuda_verify.reset_launches()  # the evidence pools and the mempool start here
-    cuda_hash.reset_launches()
-    phase_evidence_attack(lightd_wl, attack, dev)
-    health["phase_16a"] = check_healthy("phase 16a")
-    phase_equivocation_burst(node_source, equivocation, dev)
-    health["phase_16b"] = check_healthy("phase 16b")
-    phase_mempool()
-    evidence_counts = launches()
-    health["phase_16c"] = check_healthy("phase 16c")
-    check(evidence_counts["verify_resident"] + evidence_counts["verify"] > 0,
-          f"phases 16a-c: launches {evidence_counts}")
-    cuda_verify.reset_launches()  # the nodes over p2p start here
-    cuda_hash.reset_launches()
-    sinks = node_sinks()
-    peers, peers_start_s = serving_peers(node_source[1].block_store)
-    kept = []  # two of 17b's nodes, up until 18a stops them
+    phase19 = start_phase19_servers(node_source)  # their start overlaps the build (its note)
     try:
-        rpc_cluster_counts = phase_cluster(dev)  # and 18b, while its nodes are up
-        health["phase_17a_18b"] = check_healthy("phases 17a and 18b")
-        phase_node_p2p_sync(node_source, dev, node_blocks_per_s, peers, peers_start_s, kept)
-        p2p_counts = {k: v - rpc_cluster_counts.get(k, 0) for k, v in launches().items()}
-        health["phase_17b"] = check_healthy("phase 17b")
-        check(p2p_counts["verify_resident"] > 0, f"phase 17: launches {p2p_counts}")
-        rpc_light_counts = phase_rpc_light(node_source, kept, dev)  # resets the counts at its walk
+        dev = torch.device("cuda", 0)
+        smi = nvidia_smi("name,power.limit")
+        t0 = time.perf_counter()
+        _build.build_all()
+        build_s = time.perf_counter() - t0
+        for src, log in _build.build_log.items():
+            print(f"--- nvcc {src}\n{log}", file=sys.stderr)
+        emit({"phase": "device", "name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "torch": torch.__version__, "cuda": torch.version.cuda, "build_s": build_s})
+        wait_phase19_servers(phase19)  # before the first measured phase
+
+        rows = phase_kernels(kernel_lanes, dev, sr_lanes=sr_lanes)
+        device_policy.shared.reset()
+        cuda_verify.reset_launches()  # the main path starts here
+        cuda_hash.reset_launches()
+        phase_verify_batch(batch, dev)
+        phase_commit(commit, dev)
+        counts = launches()
+        health = {"phases_3_to_4b": check_healthy("phases 3-4b")}
+        cuda_verify.reset_launches()  # the mixed commit's path starts here
+        cuda_hash.reset_launches()
+        mixed_counts = phase_mixed_commit(mixed, dev)
+        health["phase_5"] = check_healthy("phase 5")
+        cuda_verify.reset_launches()  # the three-type commit's path starts here
+        cuda_hash.reset_launches()
+        three_type_counts = phase_three_type(three_type, dev)
+        health["phase_5c"] = check_healthy("phase 5c")
+        cuda_verify.reset_launches()  # the blocksync path starts here
+        cuda_hash.reset_launches()
+        sync_counts = phase_blocksync(sync, mixed_sync, dev)
+        health["phase_7"] = check_healthy("phase 7")
+        cuda_verify.reset_launches()  # the light client's path starts here
+        cuda_hash.reset_launches()
+        light_counts = phase_light(light, dev)
+        health["phase_8"] = check_healthy("phase 8")
+        vote_counts = phase_votes(commit, round_wl, dev)  # resets the counts after its set-up
+        health["phase_9"] = check_healthy("phase 9")
+        cuda_verify.reset_launches()  # the light client's bisection round starts here
+        cuda_hash.reset_launches()
+        light_round_counts = phase_light_round(light, dev)
+        health["phase_10"] = check_healthy("phase 10")
+        cuda_verify.reset_launches()  # the light client and lightd start here
+        cuda_hash.reset_launches()
+        lightd_counts, attack = phase_lightd(lightd_wl, dev)
+        health["phase_11"] = check_healthy("phase 11")
+        cuda_verify.reset_launches()  # the observed path starts here
+        cuda_hash.reset_launches()
+        observed_counts = phase_observed(commit, commit_tables, mixed, kernel_lanes, batch, lightd_wl, dev,
+                                         args.trace_dir)
+        health["phase_12"] = check_healthy("phase 12")
+        cuda_verify.reset_launches()  # verifyd starts here
+        cuda_hash.reset_launches()
+        verifyd_counts = phase_verifyd(commit, commit_tables, batch, sync, mixed_sync, light, dev)
+        for name in ("verify", "verify_resident", "verify_sr"):
+            check(verifyd_counts[name] > 0, f"kernel {name} never launched through verifyd")
+        health["phase_13"] = check_healthy("phase 13")
+        cuda_verify.reset_launches()  # the node's block sync starts here
+        cuda_hash.reset_launches()
+        node_counts, node_blocks_per_s = phase_node_blocksync(node_source, dev)
+        health["phase_14"] = check_healthy("phase 14")
+        cuda_verify.reset_launches()  # the consensus node starts here
+        cuda_hash.reset_launches()
+        consensus_counts, _ = phase_consensus(consensus_keys, dev)
+        health["phase_15"] = check_healthy("phase 15")
+        cuda_verify.reset_launches()  # the evidence pools and the mempool start here
+        cuda_hash.reset_launches()
+        phase_evidence_attack(lightd_wl, attack, dev)
+        health["phase_16a"] = check_healthy("phase 16a")
+        phase_equivocation_burst(node_source, equivocation, dev)
+        health["phase_16b"] = check_healthy("phase 16b")
+        phase_mempool()
+        evidence_counts = launches()
+        health["phase_16c"] = check_healthy("phase 16c")
+        check(evidence_counts["verify_resident"] + evidence_counts["verify"] > 0,
+              f"phases 16a-c: launches {evidence_counts}")
+        cuda_verify.reset_launches()  # the nodes over p2p start here
+        cuda_hash.reset_launches()
+        sinks = node_sinks()
+        peers, peers_start_s = serving_peers(node_source[1].block_store)
+        kept = []  # two of 17b's nodes, up until 18a stops them
+        try:
+            rpc_cluster_counts = phase_cluster(dev)  # and 18b, while its nodes are up
+            health["phase_17a_18b"] = check_healthy("phases 17a and 18b")
+            phase_node_p2p_sync(node_source, dev, node_blocks_per_s, peers, peers_start_s, kept)
+            p2p_counts = {k: v - rpc_cluster_counts.get(k, 0) for k, v in launches().items()}
+            health["phase_17b"] = check_healthy("phase 17b")
+            check(p2p_counts["verify_resident"] > 0, f"phase 17: launches {p2p_counts}")
+            rpc_light_counts = phase_rpc_light(node_source, kept, dev)  # resets the counts at its walk
+        finally:
+            stop_nodes(kept)  # where 18a was not reached
+            for p in peers:
+                p.stop()
+            restore_node_sinks(sinks)
+        rpc_counts = add_launches(rpc_light_counts, rpc_cluster_counts)
+        health["phase_18a"] = check_healthy("phase 18a")
+        check(rpc_counts["verify_resident"] > 0, f"phase 18: launches {rpc_counts}")
+        statesync_counts, restart_counts, _ = phase_files_and_joins(node_source, dev, NODE_SYNC_TO / node_blocks_per_s,
+                                                                    phase19)
+        health["phase_19"] = check_healthy("phase 19")
     finally:
-        stop_nodes(kept)  # where 18a was not reached
-        for p in peers:
-            p.stop()
-        restore_node_sinks(sinks)
-    rpc_counts = add_launches(rpc_light_counts, rpc_cluster_counts)
-    health["phase_18a"] = check_healthy("phase 18a")
-    check(rpc_counts["verify_resident"] > 0, f"phase 18: launches {rpc_counts}")
+        stop_phase19_servers(phase19)  # where phase 19 was not reached
     crypto_batch.shutdown_shared_scheduler()
     emit({"phase": "health", **health})
     phase_faults(kernel_lanes, sr_lanes, dev)
@@ -7296,6 +7911,8 @@ def main(argv=None) -> int:
         row["launches_evidence"] = evidence_counts[name]
         row["launches_p2p"] = p2p_counts[name]
         row["launches_rpc"] = rpc_counts.get(name, 0)
+        row["launches_statesync"] = statesync_counts[name]
+        row["launches_restart"] = restart_counts[name]
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

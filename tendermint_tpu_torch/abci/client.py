@@ -1,10 +1,11 @@
 """ABCI clients (abci/client/client.go).
 
-A copy of ``tendermint_tpu/abci/client.py`` without the statesync
-connection: the client contract (one method per ABCI call plus
-lifecycle) and ``LocalClient``, an in-process Application behind a mutex
+A copy of ``tendermint_tpu/abci/client.py``: the client contract (one
+method per ABCI call plus lifecycle, the statesync connection's four
+included) and ``LocalClient``, an in-process Application behind a mutex
 as in abci/client/local_client.go:40 (the app sees serialized calls).
-The socket and gRPC transports are ROADMAP §A item 8f.
+The socket and gRPC transports are ``socket_client.py`` and
+``grpc_client.py``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,26 @@ class AbciClient:
     def commit(self) -> abci.ResponseCommit:
         raise NotImplementedError
 
+    def list_snapshots(
+        self, req: abci.RequestListSnapshots
+    ) -> abci.ResponseListSnapshots:
+        raise NotImplementedError
+
+    def offer_snapshot(
+        self, req: abci.RequestOfferSnapshot
+    ) -> abci.ResponseOfferSnapshot:
+        raise NotImplementedError
+
+    def load_snapshot_chunk(
+        self, req: abci.RequestLoadSnapshotChunk
+    ) -> abci.ResponseLoadSnapshotChunk:
+        raise NotImplementedError
+
+    def apply_snapshot_chunk(
+        self, req: abci.RequestApplySnapshotChunk
+    ) -> abci.ResponseApplySnapshotChunk:
+        raise NotImplementedError
+
 
 class LocalClient(AbciClient):
     """In-process app behind one mutex (abci/client/local_client.go:40)."""
@@ -127,3 +148,19 @@ class LocalClient(AbciClient):
     def commit(self):
         with self._mtx:
             return self._app.commit()
+
+    def list_snapshots(self, req):
+        with self._mtx:
+            return self._app.list_snapshots(req)
+
+    def offer_snapshot(self, req):
+        with self._mtx:
+            return self._app.offer_snapshot(req)
+
+    def load_snapshot_chunk(self, req):
+        with self._mtx:
+            return self._app.load_snapshot_chunk(req)
+
+    def apply_snapshot_chunk(self, req):
+        with self._mtx:
+            return self._app.apply_snapshot_chunk(req)

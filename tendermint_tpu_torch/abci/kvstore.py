@@ -1,10 +1,13 @@
-"""The canonical example/test app: a key-value store.
+"""The canonical example/test app: a merkle key-value store.
 
-A copy of ``tendermint_tpu/abci/kvstore.py`` without its state-sync
-snapshots (ROADMAP §A item 8f), mirroring abci/example/kvstore/kvstore.go: txs are "key=value" (or "key"
+A copy of ``tendermint_tpu/abci/kvstore.py``, mirroring
+abci/example/kvstore/kvstore.go: txs are "key=value" (or "key"
 meaning key=key); "val:base64pubkey!power" txs update the validator set;
 Query returns values (path "/key") with the app hash over sorted pairs.
-Deterministic across restarts via an injected KVStore.
+Deterministic across restarts via an injected KVStore. With
+``snapshot_interval`` it takes a state-sync snapshot every that many
+heights: the whole state as sorted JSON, cut into 4,096-byte chunks,
+the same bytes as the reference's.
 """
 
 from __future__ import annotations
@@ -24,14 +27,23 @@ CODE_TYPE_BANNED = 2
 CODE_TYPE_UNKNOWN_ERROR = 3
 
 
+SNAPSHOT_CHUNK_SIZE = 4096  # small so tests exercise multi-chunk flows
+SNAPSHOTS_KEPT = 3
+
+
 class KVStoreApplication(abci.BaseApplication):
-    def __init__(self, db: Optional[KVStore] = None):
+    def __init__(self, db: Optional[KVStore] = None, snapshot_interval: int = 0):
         self._db = db or MemDB()
         self._pending: Dict[bytes, bytes] = {}
         self._pending_val_updates: List[abci.ValidatorUpdate] = []
         self._validators: Dict[str, int] = {}  # base64 pubkey -> power
         self._height = 0
         self._app_hash = b""
+        # State-sync snapshots (the e2e app's snapshots.go role): payload
+        # is the full serialized state, split into fixed-size chunks.
+        self._snapshot_interval = snapshot_interval
+        self._snapshots: Dict[int, tuple] = {}  # height -> (Snapshot, chunks)
+        self._restoring: Optional[tuple] = None  # (Snapshot, app_hash, chunks)
         self._restore()
 
     # --- state management ---------------------------------------------------
@@ -178,8 +190,115 @@ class KVStoreApplication(abci.BaseApplication):
 
     def commit(self) -> abci.ResponseCommit:
         self._save_meta()
+        if self._snapshot_interval and self._height % self._snapshot_interval == 0:
+            self._take_snapshot()
         retain = self._height - 100 if self._height > 100 else 0
         return abci.ResponseCommit(retain_height=retain)
+
+    # --- state-sync snapshots -------------------------------------------------
+
+    def _serialize_state(self) -> bytes:
+        pairs = {
+            k.hex(): v.hex()
+            for k, v in self._db.iterator()
+            if not k.startswith(b"__")
+        }
+        return json.dumps(
+            {
+                "height": self._height,
+                "app_hash": self._app_hash.hex(),
+                "validators": self._validators,
+                "pairs": pairs,
+            },
+            sort_keys=True,
+        ).encode()
+
+    def _take_snapshot(self) -> None:
+        payload = self._serialize_state()
+        chunks = [
+            payload[i : i + SNAPSHOT_CHUNK_SIZE]
+            for i in range(0, max(len(payload), 1), SNAPSHOT_CHUNK_SIZE)
+        ]
+        snap = abci.Snapshot(
+            height=self._height,
+            format=1,
+            chunks=len(chunks),
+            hash=hashlib.sha256(payload).digest(),
+        )
+        self._snapshots[self._height] = (snap, chunks)
+        for h in sorted(self._snapshots):
+            if len(self._snapshots) <= SNAPSHOTS_KEPT:
+                break
+            del self._snapshots[h]
+
+    def list_snapshots(self, req) -> abci.ResponseListSnapshots:
+        return abci.ResponseListSnapshots(
+            snapshots=[s for s, _ in self._snapshots.values()]
+        )
+
+    def load_snapshot_chunk(self, req) -> abci.ResponseLoadSnapshotChunk:
+        ent = self._snapshots.get(req.height)
+        if ent is None or req.format != 1 or not (0 <= req.chunk < len(ent[1])):
+            return abci.ResponseLoadSnapshotChunk(chunk=b"")
+        return abci.ResponseLoadSnapshotChunk(chunk=ent[1][req.chunk])
+
+    # Bound attacker-controlled chunk counts (a hostile Snapshot message
+    # must not drive a multi-GB allocation; 16384 * 4 KB = 64 MB state).
+    MAX_SNAPSHOT_CHUNKS = 16384
+
+    def offer_snapshot(self, req) -> abci.ResponseOfferSnapshot:
+        snap = req.snapshot
+        if (
+            snap is None
+            or snap.format != 1
+            or not (0 < snap.chunks <= self.MAX_SNAPSHOT_CHUNKS)
+        ):
+            return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_REJECT_FORMAT)
+        self._restoring = (snap, req.app_hash, [None] * snap.chunks)
+        return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_ACCEPT)
+
+    def apply_snapshot_chunk(self, req) -> abci.ResponseApplySnapshotChunk:
+        if self._restoring is None:
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_ABORT)
+        snap, trusted_app_hash, chunks = self._restoring
+        if not (0 <= req.index < len(chunks)):
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_RETRY)
+        chunks[req.index] = req.chunk
+        if any(c is None for c in chunks):
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_ACCEPT)
+        payload = b"".join(chunks)
+        if hashlib.sha256(payload).digest() != snap.hash:
+            # A bad chunk poisoned the payload: restart the snapshot.
+            self._restoring = (snap, trusted_app_hash, [None] * snap.chunks)
+            return abci.ResponseApplySnapshotChunk(
+                result=abci.APPLY_CHUNK_RETRY_SNAPSHOT
+            )
+        state = json.loads(payload.decode())
+        for k, _ in list(self._db.iterator()):
+            self._db.delete(k)
+        for k_hex, v_hex in state["pairs"].items():
+            self._db.set(bytes.fromhex(k_hex), bytes.fromhex(v_hex))
+        self._height = state["height"]
+        self._validators = state["validators"]
+        # RECOMPUTE the app hash from the restored pairs — the payload's
+        # own app_hash field is attacker-controlled; only a hash derived
+        # from the actual state may be compared against the light-client-
+        # verified one (the forged-pairs-with-real-hash attack).
+        self._app_hash = self._compute_app_hash()
+        if trusted_app_hash and self._app_hash != trusted_app_hash:
+            # Wipe the poisoned restore; the node retries another snapshot.
+            for k, _ in list(self._db.iterator()):
+                self._db.delete(k)
+            self._height = 0
+            self._app_hash = b""
+            self._validators = {}
+            self._restoring = None
+            return abci.ResponseApplySnapshotChunk(
+                result=abci.APPLY_CHUNK_REJECT_SNAPSHOT
+            )
+        self._save_meta()
+        self._restoring = None
+        return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_ACCEPT)
 
     # --- info/query ---------------------------------------------------------
 

@@ -1,12 +1,11 @@
 """ABCI++ request/response types and the Application interface.
 
 A copy of ``tendermint_tpu/abci/types.py``, mirroring
-abci/types/application.go:8-34 and the message structs from
-proto/tendermint/abci/types.proto that its methods carry, cut to the
-info/query, mempool and consensus connections: the statesync
-connection's four methods and their snapshot messages come with state
-sync (ROADMAP §A item 8f). Requests/responses are dataclasses; the port
-has only the in-process client, so no wire marshalling.
+abci/types/application.go:8-34 (14 methods over four logical
+connections: info/query, mempool, consensus, statesync) and the message
+structs from proto/tendermint/abci/types.proto that those methods carry.
+Requests/responses are dataclasses; wire marshalling lives with the
+socket and gRPC transports (``abci/codec.py``), not here.
 """
 
 from __future__ import annotations
@@ -30,6 +29,19 @@ PROCESS_PROPOSAL_REJECT = 2
 
 CHECK_TX_TYPE_NEW = 0
 CHECK_TX_TYPE_RECHECK = 1
+
+# ResponseOfferSnapshot / ResponseApplySnapshotChunk result enums
+OFFER_SNAPSHOT_ACCEPT = 1
+OFFER_SNAPSHOT_ABORT = 2
+OFFER_SNAPSHOT_REJECT = 3
+OFFER_SNAPSHOT_REJECT_FORMAT = 4
+OFFER_SNAPSHOT_REJECT_SENDER = 5
+
+APPLY_CHUNK_ACCEPT = 1
+APPLY_CHUNK_ABORT = 2
+APPLY_CHUNK_RETRY = 3
+APPLY_CHUNK_RETRY_SNAPSHOT = 4
+APPLY_CHUNK_REJECT_SNAPSHOT = 5
 
 
 # --- shared sub-messages ----------------------------------------------------
@@ -131,6 +143,15 @@ class ExecTxResult:
 
 
 # --- requests / responses ---------------------------------------------------
+
+
+@dataclass
+class Snapshot:
+    height: int = 0
+    format: int = 0
+    chunks: int = 0
+    hash: bytes = b""
+    metadata: bytes = b""
 
 
 @dataclass
@@ -316,9 +337,56 @@ class ResponseCommit:
 # --- Application interface --------------------------------------------------
 
 
+@dataclass
+class RequestListSnapshots:
+    pass
+
+
+@dataclass
+class ResponseListSnapshots:
+    snapshots: List[Snapshot] = dc_field(default_factory=list)
+
+
+@dataclass
+class RequestOfferSnapshot:
+    snapshot: Optional[Snapshot] = None
+    app_hash: bytes = b""
+
+
+@dataclass
+class ResponseOfferSnapshot:
+    result: int = OFFER_SNAPSHOT_ACCEPT
+
+
+@dataclass
+class RequestLoadSnapshotChunk:
+    height: int = 0
+    format: int = 0
+    chunk: int = 0
+
+
+@dataclass
+class ResponseLoadSnapshotChunk:
+    chunk: bytes = b""
+
+
+@dataclass
+class RequestApplySnapshotChunk:
+    index: int = 0
+    chunk: bytes = b""
+    sender: str = ""
+
+
+@dataclass
+class ResponseApplySnapshotChunk:
+    result: int = APPLY_CHUNK_ACCEPT
+    refetch_chunks: List[int] = dc_field(default_factory=list)
+    reject_senders: List[str] = dc_field(default_factory=list)
+
+
 class Application:
-    """abci/types/application.go:8-34: the state machine contract, without
-    the statesync connection. Every method is synchronous here."""
+    """abci/types/application.go:8-34: the 14-method state machine
+    contract. Every method is synchronous here; transports add async."""
 
     # Info/Query connection
     def info(self, req: RequestInfo) -> ResponseInfo:
@@ -353,6 +421,23 @@ class Application:
         raise NotImplementedError
 
     def commit(self) -> ResponseCommit:
+        raise NotImplementedError
+
+    # Statesync connection
+    def list_snapshots(self, req: RequestListSnapshots) -> ResponseListSnapshots:
+        raise NotImplementedError
+
+    def offer_snapshot(self, req: RequestOfferSnapshot) -> ResponseOfferSnapshot:
+        raise NotImplementedError
+
+    def load_snapshot_chunk(
+        self, req: RequestLoadSnapshotChunk
+    ) -> ResponseLoadSnapshotChunk:
+        raise NotImplementedError
+
+    def apply_snapshot_chunk(
+        self, req: RequestApplySnapshotChunk
+    ) -> ResponseApplySnapshotChunk:
         raise NotImplementedError
 
 
@@ -401,3 +486,19 @@ class BaseApplication(Application):
 
     def commit(self) -> ResponseCommit:
         return ResponseCommit()
+
+    def list_snapshots(self, req: RequestListSnapshots) -> ResponseListSnapshots:
+        return ResponseListSnapshots()
+
+    def offer_snapshot(self, req: RequestOfferSnapshot) -> ResponseOfferSnapshot:
+        return ResponseOfferSnapshot()
+
+    def load_snapshot_chunk(
+        self, req: RequestLoadSnapshotChunk
+    ) -> ResponseLoadSnapshotChunk:
+        return ResponseLoadSnapshotChunk()
+
+    def apply_snapshot_chunk(
+        self, req: RequestApplySnapshotChunk
+    ) -> ResponseApplySnapshotChunk:
+        return ResponseApplySnapshotChunk()

@@ -3,11 +3,24 @@
 A copy of ``tendermint_tpu/node/node.py``, cut to what the port serves.
 It mirrors node/node.go makeNode (node.go:121-400) and its OnStart order
 (node.go:403-519): stores -> genesis/state -> ABCI client -> mempool /
-evidence -> executor -> consensus -> router + reactors -> block sync
-until caught up, then consensus. ``device=`` goes to the
-``BlockExecutor``, the ``BlockSyncer`` and the ``EvidencePool``; as
-every entry point of the port, it defaults to
+evidence -> executor -> (restart: the ABCI handshake) -> consensus ->
+router + reactors -> (state sync) -> block sync until caught up, then
+consensus. ``device=`` goes to the ``BlockExecutor``, the
+``BlockSyncer``, the ``StateSyncer`` and the ``EvidencePool``; as every
+entry point of the port, it defaults to
 :data:`tendermint_tpu_torch.DEFAULT_DEVICE` (the card).
+
+The stores (state, blocks, evidence, the kv index) open through
+``storage.open_db`` with ``db_backend`` (``memdb``, or ``filedb``,
+``filedb-c``, ``filedb-py`` under ``home/data``, the SQL sink's file
+beside them). A node whose state store holds a state restarts from it:
+the ``Handshaker`` (``consensus/replay.py``) replays the stored blocks
+into the app. Every node serves state sync (``statesync/``); a fresh
+one with ``statesync`` on restores a snapshot first. The validator may
+sign through a remote signer: ``priv_validator_laddr`` ``tcp://`` or
+``unix://`` (the node listens, ``privval/remote.py``) or ``grpc://``
+(the node dials, ``privval/grpc.py``). The app may run in another
+process behind the socket or gRPC client (``abci/``).
 
 The node publishes onto an event bus (``eventbus.py``): the consensus
 state machine's round events, and for every applied block
@@ -24,20 +37,22 @@ to a verifyd, over the shared-memory ingress when it shares the host
 (``verify_shm``).
 
 Cut from this node, each refused rather than ignored (ROADMAP §A): the
-statesync reactor and syncer, the remote signers and
-``db_backend="filedb"`` (item 8f, so the stores are ``MemDB`` and a node
-always starts from its genesis); the verify mesh (item 10); the
-autotuner (item 9). The
-config file and the operator CLI that would start a node are item 8g.
+verify mesh (item 10); the autotuner (item 9). The config file and the
+operator CLI that would start a node are item 8g.
 
-One divergence, with the reactors' and the syncer's: the reference
-hides a device error in five places (three reactors' loops, the
-syncer's thread, ``Node.stop``). In the port the first error of
+One divergence, with the reactors' and the syncers': the reference
+hides a device error in seven places (four reactors' loops, the block
+syncer's thread, the state-sync thread, which block-syncs from genesis
+instead, and ``Node.stop``). In the port the first error of
 :data:`~tendermint_tpu_torch.consensus.state.DEVICE_ERRORS` that a
-reactor meets, any error that ends the syncer's thread or the consensus
-receive routine, is kept in :attr:`Node.failed` (the reference's field,
-``node.go:148``) by :meth:`Node._fail`; the component that met it stops;
-and :meth:`Node.stop` releases everything and then raises it.
+reactor or the state sync meets, any error that ends the block syncer's
+thread or the consensus receive routine, is kept in :attr:`Node.failed`
+(the reference's field, ``node.go:148``) by :meth:`Node._fail`; the
+component that met it stops; and :meth:`Node.stop` releases everything
+and then raises it. A device error in the restart's handshake (its
+re-applied tip verifies the tip's LastCommit) is kept in
+:attr:`Node.failed` too, and raised by the constructor once the stores
+are closed.
 """
 
 from __future__ import annotations
@@ -45,6 +60,7 @@ from __future__ import annotations
 import os
 import sqlite3
 import threading
+import weakref
 import time as _time
 from dataclasses import dataclass, field as dc_field
 from typing import List, Optional
@@ -55,8 +71,10 @@ from tendermint_tpu_torch.abci import types as abci_types
 from tendermint_tpu_torch.abci.client import AbciClient
 from tendermint_tpu_torch.blocksync.reactor import BlockSyncReactor
 from tendermint_tpu_torch.blocksync.syncer import BlockSyncer
+from tendermint_tpu_torch.blocksync.pool import BlockPool
 from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
-from tendermint_tpu_torch.consensus.state import ConsensusState
+from tendermint_tpu_torch.consensus.replay import Handshaker
+from tendermint_tpu_torch.consensus.state import DEVICE_ERRORS, ConsensusState
 from tendermint_tpu_torch.consensus.wal import WAL, NilWAL
 from tendermint_tpu_torch.evidence.pool import EvidencePool
 from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
@@ -85,8 +103,10 @@ from tendermint_tpu_torch.rpc.core import Environment
 from tendermint_tpu_torch.rpc.server import RPCServer
 from tendermint_tpu_torch.state import StateStore, state_from_genesis
 from tendermint_tpu_torch.state.execution import BlockExecutor
+from tendermint_tpu_torch.statesync import StateSyncConfig, StateSyncReactor, StateSyncer
+from tendermint_tpu_torch.statesync.syncer import StateSyncFatalError
+from tendermint_tpu_torch.storage import open_db
 from tendermint_tpu_torch.storage.blockstore import BlockStore
-from tendermint_tpu_torch.storage.kv import MemDB
 from tendermint_tpu_torch.types.genesis import GenesisDoc
 from tendermint_tpu_torch.types.validator_set import ValidatorSet
 
@@ -100,11 +120,8 @@ class NodeConfig:
     """config/config.go condensed: the knobs the node assembly needs.
 
     The reference's fields, less those of the features the port has not
-    yet, each with the ROADMAP §A item that brings it: ``statesync``,
-    ``priv_validator_laddr``, ``signer_connect_timeout`` (the remote
-    signers): item 8f; ``mesh_devices``: item 10. ``db_backend`` takes
-    only ``"memdb"`` (``"filedb"`` is item 8f). No field reads an
-    environment variable."""
+    yet, each with the ROADMAP §A item that brings it: ``mesh_devices``:
+    item 10. No field reads an environment variable."""
 
     home: str = ""
     chain_id: str = ""
@@ -122,8 +139,16 @@ class NodeConfig:
     # (reference internal/state/indexer/sink/; all configured sinks
     # receive every block, indexer_service.go).
     tx_index_sinks: List[str] = dc_field(default_factory=lambda: ["kv"])
-    # tm-db backend selection (config/db.go:29): "memdb" only here.
+    # tm-db backend selection (config/db.go:29): "memdb", "filedb",
+    # "filedb-c" or "filedb-py". A file backend requires `home` (data
+    # lands in <home>/data/*.fdb).
     db_backend: str = "memdb"
+    # Remote signer (config PrivValidator.ListenAddr, node/node.go:186):
+    # tcp://... or unix://... makes the node listen here for an
+    # out-of-process signer; grpc://host:port makes it dial a gRPC signer.
+    priv_validator_laddr: str = ""
+    # How long node construction waits for the signer.
+    signer_connect_timeout: float = 60.0
     # Structured logging level: debug/info/warn/error/none (libs/log).
     log_level: str = "none"
     # Per-peer connection rate limits (config.go P2P SendRate/RecvRate).
@@ -134,6 +159,8 @@ class NodeConfig:
     # Refuse to join consensus if our key signed a commit within the
     # last N blocks (config.go:961 double-sign-check-height; 0 = off).
     double_sign_check_height: int = 0
+    # State sync (config/config.go StateSyncConfig): None disables.
+    statesync: Optional[StateSyncConfig] = None
     # Span tracing (libs/tracing.py): "" leaves the tracer as it is,
     # else "off", "ring" or a Chrome-trace JSON path.
     trace: str = ""
@@ -163,10 +190,6 @@ class Node:
         memory_network: Optional[MemoryNetwork] = None,
         device=None,
     ):
-        if config.db_backend != "memdb":
-            raise NotImplementedError(
-                f"Node: db_backend {config.db_backend!r} is not ported yet (ROADMAP.md A item 8f); use 'memdb'"
-            )
         self.device = resolve_device(device)
         self.config = config
         self.genesis = genesis
@@ -183,6 +206,38 @@ class Node:
         # The fatal error of a background routine (module note).
         self.failed: Optional[BaseException] = None
         self._fail_mtx = threading.Lock()
+        self._signer_endpoint = None
+        self._owned_signer = None  # the gRPC signer client the node closes
+        if priv_validator is None and config.priv_validator_laddr.startswith("grpc://"):
+            # gRPC remote signer (privval/grpc/client.go): the node dials
+            # the signer's server, the inverse of the socket flavor below,
+            # with the grace the socket flavor's wait gives.
+            from tendermint_tpu_torch.privval.grpc import GrpcSignerClient
+
+            host, _, port = config.priv_validator_laddr[len("grpc://"):].rpartition(":")
+            priv_validator = GrpcSignerClient(host or "127.0.0.1", int(port), genesis.chain_id)
+            deadline = _time.monotonic() + config.signer_connect_timeout
+            while True:
+                try:
+                    priv_validator.get_pub_key()
+                    break
+                except (ConnectionError, OSError):
+                    if _time.monotonic() >= deadline:
+                        raise
+                    _time.sleep(0.5)
+            self._owned_signer = priv_validator
+        if priv_validator is None and config.priv_validator_laddr:
+            # Remote signer (node/node.go:186 createPrivval -> signer
+            # listener): listen here, wait for the signer to dial in.
+            from tendermint_tpu_torch.privval.remote import SignerClient, SignerListenerEndpoint
+
+            self._signer_endpoint = SignerListenerEndpoint(config.priv_validator_laddr, node_priv=None)
+            self._signer_endpoint.start()
+            # a construction that fails later frees the listener with the
+            # half-built node
+            weakref.finalize(self, self._signer_endpoint.close)
+            self._signer_endpoint.wait_for_connection(config.signer_connect_timeout)
+            priv_validator = SignerClient(self._signer_endpoint, genesis.chain_id)
         if priv_validator is None and config.home:
             priv_validator = FilePV.load_or_generate(
                 os.path.join(config.home, "priv_validator_key.json"),
@@ -191,31 +246,45 @@ class Node:
         self.priv_validator = priv_validator
 
         # --- stores + state (node.go:136-156, initDBs) ------------------------
-        # MemDB stores are empty at construction: the node runs InitChain
-        # and starts from its genesis (a restart from stored state needs
-        # the file stores, item 8f).
-        self.state_store = StateStore(MemDB())
-        self.block_store = BlockStore(MemDB())
-        self.sm_state = state_from_genesis(genesis)
-        app_client.start()
-        init = app_client.init_chain(
-            abci_types.RequestInitChain(
-                time=genesis.genesis_time,
-                chain_id=genesis.chain_id,
-                consensus_params=genesis.consensus_params,
-                validators=[],
-                app_state_bytes=genesis.app_state,
-                initial_height=genesis.initial_height,
+        db_dir = os.path.join(config.home, "data") if config.home else ""
+        self._dbs = [open_db(config.db_backend, db_dir, n) for n in ("state", "blockstore")]
+        try:
+            self._assemble(config, genesis, app_client, transport, memory_network, db_dir)
+        except BaseException:
+            # a construction that fails frees the stores' files and locks,
+            # so that a retry on the same home can open them
+            self._close_stores()
+            raise
+
+    def _assemble(self, config, genesis, app_client, transport, memory_network, db_dir) -> None:
+        """The rest of the construction, over the stores just opened."""
+        self.state_store = StateStore(self._dbs[0])
+        self.block_store = BlockStore(self._dbs[1])
+        stored = self.state_store.load()
+        if stored is None:
+            self.sm_state = state_from_genesis(genesis)
+            app_client.start()
+            init = app_client.init_chain(
+                abci_types.RequestInitChain(
+                    time=genesis.genesis_time,
+                    chain_id=genesis.chain_id,
+                    consensus_params=genesis.consensus_params,
+                    validators=[],
+                    app_state_bytes=genesis.app_state,
+                    initial_height=genesis.initial_height,
+                )
             )
-        )
-        if init.app_hash:
-            self.sm_state.app_hash = init.app_hash
-        if init.validators:
-            vals = [vu.to_validator() for vu in init.validators]
-            self.sm_state.validators = ValidatorSet(vals)
-            self.sm_state.next_validators = ValidatorSet(vals)
-            self.sm_state.next_validators.increment_proposer_priority(1)
-        self.state_store.save(self.sm_state)
+            if init.app_hash:
+                self.sm_state.app_hash = init.app_hash
+            if init.validators:
+                vals = [vu.to_validator() for vu in init.validators]
+                self.sm_state.validators = ValidatorSet(vals)
+                self.sm_state.next_validators = ValidatorSet(vals)
+                self.sm_state.next_validators.increment_proposer_priority(1)
+            self.state_store.save(self.sm_state)
+        else:
+            self.sm_state = stored
+            app_client.start()
 
         # --- event bus + indexer (node.go:158-184) ---------------------------
         # Indexing is synchronous inside _fire_events rather than through a
@@ -233,14 +302,20 @@ class Node:
             normalized = ["sql" if s == "psql" else s for s in (config.tx_index_sinks or ["kv"])]
             for sink_name in dict.fromkeys(normalized):
                 if sink_name == "kv":
-                    self.indexer = KVIndexer(MemDB())
+                    idx_db = open_db(config.db_backend, db_dir, "tx_index")
+                    self._dbs.append(idx_db)
+                    self.indexer = KVIndexer(idx_db)
                     sinks.append(KVEventSink(self.indexer))
                 elif sink_name == "null":
                     sinks.append(NullEventSink())
                 elif sink_name == "sql":
-                    # the psql schema over stdlib sqlite3, in memory (the
-                    # file stores are item 8f)
-                    conn = sqlite3.connect(":memory:", check_same_thread=False)
+                    # the psql schema over stdlib sqlite3, in a file beside
+                    # the stores (in memory for a memdb node without a home)
+                    sql_path = ":memory:"
+                    if db_dir and config.db_backend != "memdb":
+                        os.makedirs(db_dir, exist_ok=True)
+                        sql_path = os.path.join(db_dir, "tx_events.sqlite")
+                    conn = sqlite3.connect(sql_path, check_same_thread=False)
                     sinks.append(SQLEventSink(conn, genesis.chain_id))
                 else:
                     raise ValueError(f"unknown indexer sink {sink_name!r} (kv|null|sql)")
@@ -289,7 +364,9 @@ class Node:
 
         # --- pools + executor (node.go:258-297) ------------------------------
         self.mempool = TxMempool(config.mempool, app_client, metrics=mempool_metrics)
-        self.evidence_pool = EvidencePool(MemDB(), self.state_store, self.block_store, device=self.device)
+        ev_db = open_db(config.db_backend, db_dir, "evidence")
+        self._dbs.append(ev_db)
+        self.evidence_pool = EvidencePool(ev_db, self.state_store, self.block_store, device=self.device)
         self.evidence_pool.set_state(self.sm_state)
         self.block_exec = BlockExecutor(
             self.state_store,
@@ -301,6 +378,20 @@ class Node:
             metrics=state_metrics,
             device=self.device,
         )
+
+        # --- ABCI handshake (node.go:422 -> replay.go:204-550) ----------------
+        # On restart, replay stored blocks into the app until its height
+        # matches the store; a tip the state trails goes through
+        # apply_block, which verifies its LastCommit on the device.
+        self.handshaker: Optional[Handshaker] = None
+        if stored is not None:
+            self.handshaker = Handshaker(self.state_store, self.block_store, self.block_exec, genesis)
+            try:
+                self.sm_state = self.handshaker.handshake(app_client, self.sm_state)
+            except DEVICE_ERRORS as exc:
+                self._fail(exc)
+                raise
+            self.evidence_pool.set_state(self.sm_state)
 
         # --- p2p (node.go:206-256) -------------------------------------------
         if transport is None:
@@ -366,6 +457,25 @@ class Node:
         self.blocksync_reactor = BlockSyncReactor(self.syncer, self.block_store, self.router, on_error=self._fail)
         self.pex_reactor = PexReactor(self.peer_manager, self.router)
 
+        # --- statesync (node.go:358-388) -------------------------------------
+        # The reactor always runs (every node serves snapshots and light
+        # blocks); the syncer only on a fresh node with statesync on.
+        self.statesync_reactor = StateSyncReactor(
+            self.router, app_client, self.block_store, self.state_store, on_error=self._fail
+        )
+        self.statesyncer: Optional[StateSyncer] = None
+        self.statesync_error: Optional[BaseException] = None
+        if config.statesync is not None and config.statesync.enabled and self.sm_state.last_block_height == 0:
+            self.statesyncer = StateSyncer(
+                self.statesync_reactor,
+                app_client,
+                self.state_store,
+                self.block_store,
+                genesis,
+                config.statesync,
+                device=self.device,
+            )
+
         # --- RPC (node.go:512, internal/rpc/core) ----------------------------
         self.rpc_server: Optional[RPCServer] = None
         if config.rpc_laddr:
@@ -412,10 +522,13 @@ class Node:
         self.evidence_reactor.start()
         self.mempool_reactor.start()
         self.consensus_reactor.start()
-        self.blocksync_reactor.start()
+        self.statesync_reactor.start()
+        self.blocksync_reactor.start(start_syncer=self.statesyncer is None)
         for peer in self.config.persistent_peers:
             self.peer_manager.add_address(PeerAddress.parse(peer), persistent=True)
-        if self.syncer is None:
+        if self.statesyncer is not None:
+            threading.Thread(target=self._statesync_then_blocksync, daemon=True).start()
+        elif self.syncer is None:
             self._switch_to_consensus(self.sm_state)
         else:
             # If there's nothing to sync from within a grace period, start
@@ -424,6 +537,50 @@ class Node:
         if self.rpc_server is not None:
             self.rpc_server.start()
         self._started = True
+
+    def _statesync_then_blocksync(self) -> None:
+        """node.go:358-388: snapshot restore, then block sync from the
+        restored height, then consensus. A failure before the restore
+        falls back to block sync from the current state; a failure after
+        it halts the node's sync (the app holds restored state); a device
+        error fails the node (module note)."""
+        try:
+            state = self.statesyncer.sync()
+            self.event_bus.publish_event_state_sync_status(
+                events_mod.EventDataStateSyncStatus(complete=True, height=state.last_block_height)
+            )
+            self.sm_state = state
+            self.evidence_pool.set_state(state)
+            if self.syncer is not None:
+                self.syncer.state = state
+                self.syncer.pool = BlockPool(state.last_block_height + 1)
+        except DEVICE_ERRORS as exc:
+            self.statesync_error = exc
+            self._fail(exc)
+            return
+        except StateSyncFatalError as exc:
+            # The app already holds restored state: block-syncing from
+            # genesis on top of it would produce wrong app hashes.
+            self.statesync_error = exc
+            self.event_bus.publish_event_state_sync_status(
+                events_mod.EventDataStateSyncStatus(complete=False, height=0)
+            )
+            self.logger.error("state sync failed fatally; node halted", err=str(exc))
+            return
+        except Exception as exc:
+            # Before the restore (no snapshots, a bad anchor, no peers, a
+            # peer's malformed light block): the app is untouched, so a
+            # full block sync from the current state is sound.
+            self.statesync_error = exc
+            self.event_bus.publish_event_state_sync_status(
+                events_mod.EventDataStateSyncStatus(complete=False, height=0)
+            )
+            self.logger.error("state sync failed; falling back to block sync", err=str(exc))
+        if self.syncer is None:
+            self._switch_to_consensus(self.sm_state)
+            return
+        self.blocksync_reactor.start_syncing()
+        self._blocksync_grace()
 
     def _blocksync_grace(self) -> None:
         deadline = _time.monotonic() + BLOCKSYNC_GRACE_S
@@ -479,6 +636,7 @@ class Node:
             cs_error = exc
         for r in (
             self.blocksync_reactor,
+            self.statesync_reactor,
             self.consensus_reactor,
             self.mempool_reactor,
             self.evidence_reactor,
@@ -486,13 +644,23 @@ class Node:
         ):
             r.stop()
         self.router.stop()
+        if self._signer_endpoint is not None:
+            self._signer_endpoint.close()
+        if self._owned_signer is not None:
+            self._owned_signer.close()
         if self.event_sink is not None:
             self.event_sink.close()
+        self._close_stores()
         self._started = False
         if cs_error is not None:
             self._fail(cs_error)
         if self.failed is not None:
             raise self.failed
+
+    def _close_stores(self) -> None:
+        dbs, self._dbs = self._dbs, []
+        for db in dbs:
+            db.close()
 
     def _fire_events(self, block, block_id, fres, validator_updates) -> None:
         """execution.go:600-648 fireEvents: index the block, then publish

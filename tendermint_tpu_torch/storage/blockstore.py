@@ -189,6 +189,33 @@ class BlockStore:
         raw = self._db.get(_ext_commit_key(height))
         return ExtendedCommit.from_proto_bytes(raw) if raw is not None else None
 
+    def delete_latest_block(self) -> None:
+        """Remove the highest block (the rollback --hard path; pairs with
+        internal/state/rollback.go so consensus re-commits the height)."""
+        with self._mtx:
+            if self._height == 0:
+                raise ValueError("block store is empty")
+            h = self._height
+            meta = self.load_block_meta(h)
+            batch = self._db.new_batch()
+            if meta is not None:
+                batch.delete(_meta_key(h))
+                batch.delete(_hash_key(meta.header.hash()))
+                for i in range(meta.block_id.part_set_header.total):
+                    batch.delete(_part_key(h, i))
+            batch.delete(_ext_commit_key(h))
+            # The canonical commit for h-1 (arrived in block h's LastCommit)
+            # becomes the seen commit of the new tip so consensus can
+            # reconstruct its last commit after a rollback restart.
+            prev_commit = self._db.get(_commit_key(h - 1))
+            if prev_commit is not None:
+                batch.set(_seen_commit_key(), prev_commit)
+            batch.write()
+            self._height = h - 1
+            if self._height < self._base:
+                self._base = 0
+                self._height = 0
+
     # --- prune --------------------------------------------------------------
 
     def prune_blocks(self, retain_height: int) -> int:

@@ -1,8 +1,8 @@
 """Key-value store abstraction (the tm-db seam).
 
-The part of ``tendermint_tpu/storage/kv.py`` the light, block, state
-and evidence stores use: the ``KVStore`` interface with its write ``Batch``, applied
-at once on ``write()`` (the block store saves a block in one batch), and
+A copy of ``tendermint_tpu/storage/kv.py``: the ``KVStore`` interface
+with its write ``Batch``, applied at once on ``write()`` (the block
+store saves a block in one batch), and
 ``MemDB``, its sorted in-memory store, with ``prefix_end`` and
 ``ordered_key``. Keys iterate in ascending byte order; iterators see a
 snapshot of the keys at creation.
@@ -49,6 +49,9 @@ class KVStore:
                 self.set(key, value)
             else:
                 self.delete(key)
+
+    def close(self) -> None:
+        pass
 
 
 class Batch:

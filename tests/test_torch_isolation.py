@@ -337,3 +337,32 @@ def test_the_rpc_event_and_index_modules_are_checked_and_default_to_cuda(no_cuda
         args = cli.build_parser().parse_args([command, "http://127.0.0.1:9", "--chain-id", "c",
                                               "--trust-height", "1", "--trust-hash", "00" * 32])
         assert args.device is None  # the package's device, CUDA
+
+
+def test_the_file_store_state_sync_signer_and_abci_transport_modules_are_checked_and_default_to_cuda(
+        no_cuda, tmp_path):
+    """The file stores, rollback, state sync, the remote signers and the
+    out-of-process ABCI transports stand alone too and read no
+    environment knob (the native engine's build directory is
+    ``ops/_build.py``'s); the state syncer and a node that would state
+    sync raise without CUDA unless asked for the CPU."""
+    from tendermint_tpu_torch.statesync import StateSyncConfig, StateSyncer
+
+    mods = _port_modules()
+    new = ("storage", "storage.filedb", "storage.cfiledb", "state.rollback", "statesync", "statesync.reactor",
+           "statesync.syncer", "abci.codec", "abci.socket_server", "abci.socket_client", "abci.grpc_client",
+           "abci.grpc_server", "privval.remote", "privval.grpc")
+    for mod in new:
+        assert f"tendermint_tpu_torch.{mod}" in mods
+    for rel in ("storage/__init__.py", "storage/filedb.py", "storage/cfiledb.py", "state/rollback.py",
+                "statesync/reactor.py", "statesync/syncer.py", "abci/codec.py", "abci/socket_server.py",
+                "abci/socket_client.py", "abci/grpc_client.py", "abci/grpc_server.py", "privval/remote.py",
+                "privval/grpc.py"):
+        with open(os.path.join(PKG, rel)) as fh:
+            src = fh.read()
+        assert "os.environ" not in src and "getenv" not in src, rel
+    assert os.path.exists(os.path.join(PKG, "native", "filedb.cc"))
+    cfg = StateSyncConfig(enabled=True, trust_height=1, trust_hash=b"\x01" * 32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        StateSyncer(None, None, None, None, None, cfg)
+    assert StateSyncer(None, None, None, None, None, cfg, device="cpu").device == torch.device("cpu")

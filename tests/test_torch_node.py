@@ -5,7 +5,7 @@
   PEX spreads the addresses; a late non-validator block-syncs in; two
   validators commit over encrypted TCP.
 - ``NodeConfig``'s fields are the reference's less exactly the fields of
-  the features the port has not yet (ROADMAP §A items 8f, 10, 12); a
+  the features the port has not yet (ROADMAP §A item 10); a
   memory-network node with ``rpc_laddr`` answers ``status``, ``commit``
   and ``tx_search`` from its index.
 - The held divergences: a device error that the reference's evidence
@@ -59,9 +59,6 @@ BASE_NS = 1_700_000_000_000_000_000
 # The reference's fields the port leaves out, by the item that brings
 # each (NodeConfig's docstring).
 CUT_FIELDS = {
-    "statesync": "8f",
-    "priv_validator_laddr": "8f",
-    "signer_connect_timeout": "8f",
     "mesh_devices": "10",
 }
 
@@ -249,9 +246,11 @@ def test_node_config_is_the_references_less_the_cut_features():
     doc = " ".join(NodeConfig.__doc__.split())
     for name, item in CUT_FIELDS.items():
         assert f"``{name}``" in doc and f"item {item}" in doc, (name, item)
-    # what it cannot serve, it refuses
-    with pytest.raises(NotImplementedError, match="8f"):
-        Node(NodeConfig(db_backend="filedb"), fast_genesis([]), LocalClient(KVStoreApplication()), device="cpu")
+    # what it cannot serve, it refuses: a file store without a home, a
+    # backend it does not know
+    for backend, match in (("filedb", "requires a db_dir"), ("rocksdb", "unknown db backend")):
+        with pytest.raises(ValueError, match=match):
+            Node(NodeConfig(db_backend=backend), fast_genesis([]), LocalClient(KVStoreApplication()), device="cpu")
 
 
 # --- the held divergences ------------------------------------------------------

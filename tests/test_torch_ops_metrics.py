@@ -37,7 +37,7 @@ from tendermint_tpu_torch import ops as tops
 from tendermint_tpu_torch.libs import tracing
 from tendermint_tpu_torch.libs.metrics import Counter, Gauge, Histogram, OpsMetrics, Registry
 from tendermint_tpu_torch.ops import device_policy, ed25519_batch as teb, fault_injection
-from tendermint_tpu_torch.ops import precompute as tpc
+from tendermint_tpu_torch.ops import introspect as tintro, precompute as tpc
 from tendermint_tpu_torch.types import carry
 from tests import helpers
 
@@ -82,6 +82,10 @@ def bound(monkeypatch):
     with jintro.accountant._lock:
         jledger = (dict(jintro.accountant._bytes), dict(jintro.accountant._compiles),
                    dict(jintro.accountant._exec_entries))
+    # the port's ledger too: an earlier test in this process (the resident
+    # store's or the shm ingress's) may have left an owner in it
+    with tintro.accountant._lock:
+        tledger = (dict(tintro.accountant._bytes), dict(tintro.accountant._compiles))
     jobs, tobs = jtracing.tracer._observer, tracing.tracer._observer
     # the JAX profiler may be installed by an earlier test; the port's is
     # off until installed, so neither feeds kernel_bucket_seconds here
@@ -89,7 +93,7 @@ def bound(monkeypatch):
     jtracing.tracer.set_profile_sink(None)
     tracing.tracer.set_profile_sink(None)
     for reset in (jpc.reset, tpc.reset, jdp.shared.reset, device_policy.shared.reset,
-                  jintro.accountant.clear):
+                  jintro.accountant.clear, tintro.accountant.clear):
         reset()
     jreg, treg = JRegistry(), Registry()
     jm, tm = JOpsMetrics(jreg), OpsMetrics(treg)
@@ -111,6 +115,8 @@ def bound(monkeypatch):
     with jintro.accountant._lock:
         jintro.accountant._bytes, jintro.accountant._compiles, jintro.accountant._exec_entries = (
             jledger)
+    with tintro.accountant._lock:
+        tintro.accountant._bytes, tintro.accountant._compiles = tledger
 
 
 def _lanes():

@@ -1,7 +1,7 @@
 """The port's consensus reactor wire hygiene: the twin of
-``tests/test_reactor_wire.py`` on ``tendermint_tpu_torch`` (its fourth
-test, ``test_filedb_auto_compacts``, waits for the file stores, ROADMAP
-§A item 8f)."""
+``tests/test_reactor_wire.py`` on ``tendermint_tpu_torch``, with its
+fourth test, ``test_filedb_auto_compacts``, over both file-store
+engines."""
 
 import struct
 
@@ -53,3 +53,18 @@ def test_peer_state_catchup_grows_with_late_commit():
     assert ps.catchup_commit.get_index(2)
     ps.ensure_catchup(6, 2, 3)  # height change resets
     assert not ps.catchup_parts.get_index(1)
+
+
+@pytest.mark.parametrize("kind", ["py", "c"])
+def test_filedb_auto_compacts(tmp_path, kind):
+    from tendermint_tpu_torch.storage import cfiledb
+    from tendermint_tpu_torch.storage.filedb import FileDB
+
+    db = FileDB(str(tmp_path / "kv.fdb")) if kind == "py" else cfiledb.CFileDB(str(tmp_path / "kv.fdb"))
+    db.COMPACT_MIN_GARBAGE = 16
+    for i in range(200):
+        db.set(b"hot", str(i).encode())
+    garbage = db._garbage if kind == "py" else db._lib.filedb_garbage(db._h)
+    assert garbage < 200, "auto-compaction never ran"
+    assert db.get(b"hot") == b"199"
+    db.close()
