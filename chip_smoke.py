@@ -142,7 +142,7 @@ and, in order:
    ``vclient.set_remote_addr``: phase 4's 10,000-validator commit through
    ``verify_commit`` over the zero-copy shm ingress (``shm.set_shm_mode
    ("on")``) and over TCP (``"off"``), three requests of at most 4,096
-   lanes each way, one cold TCP run then 5 of each in turns with
+   lanes each way, one cold TCP run then 3 of each in turns with
    the in-process path, the bad commit rejected with the in-process
    error's message over both; every lane sent over shm counted by the
    server and the client, no torn slab, no shm fallback, K3 on both
@@ -255,7 +255,7 @@ and, in order:
    block-syncs in, each a ``Node`` with a ``LocalClient`` kvstore on one
    ``MemoryNetwork``, found through one persistent peer and PEX; kvstore
    txs through ``Node.submit_tx`` at 3 a second on the connected nodes
-   in turn until height 14; checked: the five stores agree on every block
+   in turn until height 10; checked: the five stores agree on every block
    and app hash, every tx committed once, the full node synced through
    its ``BlockSyncReactor`` and switched to consensus, no ``Node.failed``;
    it prints the block interval (mean, σ, min, max), the
@@ -305,7 +305,7 @@ and, in order:
    ``/abci_query`` of the last key block 64 wrote; answers/s, p50, p99
    and the split of a request (the primary's HTTP and decode, the
    verification, the witness check); the same walk with ``sequential``
-   over heights 2-17, checked the same way; the health machine checked;
+   over heights 2-9, checked the same way; the health machine checked;
    a wrapper over the witness's RPC serving phase 14's
    forged block 40 (the height is refused, ``LightClientAttackEvidence``
    reaches the primary's pool, which verifies it on the card); a device
@@ -334,14 +334,46 @@ and, in order:
    ``rollback_state`` takes its stores back to 31; a new ``Node`` on the
    home and a fresh app replays 1-31 and re-applies 32 through
    ``apply_block`` (its LastCommit verified on the card), then syncs
-   33-64 from 19a's servers and converges; 19c, remote-cluster-4:
-   ``ci.toml``'s four validators without its perturbations, validator1
-   signing through the socket signer in a process of its own, validator2
-   through the gRPC signer in another with its app behind the gRPC ABCI
-   transport in a third, validator3 on ``filedb`` with its app behind the
-   socket transport in a fourth; at least 8 heights committed, the block
-   interval beside 17a's (their 4-lane commits go to the host tier by
-   policy);
+   33-64 from 19a's servers and converges;
+20. the operator's way into a node, every node a process of its own
+   started from the shell: 20a, cli-start-64x500: ``python -m
+   tendermint_tpu_torch --home H init``, config 4's genesis in place of
+   init's, ``[p2p] persistent_peers`` set to 19a's two servers and
+   ``[rpc] laddr`` to a free port (``init`` runs beside 19b; ``filedb``,
+   state sync off: init's
+   defaults), then ``start`` with no ``--device``: it block-syncs 64
+   heights over encrypted TCP; the seconds from spawn to 64 on its RPC's
+   ``/status`` and blocks/s beside 17b's rate; block hash and app hash at
+   64 over the RPC equal the source's, its ``/metrics`` show no fallback
+   lane, a healthy card and ed25519 dispatches and first launches, and
+   the ``kernel launches`` line it prints when SIGTERM stops it (exit 0)
+   counts K3 and K4; 20b, stopped-home-tools: ``rollback`` (state at 63,
+   the source's app hash), ``inspect`` (63), ``start`` again (the
+   handshake re-applies 64 on the card: K3 or K1, and K4, in its printed
+   launches; its state back at the source's 64), ``debug dump`` against
+   it, SIGTERM (exit 0), then on the stopped home ``compact-db``,
+   ``key-migrate`` to ``filedb-py`` (``inspect`` of the copy prints the
+   same JSON), ``reindex-event`` after the kv index is deleted
+   (``tx_search`` over ``inspect --serve`` answers as the running node
+   did) and ``wal2json``; the tools run in this process through
+   ``cli.main`` (19a's servers stop after 20a, 19b's peer after 19b);
+   20c, e2e-ci, in a thread beside 20b (so 20b's times are taken beside
+   its processes): the port's e2e runner on
+   ``tendermint_tpu_torch/e2e/networks/ci.toml`` (``wait_heights`` cut
+   from 6 to 2, the tx load to 1 s before and after the perturbations)
+   with every node on the card (``--device cuda``): four
+   validators (validator1 signing
+   through the socket signer in a process of its own and killed,
+   validator2 through the gRPC signer with its app behind the gRPC ABCI
+   transport and paused, validator3 on ``filedb`` with the persistent
+   kvstore, restarted and disconnected) and a full node starting at 4;
+   ``Runner.test()``'s checks, then 19c's (which 20c replaces) over the
+   last 50 heights: the last 8 agreed on by all four validators and
+   every validator's signature in a commit; the block interval beside
+   17a's and each
+   perturbation's recovery seconds (4-lane commits go to the host tier
+   by policy; each node's vote pre-verifier warm-up probe launches K1
+   and K4);
 6. faults, after the main path, on batches of 256 ed25519 and 128
    sr25519 lanes with bad lanes among them. With host fallback off (the
    default), a transient fault injected at ``ed25519.chunk``,
@@ -369,7 +401,9 @@ what a server answered, without the in-process references, plus the
 shard daemons' own of 13e and 13f), 14 and 15, around 16a-c together, around 17a-b
 together (less 18b's, which runs inside 17a), around 18 (18a's from
 its walk on, after its nodes' sync, and 18b's) and around each of 19a
-and 19b. After each
+and 19b; phase 20's are its child processes' own, from the line each
+``start`` prints when it stops (their sum is the table's
+``launches_cli``). After each
 of these the health machine
 must show no host fallback, no transition and the healthy state (in
 phase 13 after 13b, and after 13c has reset it). Each phase prints one JSON line; then the kernel table,
@@ -417,7 +451,7 @@ HASH_MSG_LEN_BY_BLOCKS = {1: 40, 2: 120, 3: 250}  # after the 64-byte R || A pre
 MIXED_VALIDATORS = 10_000
 MIXED_MIN_REPS = 3  # steady mixed commits, at least
 MIXED_MAX_REPS = 9
-MIXED_BUDGET_S = 120.0  # phase 5's wall time the repetitions are sized to
+MIXED_BUDGET_S = 60.0  # phase 5's wall time the repetitions are sized to (so the script keeps its time limit)
 FAULT_ED_LANES = 256
 FAULT_SR_LANES = 128
 # Phase 7, bench/sections.py run_blocksync's shape: a 32-block window
@@ -556,13 +590,13 @@ MEMPOOL_REAP_BYTES = 22_020_096
 # Phase 17a, cluster-4: the e2e CI manifest (tendermint_tpu/e2e/networks/
 # ci.toml) cut to what the port has: four validators and a full node that
 # starts at height 4, kvstore txs at the manifest's load_tx_per_sec, on
-# the port's MemoryNetwork, until height 14 (so that, with phase 19, the
+# the port's MemoryNetwork, until height 10 (so that, with phases 19 and 20, the
 # whole script stays well inside its time limit). Default consensus params.
 CLUSTER_CHAIN_ID = "ci-e2e"
 CLUSTER_VALIDATORS = 4
 CLUSTER_POWER = 10
 CLUSTER_START_AT = 4
-CLUSTER_HEIGHTS = 14
+CLUSTER_HEIGHTS = 10
 CLUSTER_TX_PER_S = 3.0
 CLUSTER_WAIT_S = 120.0  # the longest a wait of the phase may take
 # Phase 17b, node-p2p-sync-64x500: phase 14's source chain served over
@@ -576,21 +610,32 @@ P2P_SYNC_WAIT_S = 120.0
 # 18b, rpc-cluster-4: phase 17a's nodes with their RPC on.
 RPC_TRUSTING_PERIOD_S = 10 * 365 * 86400.0  # the chain's genesis time is in 2023
 RPC_CLI_WAIT_S = 300.0  # a command's start on the card: torch, CUDA, its first verification
-RPC_SEQUENTIAL_TO = 17  # the sequential walk's last height (the default walk's runs to NODE_SYNC_TO)
+RPC_SEQUENTIAL_TO = 9  # the sequential walk's last height (the default walk's runs to NODE_SYNC_TO)
 RPC_CLUSTER_THREADS = 4
 RPC_CLUSTER_HEIGHTS = 10
 # Phase 19a, statesync-join-64x500: phase 14's chain (BASELINE config 4)
 # served by nodes whose apps snapshot every 40 heights; 19b,
 # restart-rollback-64x500: a node synced to 32, rolled back to 31 and
-# restarted from its files; 19c, remote-cluster-4: ci.toml's validators
-# with their remote signers and app processes.
+# restarted from its files.
 STATESYNC_SERVERS = 2
 STATESYNC_SNAPSHOT_INTERVAL = 40
 STATESYNC_BACKFILL = 10  # headers below the snapshot, verified backwards (the change at 33 among them)
 ROLLBACK_SYNC_TO = 32
-REMOTE_HEIGHTS = 8
 PHASE19_WAIT_S = 120.0  # the longest a wait of the phase may take
 PHASE19_BUDGET_S = 60.0  # the seconds the phase may add to the script
+# Phase 20a, cli-start-64x500: a node made by `init` and run by `start`
+# from the shell, block-syncing phase 14's chain (BASELINE config 4) from
+# 19a's servers; 20b, stopped-home-tools: its rollback, inspect, restart
+# and the stopped home's tools; 20c, e2e-ci: the port's runner on
+# networks/ci.toml (in place of 19c: its four validators, with the
+# manifest's late full node and perturbations).
+CLI_WAIT_S = 180.0  # the longest a wait of 20a-b may take: a process's start on the card, its sync
+CLI_STOP_S = 60.0
+E2E_WAIT_HEIGHTS = 2  # cut from ci.toml's 6 to hold phase 20's budget
+E2E_LOAD_S = (1.0, 1.0)  # the runner's tx load before and after the perturbations (its own run(): 3 s, 2 s)
+E2E_CHECK_HEIGHTS = 8  # heights the four validators must agree on (19c's)
+E2E_WINDOW = 50  # the heights below the tip whose commits and times 20c reads
+PHASE20_BUDGET_S = 90.0  # the seconds the phase may add to the script
 
 # Field squarings and multiplies per lane, as counted in the source note
 # of csrc/ed25519_verify.cu. A multiply is 100 32x32->64-bit products and
@@ -3794,7 +3839,7 @@ def phase_observed(commit_wl, commit_tables, mixed_wl, ed_lanes, batch, lightd_w
 
 # --- phase 13: verifyd -----------------------------------------------------------
 
-VERIFYD_REPS = 5  # 13a: remote and in-process commits, in turns
+VERIFYD_REPS = 3  # 13a: remote and in-process commits, in turns
 VERIFYD_CONSENSUS_CALLS = 2  # 13b: 10,000-lane calls of the consensus client (heights 1, 2)
 VERIFYD_SR_REQUESTS = 3  # 13b: sr25519 requests
 VERIFYD_SR_LANES = 64  # 13b: lanes an sr25519 request (phase 7's mixed window holds 64)
@@ -5987,7 +6032,7 @@ def wait_until(fn, timeout, what, interval=0.01):
         time.sleep(interval)
 
 
-CLUSTER_FACTS = {}  # 17a's block interval, which 19c prints beside its own
+CLUSTER_FACTS = {}  # 17a's block interval and 17b's rate, which phase 20 prints beside its own
 
 
 def phase_cluster(dev):
@@ -6596,6 +6641,7 @@ def phase_node_p2p_sync(source, dev, inproc_blocks_per_s, peers, peers_start_s, 
     split = {k + "_ms": clocks[i].seconds.get(k, 0.0) * 1e3 for k in keys}
     node_aead, peer_aead = logs[i]["aead"], served[i]
     blocks_per_s = NODE_SYNC_TO / statistics.median(walls)
+    CLUSTER_FACTS["p2p_blocks_per_s"] = blocks_per_s
     counts = launches()
     emit({"phase": "node_p2p_sync", "rpc_transport": sorted({n.rpc_server.transport for n in kept}),
           "blocks": NODE_SYNC_TO, "validators": NODE_VALIDATORS,
@@ -7513,131 +7559,395 @@ def phase_restart_rollback(source, servers, peer, home, dev):
     return launches()
 
 
-def spawn_module(module, *args, listen_line=None):
-    """A port module in a process of its own (``python -m``), from this
-    checkout; with ``listen_line``, waits for the line that names its
-    address and returns (host, port) beside the process."""
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.Popen([sys.executable, "-m", module, *args], env=env, text=True,
-                            stdout=subprocess.PIPE if listen_line else subprocess.DEVNULL)
-    if listen_line is None:
-        return proc, None
-    line = proc.stdout.readline()
-    check(listen_line in line, f"phase 19c: {module} printed {line!r}")
-    host, _, port = line.strip().rpartition(" ")[2].rpartition(":")
-    return proc, (host, int(port))
+# --- phase 20 ------------------------------------------------------------------
 
 
-def phase_remote_cluster(dev):
-    """19c: ci.toml's four validators (module note) on one MemoryNetwork,
-    kvstore txs at CLUSTER_TX_PER_S, until REMOTE_HEIGHTS."""
+def prom_samples(text):
+    """A Prometheus text exposition as {(name, ((label, value), ...)): value}."""
+    import re
+
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"^([A-Za-z_:][A-Za-z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$", line)
+        if m:
+            labels = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"', m.group(2) or "")))
+            out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def prom_total(samples, name, **labels):
+    """The sum of ``name``'s samples whose labels include ``labels``."""
+    want = set(labels.items())
+    return sum(v for (n, ls), v in samples.items() if n == name and want <= set(ls))
+
+
+def http_get(url, timeout=5.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def rpc_call(url, method, timeout=5.0, **params):
+    import urllib.request
+
+    body = json.dumps({"jsonrpc": "2.0", "id": 1, "method": method, "params": params}).encode()
+    req = urllib.request.Request(url, body, {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        doc = json.load(resp)
+    check("error" not in doc, f"{method}: {doc.get('error')}")
+    return doc["result"]
+
+
+def rpc_ready(url, method, **params):
+    """The route's answer, or None while the listener is not up."""
+    try:
+        return rpc_call(url, method, timeout=2.0, **params)
+    except OSError:
+        return None
+
+
+def cli_env():
+    return dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+
+
+def spawn_cli(home, log_path, *args):
+    """``python -m tendermint_tpu_torch --home home *args`` from this
+    checkout, its output into ``log_path`` (appended)."""
+    with open(log_path, "ab") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "tendermint_tpu_torch", "--home", home, *args],
+                                cwd=os.path.dirname(os.path.abspath(__file__)), env=cli_env(),
+                                stdout=log, stderr=subprocess.STDOUT)
+    proc.log_path = log_path
+    return proc
+
+
+def log_tail(path, n=3000):
+    with open(path, errors="replace") as fh:
+        return fh.read()[-n:]
+
+
+def cli_main(*args):
+    """``tendermint_tpu_torch.cli.main(args)`` in this process (a stopped
+    home's tool pays no interpreter and torch start): its exit code and
+    standard output."""
+    import contextlib
+    import io
+
+    from tendermint_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(args))
+    return rc, out.getvalue()
+
+
+def printed_launches(log_path):
+    """The sum of the ``kernel launches {...}`` lines a log holds (a
+    ``start`` prints one when it stops; a killed one prints none)."""
+    total = {}
+    with open(log_path, errors="replace") as fh:
+        for line in fh:
+            if line.startswith("kernel launches "):
+                for k, v in json.loads(line[len("kernel launches "):]).items():
+                    total[k] = total.get(k, 0) + v
+    return total
+
+
+def stop_cli(proc, what):
+    """SIGTERM, and the exit code, which must be 0."""
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(CLI_STOP_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(10)
+        rc = "hung"
+    check(rc == 0, f"{what}: exited {rc} on SIGTERM:\n{log_tail(proc.log_path)}")
+
+
+def wait_rpc(proc, fn, what, timeout=CLI_WAIT_S):
+    """Wait for ``fn()`` (an RPC read), failing early if ``proc`` exited."""
+    def ready():
+        check(proc.poll() is None, f"{what}: the process exited {proc.returncode}:\n{log_tail(proc.log_path)}")
+        try:
+            return fn()
+        except OSError:
+            return False
+
+    wait_until(ready, timeout, what, interval=0.05)
+
+
+def node_metrics(url, where):
+    """The node's /metrics: no fallback lane and a healthy card."""
+    m = prom_samples(http_get(url + "/metrics"))
+    facts = {
+        "fallback_lanes": prom_total(m, "tendermint_ops_device_fallback_lanes_total"),
+        "health_state": prom_total(m, "tendermint_ops_device_health_state"),
+        "compile_events": {eng: prom_total(m, "tendermint_ops_compile_events_total", engine=eng)
+                           for eng in ("ed25519", "pallas", "sr25519")},
+        "dispatches": prom_total(m, "tendermint_ops_kernel_bucket_seconds_count", engine="ed25519"),
+    }
+    check(facts["fallback_lanes"] == 0 and facts["health_state"] == 0, f"{where}: /metrics {facts}")
+    return facts
+
+
+def tx_page(url, height):
+    doc = rpc_call(url, "tx_search", query=f"tx.height = {height}", per_page=100)
+    return {"total_count": doc["total_count"], "txs": doc["txs"]}
+
+
+def spawn_init(work):
+    """20a's first step, started: ``python -m tendermint_tpu_torch --home
+    <work>/node init`` (the script starts it before 19b, so that its
+    interpreter's start overlaps 19b)."""
+    home = os.path.join(work, "node")
+    proc = spawn_cli(home, os.path.join(work, "init.log"), "init", "--chain-id", CHAIN_ID)
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def phase_cli_start(source, servers, dev, work, init):
+    """20a (module note): the node ``init`` (:func:`spawn_init`) made in
+    ``work``, run by ``start`` from the shell, block-syncing from 19a's
+    servers. Returns what 20b takes: the home, its RPC's URL, the
+    ``start`` arguments and the running node's answer to ``tx_search``;
+    and its launches."""
+    from tendermint_tpu_torch.config import Config
+
+    _, src_exec, src_state = source[:3]
+    start = ("start",) if dev.type == "cuda" else ("start", "--device", "cpu")  # a rehearsal on the CPU
+    home = os.path.join(work, "node")
+    log = os.path.join(work, "start1.log")
+    meta = src_exec.block_store.load_block_meta
+    t_wait = time.perf_counter()
+    try:
+        rc = init.wait(CLI_WAIT_S)
+    except subprocess.TimeoutExpired:
+        init.kill()
+        rc = "hung"
+    check(rc == 0, f"phase 20a: init exited {rc}:\n{log_tail(init.log_path)}")
+    init_s, init_waited_s = time.perf_counter() - init.t0, time.perf_counter() - t_wait
+    cfg = Config.load(home)
+    check(cfg.base.db_backend == "filedb" and not cfg.statesync.enabled and cfg.indexer.sinks == ["kv"],
+          "phase 20a: init's defaults")
+    with open(cfg.genesis_file(), "w") as fh:  # config 4's chain in place of init's one-validator genesis
+        fh.write(source[0])
+    p2p_port, rpc_port = free_ports(2)
+    cfg.p2p.laddr, cfg.rpc.laddr = f"127.0.0.1:{p2p_port}", f"127.0.0.1:{rpc_port}"
+    cfg.p2p.persistent_peers = [srv.addr for srv in servers]
+    cfg.save()
+    url = f"http://127.0.0.1:{rpc_port}"
+    t0 = time.perf_counter()
+    proc = spawn_cli(home, log, *start)
+    marks = {}
+
+    def at(h):
+        st = rpc_ready(url, "status")
+        if st is None:
+            return False
+        height = int(st["sync_info"]["latest_block_height"])
+        if height >= 1 and "first" not in marks:
+            marks["first"] = time.perf_counter()
+        return height >= h
+
+    try:
+        wait_rpc(proc, lambda: at(NODE_SYNC_TO), f"phase 20a: the started node at {NODE_SYNC_TO}")
+        t64 = time.perf_counter()
+        blk = rpc_call(url, "block", height=NODE_SYNC_TO)
+        check(blk["block_id"]["hash"].lower() == meta(NODE_SYNC_TO).block_id.hash.hex()
+              and blk["block"]["header"]["app_hash"].lower() == meta(NODE_SYNC_TO).header.app_hash.hex(),
+              "phase 20a: block or app hash at 64 is not the source's")
+        wait_rpc(proc, lambda: rpc_call(url, "status")["sync_info"]["latest_app_hash"].lower()
+                 == src_state.app_hash.hex(), "phase 20a: the started node's app hash after 64")
+        metrics = node_metrics(url, "phase 20a")
+        txs = tx_page(url, NODE_CHANGE_HEIGHT)
+    finally:
+        stop_cli(proc, "phase 20a: start")
+    launches = printed_launches(log)
+    check(launches.get("verify_resident", 0) > 0 and launches.get("challenge", 0) > 0
+          and metrics["compile_events"]["ed25519"] > 0 and metrics["dispatches"] > 0,
+          f"phase 20a: launches {launches}, /metrics {metrics}")
+    spawn_to_64 = t64 - t0
+    emit({"phase": "cli_start", "validators": NODE_VALIDATORS, "heights": NODE_SYNC_TO,
+          "command": "python -m tendermint_tpu_torch --home H start", "db_backend": "filedb",
+          "peers": len(servers), "transport": "tcp", "init_s": init_s, "init_waited_s": init_waited_s,
+          "spawn_to_64_s": spawn_to_64,
+          "blocks_per_s_from_spawn": NODE_SYNC_TO / spawn_to_64, "spawn_to_first_block_s": marks["first"] - t0,
+          "blocks_per_s_after_first_block": (NODE_SYNC_TO - 1) / (t64 - marks["first"]),
+          "phase_17b_p2p_blocks_per_s": CLUSTER_FACTS.get("p2p_blocks_per_s"),
+          "metrics": metrics, "launches": launches})
+    return {"home": home, "url": url, "start": start, "txs": txs}, launches
+
+
+def phase_stopped_home(source, ctx, work):
+    """20b (module note), on 20a's stopped home ``ctx``: rollback,
+    inspect, a second ``start`` (the tip re-applied on the card), debug
+    dump, then the stopped home's tools. Returns its launches."""
+    import tarfile
+
+    from tendermint_tpu_torch.config import Config
+
+    _, src_exec, src_state = source[:3]
+    home, url, before_txs = ctx["home"], ctx["url"], ctx["txs"]
+    meta = src_exec.block_store.load_block_meta
+    log = os.path.join(work, "start2.log")
+    t_phase = time.perf_counter()
+    rc, out = cli_main("--home", home, "rollback")
+    want = f"rolled back state to height {NODE_SYNC_TO - 1}, app hash {meta(NODE_SYNC_TO).header.app_hash.hex()}"
+    check(rc == 0 and out.strip() == want, f"phase 20b: rollback {rc} {out!r}")
+    rc, out = cli_main("--home", home, "inspect")
+    inspected = json.loads(out)
+    check(rc == 0 and inspected["state_height"] == NODE_SYNC_TO - 1
+          and inspected["latest_block_height"] == NODE_SYNC_TO, f"phase 20b: inspect {inspected}")
+    tools = {"rollback_and_inspect_s": time.perf_counter() - t_phase}
+    t2 = time.perf_counter()
+    proc = spawn_cli(home, log, *ctx["start"])
+    try:
+        wait_rpc(proc, lambda: (rpc_ready(url, "status") or {"sync_info": {"latest_app_hash": ""}})
+                 ["sync_info"]["latest_app_hash"].lower() == src_state.app_hash.hex(),
+                 "phase 20b: the restarted node's state at 64")
+        restart_s = time.perf_counter() - t2
+        metrics = node_metrics(url, "phase 20b")
+        after_restart_txs = tx_page(url, NODE_CHANGE_HEIGHT)
+        t3 = time.perf_counter()
+        dump = os.path.join(work, "dump.tgz")
+        rc, out = cli_main("--home", home, "debug", "dump", "--rpc", url, "-o", dump)
+        with tarfile.open(dump) as tar:
+            names = set(tar.getnames())
+            status = json.load(tar.extractfile("dump/status.json"))
+        check(rc == 0 and {"dump/metrics.prom", "dump/net_info.json", "dump/home/config.toml"} <= names
+              and int(status["sync_info"]["latest_block_height"]) == NODE_SYNC_TO,
+              f"phase 20b: debug dump {rc} {sorted(names)}")
+        tools["debug_dump_s"] = time.perf_counter() - t3
+    finally:
+        stop_cli(proc, "phase 20b: the restarted start")
+    launches = printed_launches(log)
+    check(launches.get("verify_resident", 0) + launches.get("verify", 0) > 0
+          and launches.get("challenge", 0) > 0, f"phase 20b: the re-applied tip launched {launches}")
+    check(after_restart_txs == before_txs and before_txs["txs"], "phase 20b: tx_search after the restart")
+
+    # the stopped home's tools
+    t4 = time.perf_counter()
+    rc, out = cli_main("--home", home, "compact-db")
+    check(rc == 0 and cli_main("--home", home, "inspect")[1] == json.dumps(
+        dict(inspected, state_height=NODE_SYNC_TO, app_hash=src_state.app_hash.hex()), indent=2) + "\n",
+        f"phase 20b: compact-db {rc} {out!r}")
+    tools["compact_db"] = out.strip().splitlines()
+    tools["compact_db_s"] = time.perf_counter() - t4
+    t4 = time.perf_counter()
+    copy = os.path.join(work, "migrated")
+    rc, _ = cli_main("--home", home, "key-migrate", "--to-backend", "filedb-py", "--out", os.path.join(copy, "data"))
+    mcfg = Config.load(home)
+    mcfg.home = copy
+    mcfg.base.db_backend = "filedb-py"
+    mcfg.save()
+    check(rc == 0 and cli_main("--home", copy, "inspect")[1] == cli_main("--home", home, "inspect")[1],
+          "phase 20b: inspect of the filedb-py copy differs")
+    tools["key_migrate_s"] = time.perf_counter() - t4
+    t4 = time.perf_counter()
+    data = Config(home=home).data_dir()
+    for f in os.listdir(data):
+        if f.startswith("tx_index"):
+            os.unlink(os.path.join(data, f))
+    rc, out = cli_main("--home", home, "reindex-event")
+    check(rc == 0 and out.startswith(f"reindexed {NODE_SYNC_TO} blocks"), f"phase 20b: reindex-event {out!r}")
+    tools["reindex_event_s"] = time.perf_counter() - t4
+    t4 = time.perf_counter()
+    iport = free_ports(1)[0]
+    iurl = f"http://127.0.0.1:{iport}"
+    srv = spawn_cli(home, os.path.join(work, "inspect.log"), "inspect", "--serve", f"127.0.0.1:{iport}")
+    try:
+        wait_rpc(srv, lambda: rpc_ready(iurl, "health") is not None, "phase 20b: inspect --serve")
+        served_txs = tx_page(iurl, NODE_CHANGE_HEIGHT)
+    finally:
+        stop_cli(srv, "phase 20b: inspect --serve")
+    check(served_txs == before_txs, "phase 20b: tx_search over inspect --serve after reindex-event differs")
+    tools["inspect_serve_s"] = time.perf_counter() - t4
+    t4 = time.perf_counter()
+    rc, out = cli_main("wal2json", os.path.join(home, "cs.wal"))
+    records = [json.loads(line) for line in out.splitlines()]
+    check(rc == 0 and records, f"phase 20b: wal2json {rc}, {len(records)} records")
+    tools["wal2json_records"] = len(records)
+    tools["wal2json_s"] = time.perf_counter() - t4
+    emit({"phase": "stopped_home_tools", "rolled_back_to": NODE_SYNC_TO - 1, "restart_to_64_s": restart_s,
+          "metrics": metrics, "launches": launches, "tx_search_txs": len(before_txs["txs"]), **tools,
+          "wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_e2e_ci(dev):
+    """20c (module note): the port's e2e runner on ``networks/ci.toml``,
+    every node on the card. Returns its nodes' launches."""
     import tempfile
 
-    from tendermint_tpu_torch.abci.client import LocalClient
-    from tendermint_tpu_torch.abci.grpc_client import GrpcClient
-    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
-    from tendermint_tpu_torch.abci.socket_client import SocketClient
-    from tendermint_tpu_torch.crypto.batch import DEVICE_THRESHOLD
-    from tendermint_tpu_torch.encoding.canonical import Timestamp
-    from tendermint_tpu_torch.node import Node, NodeConfig
-    from tendermint_tpu_torch.p2p.transport import MemoryNetwork
-    from tendermint_tpu_torch.privval import FilePV
-    from tendermint_tpu_torch.privval.grpc import GrpcSignerClient
-    from tendermint_tpu_torch.privval.remote import SignerClient
-    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.e2e import Manifest, Runner
 
-    home = tempfile.mkdtemp(prefix="chip-smoke-remote-")
-    keys = [(os.path.join(home, f"k{i}.json"), os.path.join(home, f"s{i}.json")) for i in range(CLUSTER_VALIDATORS)]
-    pvs = [FilePV.generate(k, s) for k, s in keys]
-    genesis = GenesisDoc(chain_id=CLUSTER_CHAIN_ID, genesis_time=Timestamp.from_unix_ns(time.time_ns()),
-                         validators=[GenesisValidator(pv.get_pub_key(), CLUSTER_POWER) for pv in pvs])
-    laddr = "tcp://127.0.0.1:%d" % free_ports(1)[0]
-    procs, nodes = {}, []
-    before = ingest_counters()
+    here = os.path.dirname(os.path.abspath(__file__))
+    manifest = Manifest.load(os.path.join(here, "tendermint_tpu_torch", "e2e", "networks", "ci.toml"))
+    manifest.wait_heights = E2E_WAIT_HEIGHTS
+    work = tempfile.mkdtemp(prefix="chip-smoke-e2e-")
     t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED + 19)
+    stages = {}
+    events = []
+
+    def log(line):
+        events.append((time.perf_counter() - t0, line))
+
+    runner = Runner(manifest, work, log=log, device="cuda" if dev.type == "cuda" else "cpu")
     try:
-        procs["socket_signer"], _ = spawn_module(
-            "tendermint_tpu_torch.privval.remote", "--addr", laddr, "--chain-id", CLUSTER_CHAIN_ID,
-            "--key-file", keys[1][0], "--state-file", os.path.join(home, "s1-remote.json"))
-        procs["grpc_signer"], grpc_signer = spawn_module(
-            "tendermint_tpu_torch.privval.grpc", "--addr", "127.0.0.1:0", "--chain-id", CLUSTER_CHAIN_ID,
-            "--key-file", keys[2][0], "--state-file", os.path.join(home, "s2-remote.json"),
-            listen_line="grpc signer serving on")
-        procs["grpc_app"], grpc_app = spawn_module(
-            "tendermint_tpu_torch.abci.socket_server", "--transport", "grpc", "--addr", "127.0.0.1:0",
-            listen_line="abci server listening on")
-        procs["socket_app"], socket_app = spawn_module(
-            "tendermint_tpu_torch.abci.socket_server", "--transport", "socket", "--addr", "127.0.0.1:0",
-            listen_line="abci server listening on")
-        spawned_s = time.perf_counter() - t0
-        net = MemoryNetwork()
-        layout = [  # (app client, signer: a FilePV or the NodeConfig field, extra config), as ci.toml lays them out
-            (LocalClient(KVStoreApplication()), pvs[0], {}),
-            (LocalClient(KVStoreApplication()), None, {"priv_validator_laddr": laddr}),
-            (GrpcClient(*grpc_app), None, {"priv_validator_laddr": "grpc://%s:%d" % grpc_signer}),
-            (SocketClient(*socket_app), pvs[3], {"db_backend": "filedb", "home": os.path.join(home, "v3")}),
-        ]
-        for i, (client, pv, extra) in enumerate(layout):
-            peers = [] if i == 0 else [f"{nodes[0].node_key.node_id}@v0"]
-            nodes.append(Node(NodeConfig(chain_id=CLUSTER_CHAIN_ID, listen_addr=f"v{i}", moniker=f"v{i}",
-                                         persistent_peers=peers, wal_enabled=False, **extra),
-                              genesis, client, priv_validator=pv, memory_network=net, device=dev))
-        v3_engine = nodes[3]._dbs[0].engine
-        check(isinstance(nodes[1].priv_validator, SignerClient)
-              and isinstance(nodes[2].priv_validator, GrpcSignerClient) and v3_engine == "c", "phase 19c: the layout")
-        t_start = time.perf_counter()
-        for node in nodes:
-            node.start()
-        i = 0
-        while nodes[0].height < REMOTE_HEIGHTS and time.perf_counter() - t_start < PHASE19_WAIT_S:
-            nodes[i % len(nodes)].submit_tx(b"remote-%05d=%s" % (i, rng.bytes(8).hex().encode()))
-            i += 1
-            time.sleep(1.0 / CLUSTER_TX_PER_S)
-            check(all(n.failed is None for n in nodes), f"phase 19c: failed {[n.failed for n in nodes]}")
-        wait_until(lambda: min(n.height for n in nodes) >= REMOTE_HEIGHTS, PHASE19_WAIT_S,
-                   lambda: f"phase 19c: heights {[n.height for n in nodes]}")
-        run_s = time.perf_counter() - t_start
-        for h in range(1, REMOTE_HEIGHTS + 1):
-            metas = {n.block_store.load_block_meta(h).block_id.hash for n in nodes}
-            app_hashes = {n.block_store.load_block(h).header.app_hash for n in nodes}
-            check(len(metas) == 1 and len(app_hashes) == 1, f"phase 19c: the nodes disagree at height {h}")
-        blocks = [nodes[0].block_store.load_block(h) for h in range(1, REMOTE_HEIGHTS + 1)]
+        for name, stage in (("setup", runner.setup), ("start", runner.start),
+                            ("load", lambda: runner.load(E2E_LOAD_S[0])), ("perturb", runner.perturb),
+                            ("load_after", lambda: runner.load(E2E_LOAD_S[1])),
+                            ("wait", runner.wait), ("test", runner.test)):
+            t = time.perf_counter()
+            try:
+                stage()
+            except Exception as exc:  # the runner's E2EError, with its stage
+                check(False, f"phase 20c: {name}: {exc!r}; events {events[-8:]}")
+            stages[name] = time.perf_counter() - t
+        # 19c's checks, on the four validators over their RPC, over the
+        # heights every store still holds near the tip (the kvstore app
+        # lets a node prune all but its last 100 blocks)
+        vals = [n for n in runner.nodes.values() if n.manifest.mode == "validator"]
+        sync = [n.rpc("status")["sync_info"] for n in vals]
+        latest = min(int(x["latest_block_height"]) for x in sync)
+        first = max([int(x["earliest_block_height"]) for x in sync] + [latest - E2E_WINDOW + 1, 1])
+        check(latest - first + 1 >= E2E_CHECK_HEIGHTS, f"phase 20c: the validators hold {first}..{latest}")
+        for h in range(latest - E2E_CHECK_HEIGHTS + 1, latest + 1):
+            ids = {n.rpc("block", {"height": h})["block_id"]["hash"] for n in vals}
+            check(len(ids) == 1, f"phase 20c: the validators disagree at height {h}")
+        addrs = {v["address"] for v in vals[0].rpc("validators", {"height": latest})["validators"]}
+        blocks = [vals[0].rpc("block", {"height": h})["block"] for h in range(first, latest + 1)]
+        signed = {s["validator_address"] for b in blocks[1:] for s in b["last_commit"]["signatures"]
+                  if s.get("signature")}
+        check(len(addrs) == len(vals) and addrs <= signed, "phase 20c: a validator never signed a commit")
+        from tendermint_tpu_torch.rpc.encoding import parse_rfc3339
+
+        times = [parse_rfc3339(b["header"]["time"]).to_unix_ns() / 1e9 for b in blocks]
+        intervals = [b - a for a, b in zip(times, times[1:])]
+        metrics = {n.manifest.name: node_metrics(n.rpc_url, f"phase 20c: {n.manifest.name}")
+                   for n in runner.nodes.values() if n.running()}
     finally:
-        stopped = []
-        for node in nodes:
-            try:
-                node.stop()
-                stopped.append(None)
-            except Exception as exc:  # the phase checks what escaped
-                stopped.append(repr(exc))
-        for proc in procs.values():
-            proc.terminate()
-        for proc in procs.values():
-            try:
-                proc.wait(10)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(5)
-    check(stopped == [None] * len(nodes), f"phase 19c: stop {stopped}")
-    signed = {bytes(cs.validator_address) for b in blocks[1:] for cs in b.last_commit.signatures if cs.signature}
-    check({pv.get_pub_key().address() for pv in pvs} <= signed, "phase 19c: a validator never signed a commit")
-    times = [b.header.time.to_unix_ns() / 1e9 for b in blocks]
-    intervals = [b - a for a, b in zip(times, times[1:])]
-    d = ingest_delta(before)
-    emit({"phase": "remote_cluster", "validators": CLUSTER_VALIDATORS, "heights": REMOTE_HEIGHTS,
-          "layout": {"v0": "local signer, local app", "v1": "socket signer process", "v2":
-                     "gRPC signer process, app behind gRPC ABCI in a process", "v3":
-                     f"filedb ({v3_engine} engine), app behind socket ABCI in a process"},
+        runner.stop()
+    launches = {}
+    for n in runner.nodes.values():
+        launches = add_launches(launches, printed_launches(n.log_path))
+    emit({"phase": "e2e_ci", "manifest": "tendermint_tpu_torch/e2e/networks/ci.toml", "nodes": len(runner.nodes),
+          "device": runner.device, "wait_heights": manifest.wait_heights, "stages_s": stages,
+          "recoveries_s": {f"{name}:{p}": s for name, p, s in runner.recoveries},
           "block_interval_s": {"mean": statistics.mean(intervals), "min": min(intervals), "max": max(intervals),
                                "n": len(intervals)},
           "phase_17a_block_interval_mean_s": CLUSTER_FACTS.get("block_interval_mean_s"),
-          "processes_started_s": spawned_s, "run_s": run_s, "txs_submitted": i,
-          "host_tier_by_policy": f"a commit of {CLUSTER_VALIDATORS} lanes is under DEVICE_THRESHOLD "
-                                 f"({DEVICE_THRESHOLD}), so its lanes go to the host tier",
-          "host_tier_lanes": d["tiers"].get("host", 0), "device_tier_lanes": d["tiers"].get("device", 0),
-          "launches": d["launches"]})
-    shutil.rmtree(home, ignore_errors=True)
+          "heights_agreed": [latest - E2E_CHECK_HEIGHTS + 1, latest], "heights_read": [first, latest],
+          "load_txs": len(runner._sent_txs),
+          "host_tier_by_policy": "a commit of 4 lanes is under DEVICE_THRESHOLD, so its lanes go to the host tier; "
+                                 "each node's vote pre-verifier warm-up probe launches",
+          "metrics": metrics, "launches": launches, "wall_s": time.perf_counter() - t0})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 def start_phase19_servers(source):
@@ -7690,16 +8000,32 @@ def stop_phase19_servers(started):
 
 
 def phase_files_and_joins(source, dev, blocksync_s, started=None):
-    """Phase 19: 19a, 19b and 19c in turn (module note), on the servers
+    """Phases 19 and 20 (module note): 19a, 19b and 20a on the servers
     :func:`start_phase19_servers` started and :func:`wait_phase19_servers`
-    waited for (both here, unless given), the nodes' process-wide sinks
-    restored after. Returns 19a's and 19b's launch counts and the
-    phase's seconds."""
+    waited for (both here, unless given), which stop after 20a (19b's
+    peer after 19b); then 20b, with 20c beside it in a thread of this
+    process. The nodes' process-wide sinks are restored after. Returns
+    19a's and 19b's launch counts, phase 20's child processes' and the
+    phases' seconds."""
+    import resource
+    import tempfile
+
     from tendermint_tpu_torch.ops import cuda_hash, cuda_verify
 
     t0 = time.perf_counter()
     sinks = node_sinks()
-    stopped = []
+    stopped = None
+    e2e, e2e_thread, init = {}, None, None
+    work = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+
+    def run_e2e():
+        t = time.perf_counter()
+        try:
+            e2e["launches"] = phase_e2e_ci(dev)
+        except BaseException as exc:  # raised by the phase's thread after the join
+            e2e["error"] = exc
+        e2e["seconds"] = time.perf_counter() - t
+
     try:
         if started is None:
             started = start_phase19_servers(source)
@@ -7719,26 +8045,44 @@ def phase_files_and_joins(source, dev, blocksync_s, started=None):
         statesync_counts = phase_statesync_join(source, servers, home, dev, blocksync_s)
         check_healthy("phase 19a")
         parts["19a_s"] = time.perf_counter() - t0 - sum(parts.values())
+        init = spawn_init(work)  # 20a's init, beside 19b
         cuda_verify.reset_launches()  # the restart from files starts here
         cuda_hash.reset_launches()
         restart_counts = phase_restart_rollback(source, servers, peer, home, dev)
         check_healthy("phase 19b")
         parts["19b_s"] = time.perf_counter() - t0 - sum(parts.values())
+        started["peer"] = None
+        peer.stop()  # 19b's; its memory back before phase 20's processes start
+        t20 = time.perf_counter()
+        ctx, cli_counts = phase_cli_start(source, servers, dev, work, init)  # a process of its own
+        parts["20a_s"] = time.perf_counter() - t20
+        stopped = stop_phase19_servers(started)  # 20b and 20c need no server
+        # 20c runs beside 20b (module note): its processes are its own
+        e2e_thread = threading.Thread(target=run_e2e, name="phase-20c")
+        e2e_thread.start()
+        cli_counts = add_launches(cli_counts, phase_stopped_home(source, ctx, work))
+        parts["20b_s"] = time.perf_counter() - t20 - parts["20a_s"]
     finally:
-        if started is not None:
+        if stopped is None and started is not None:
             stopped = stop_phase19_servers(started)
         restore_node_sinks(sinks)
-    check(all(x is None for x in stopped), f"phase 19a-b: the servers' stop {stopped}")
-    parts["servers_stop_s"] = time.perf_counter() - t0 - sum(parts.values())
-    sinks = node_sinks()
-    try:
-        phase_remote_cluster(dev)
-    finally:
-        restore_node_sinks(sinks)
-    parts["19c_s"] = time.perf_counter() - t0 - sum(parts.values())
+        if e2e_thread is not None:
+            e2e_thread.join()
+        if init is not None and init.poll() is None:  # where 20a was not reached
+            init.kill()
+            init.wait(10)
+        shutil.rmtree(work, ignore_errors=True)
+    parts["20_s"] = time.perf_counter() - t20
+    if "error" in e2e:
+        raise e2e["error"]
+    check(all(x is None for x in stopped), f"phase 19a-b, 20a: the servers' stop {stopped}")
+    parts["20c_s"] = e2e["seconds"]
+    cli_counts = add_launches(cli_counts, e2e["launches"])
     seconds = time.perf_counter() - t0
-    emit({"phase": "files_and_joins", "seconds": seconds, "parts": parts, "budget_s": PHASE19_BUDGET_S})
-    return statesync_counts, restart_counts, seconds
+    emit({"phase": "files_and_joins", "seconds": seconds, "parts": parts,
+          "max_rss_gb_of_this_process": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+          "budget_s": {"phase_19": PHASE19_BUDGET_S, "phase_20": PHASE20_BUDGET_S}})
+    return statesync_counts, restart_counts, cli_counts, seconds
 
 
 def main(argv=None) -> int:
@@ -7885,9 +8229,9 @@ def main(argv=None) -> int:
         rpc_counts = add_launches(rpc_light_counts, rpc_cluster_counts)
         health["phase_18a"] = check_healthy("phase 18a")
         check(rpc_counts["verify_resident"] > 0, f"phase 18: launches {rpc_counts}")
-        statesync_counts, restart_counts, _ = phase_files_and_joins(node_source, dev, NODE_SYNC_TO / node_blocks_per_s,
-                                                                    phase19)
-        health["phase_19"] = check_healthy("phase 19")
+        statesync_counts, restart_counts, cli_counts, _ = phase_files_and_joins(
+            node_source, dev, NODE_SYNC_TO / node_blocks_per_s, phase19)
+        health["phase_19_20"] = check_healthy("phases 19 and 20")
     finally:
         stop_phase19_servers(phase19)  # where phase 19 was not reached
     crypto_batch.shutdown_shared_scheduler()
@@ -7913,6 +8257,7 @@ def main(argv=None) -> int:
         row["launches_rpc"] = rpc_counts.get(name, 0)
         row["launches_statesync"] = statesync_counts[name]
         row["launches_restart"] = restart_counts[name]
+        row["launches_cli"] = cli_counts.get(name, 0)
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

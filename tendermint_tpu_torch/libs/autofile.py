@@ -1,7 +1,8 @@
 """Rotating append-only file group (internal/libs/autofile/group.go).
 
 A copy of ``tendermint_tpu/libs/autofile.py``, the consensus WAL's file
-(``consensus/wal.py``).
+(``consensus/wal.py``), less ``head_size``, which nothing of the port
+calls.
 
 A Group is a logically-infinite append log physically split into chunks:
 writes go to the *head* file; when the head passes ``head_size_limit``
@@ -109,6 +110,9 @@ class Group:
             self._head.close()
             self._head = None
 
+    def end_offset(self) -> int:
+        return self._head_base + self._head_size
+
     # --- writing -------------------------------------------------------------
 
     def write(self, data: bytes) -> None:
@@ -173,6 +177,12 @@ class Group:
                 else:
                     yield base, fh.read()
             logical_offset = base + size
+
+    def read_from(self, logical_offset: int) -> bytes:
+        """All bytes from logical_offset to the end (across segments).
+        Prefer iter_segments_from for large logs — this materializes
+        everything at once."""
+        return b"".join(data for _, data in self.iter_segments_from(logical_offset))
 
     def truncate_head_tail(self, keep_bytes: int) -> None:
         """Truncate the HEAD file to keep_bytes (crash-torn-tail repair;

@@ -37,8 +37,9 @@ to a verifyd, over the shared-memory ingress when it shares the host
 (``verify_shm``).
 
 Cut from this node, each refused rather than ignored (ROADMAP §A): the
-verify mesh (item 10); the autotuner (item 9). The config file and the
-operator CLI that would start a node are item 8g.
+verify mesh (item 10); the autotuner (item 9). ``config.py`` reads a
+node's ``config.toml`` into a :class:`NodeConfig`, and ``python -m
+tendermint_tpu_torch start`` builds the node from it.
 
 One divergence, with the reactors' and the syncers': the reference
 hides a device error in seven places (four reactors' loops, the block
@@ -341,7 +342,8 @@ class Node:
         # the challenge hash, the byte ledger; and the kernel profiler
         # installed as the tracer's profile sink.
         if config.resident_tables:
-            _resident.configure(config.resident_tables)
+            # "auto" follows the device, as the store does unless forced
+            _resident.configure(None if config.resident_tables == "auto" else config.resident_tables)
         _ops.bind_metrics(ops_metrics)
         _introspect.install()
         if config.trace:

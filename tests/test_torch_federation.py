@@ -140,10 +140,16 @@ def test_two_shards_take_disjoint_slices_and_stamp_their_id(shards):
         all_pks = [p for ln in lanes for p in ln[0]]
         all_msgs = [m for ln in lanes for m in ln[1]]
         all_sigs = [s for ln in lanes for s in ln[2]]
-        assert fed.verify(all_pks, all_msgs, all_sigs) == [True] * len(all_pks)
+        # consensus class: placement is the test, not the admission
+        # controller, which sheds rpc-class lanes once a loaded host's
+        # flushes make its service-time estimate pass its budget (and the
+        # ladder then moves them; see the test after this one)
+        consensus = protocol.CLASS_CONSENSUS
+        assert fed.verify(all_pks, all_msgs, all_sigs, klass=consensus) == [True] * len(all_pks)
         first = [set(s) for s in seen]
-        assert fed.verify(all_pks, all_msgs, all_sigs) == [True] * len(all_pks)
+        assert fed.verify(all_pks, all_msgs, all_sigs, klass=consensus) == [True] * len(all_pks)
         assert [set(s) for s in seen] == first  # stable placement
+        assert fed.failovers == 0 and fed.rerouted_lanes == 0
         assert seen[0] and seen[1] and not (seen[0] & seen[1])  # disjoint slices
         for pks, _ in committees:
             assert len({sid for sid in range(2) if set(pks) & seen[sid]}) == 1
@@ -157,6 +163,31 @@ def test_two_shards_take_disjoint_slices_and_stamp_their_id(shards):
     finally:
         fed.close()
         jf.close()
+
+
+def test_a_loaded_shard_sheds_rpc_lanes_to_the_next_rung_and_keeps_consensus_lanes(shards):
+    """What moved placement in the disjoint-slices test under a loaded
+    host: once a shard's learned per-lane flush cost puts a group past
+    its service-time budget, it sheds rpc-class lanes, and the ladder
+    verifies them on the next shard; consensus-class lanes are never
+    shed, so they stay on their own shard."""
+    servers, addrs, seen = shards(2)
+    fed = FederationClient(addrs)
+    try:
+        pks, sign = seeded_committee(4, seed=30)
+        lanes = lanes_of(pks, sign, b"shed")
+        fed.note_validator_set(pks)  # the committee routes as one group
+        home = fed.shard_for(pks[0])
+        other = 1 - home
+        # the host's flushes as a loaded test machine makes them: 0.2 s a lane
+        servers[home].admission.observe_flush(1, 0.2)
+        assert fed.verify(*lanes, klass=protocol.CLASS_RPC) == [True] * 4
+        assert set(pks) <= seen[other] and not set(pks) & seen[home]
+        assert fed.failovers == 1 and fed.rerouted_lanes == 4
+        assert fed.verify(*lanes, klass=protocol.CLASS_CONSENSUS) == [True] * 4
+        assert set(pks) <= seen[home] and fed.failovers == 1
+    finally:
+        fed.close()
 
 
 def test_every_response_carries_the_shards_id_and_a_misroute_is_counted(shards):

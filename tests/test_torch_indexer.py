@@ -236,7 +236,10 @@ def test_node_config_selects_sinks(port_node_env, tmp_path):
     conn = node.event_sink.sinks[1]._conn
     node.start()
     try:
-        assert wait_for(lambda: node.height >= 2, timeout=60)
+        # node.height is the block store's, which is saved before the
+        # block is applied and indexed; block 3 is saved only once block
+        # 2 has been indexed (finalize: save, apply, then the next height)
+        assert wait_for(lambda: node.height >= 3, timeout=60)
         cur = conn.cursor()
         cur.execute("SELECT COUNT(*) FROM blocks")
         assert cur.fetchone()[0] >= 2

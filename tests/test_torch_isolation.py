@@ -256,10 +256,11 @@ def test_the_light_and_blocksync_modules_are_checked_and_default_to_cuda(no_cuda
     assert tpipe.verify_commits_pipelined([], device="cpu") == []
 
 
-def test_the_verify_service_modules_are_checked_and_default_to_cuda(no_cuda):
+def test_the_verify_service_modules_are_checked_and_default_to_cuda(no_cuda, capsys):
     """The verify service, its transport and its command line stand
-    alone too; the server, and so the CLI, raise without CUDA unless
-    asked for the CPU. No module of the service reads an environment
+    alone too; the server raises without CUDA unless asked for the CPU,
+    and the CLI, as the reference's ``main`` does with such an error,
+    prints it and exits 1. No module of the service reads an environment
     knob."""
     from tendermint_tpu_torch import cli
     from tendermint_tpu_torch.verifyd.server import VerifydServer
@@ -270,8 +271,9 @@ def test_the_verify_service_modules_are_checked_and_default_to_cuda(no_cuda):
         assert f"tendermint_tpu_torch.{mod}" in mods
     with pytest.raises(RuntimeError, match="cuda"):
         VerifydServer()
-    with pytest.raises(RuntimeError, match="cuda"):
-        cli.main(["verifyd", "--listen", "127.0.0.1:0"])
+    capsys.readouterr()
+    assert cli.main(["verifyd", "--listen", "127.0.0.1:0"]) == 1
+    assert "error: tendermint_tpu_torch: device 'cuda' requested" in capsys.readouterr().err
     srv = VerifydServer(device="cpu")
     try:
         assert srv.device == torch.device("cpu") and srv.dyn_batch
